@@ -1,0 +1,29 @@
+"""rt_rs_tpu_torch — the PyTorch + CUDA port of rt_rs_tpu.
+
+A second package beside the JAX reference ``rt_rs_tpu``: the same scene
+formats, the same pbvh frame path (packet chunk culling, Möller–Trumbore
+packet trace with kernel-emitted rows, any-hit shadows, per-ray refine
+cull, tiled shading), with every TPU kernel of that path rewritten as a
+hand-written CUDA kernel for Hopper (``sm_90a``, ``csrc/``).  Each kernel
+has a plain-PyTorch twin, which runs for CPU tensors.
+
+This package imports ``torch`` and never ``jax`` or ``rt_rs_tpu``.
+"""
+
+from rt_rs_tpu_torch.config import ComputeConfig, Config, Resolution
+from rt_rs_tpu_torch.renderer import Renderer, run_headless
+from rt_rs_tpu_torch.scene import Scene
+from rt_rs_tpu_torch.scene.camera import CameraController, CameraUniform
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ComputeConfig",
+    "Config",
+    "Resolution",
+    "Scene",
+    "CameraUniform",
+    "CameraController",
+    "Renderer",
+    "run_headless",
+]

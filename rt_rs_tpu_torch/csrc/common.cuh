@@ -1,0 +1,73 @@
+// Shared device helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel here is built by rt_rs_tpu_torch/ops/cuda.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -fmad=false -prec-div=true -prec-sqrt=true -ftz=false
+// and never with --use_fast_math: the results must equal the plain
+// PyTorch twins op for op, and those (like the JAX reference) round
+// every multiply and add separately and divide with IEEE rounding.
+// Expressions below are written in the reference's operation order
+// (C evaluates a + b + c as (a + b) + c, as Python does).
+//
+// Each entry point has a plain C interface (pointers, sizes, the
+// stream) and returns cudaGetLastError() right after its launch; the
+// Python wrapper raises on a nonzero code.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define RT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// NaN-propagating min/max with the semantics of jnp.minimum/maximum
+// and torch.minimum/maximum (fminf/fmaxf would drop the NaN).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Hit point + interpolated unit normal of one ray, op for op
+// rt_rs_tpu/ops/pallas/shade_tile.py::_hit_normal (the corner
+// rotation of compute.wgsl:120-151 is baked into the shade-table
+// column order: b = cols 0-2, c = 3-5, a = 6-8).  `row(c)` reads
+// shade-table column c of this ray's hit.
+struct HitNormal {
+  float hx, hy, hz, nx, ny, nz;
+};
+
+template <typename Row>
+__device__ __forceinline__ HitNormal hit_normal(const Row& row, float ox,
+                                                float oy, float oz, float dx,
+                                                float dy, float dz, float t) {
+  HitNormal h;
+  h.hx = ox + dx * t;
+  h.hy = oy + dy * t;
+  h.hz = oz + dz * t;
+  const float bx = row(0), by = row(1), bz = row(2);
+  const float cx = row(3), cy = row(4), cz = row(5);
+  const float ax = row(6), ay = row(7), az = row(8);
+  const float v0x = bx - ax, v0y = by - ay, v0z = bz - az;
+  const float v1x = cx - ax, v1y = cy - ay, v1z = cz - az;
+  const float v2x = h.hx - ax, v2y = h.hy - ay, v2z = h.hz - az;
+  const float d00 = v0x * v0x + v0y * v0y + v0z * v0z;
+  const float d01 = v0x * v1x + v0y * v1y + v0z * v1z;
+  const float d11 = v1x * v1x + v1y * v1y + v1z * v1z;
+  const float d20 = v2x * v0x + v2y * v0y + v2z * v0z;
+  const float d21 = v2x * v1x + v2y * v1y + v2z * v1z;
+  float denom = d00 * d11 - d01 * d01;
+  denom = (denom == 0.0f) ? 1.0f : denom;
+  const float vv = (d11 * d20 - d01 * d21) / denom;
+  const float ww = (d00 * d21 - d01 * d20) / denom;
+  const float uu = 1.0f - vv - ww;
+  const float nx = row(9) * vv + row(12) * ww + row(15) * uu;
+  const float ny = row(10) * vv + row(13) * ww + row(16) * uu;
+  const float nz = row(11) * vv + row(14) * ww + row(17) * uu;
+  const float rn = rsqrtf(nx * nx + ny * ny + nz * nz);
+  h.nx = nx * rn;
+  h.ny = ny * rn;
+  h.nz = nz * rn;
+  return h;
+}

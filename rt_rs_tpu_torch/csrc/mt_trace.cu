@@ -1,0 +1,161 @@
+// Kernel B: the Möller–Trumbore packet trace.
+//
+// Replaces rt_rs_tpu/ops/pallas/packet_trace.py::_mt_kernel with its
+// per-(chunk, tile) test mt_chunk_test, in three modes:
+//   closest (mode 0): t [T, r] f32, pid [T, r] i32;
+//   rows    (mode 1): also the winner's 32-float shade row [32, T, r];
+//   any-hit (mode 2): blocked [T, r] bool.
+// Each tile walks ids[t, 0:counts[t]] (the compacted, ascending chunk
+// list) and tests every triangle of each chunk.  A hit is ok iff the
+// sign-folded two-sided test passes (adet > eps, 0 <= su <= adet,
+// sv >= 0, su + sv <= adet), t_min < w < t_max, and pid != excl
+// (payload row 6).  Closest hit: the minimum w, ties to the smallest
+// pid, misses (t_max + 1, 0).  Any-hit: some ok hit has w < cap
+// (payload row 7).  Tiles with an empty list write misses.
+//
+// What bounds it on this card: f32 arithmetic, ~40 ops per (ray,
+// triangle) pair, with the chunk's 64 x 9 floats read from shared
+// memory as broadcasts.  One block owns one 256-ray tile (one thread
+// per ray); the chunk is staged cooperatively, then each thread scans
+// the 64 triangles in ascending pid order with a strict `<`, which is
+// exactly the TPU kernel's sublane-then-slot (min t, min pid)
+// reduction.  The TPU builds rows with a 0/1-match matmul because it
+// cannot gather; here the winner's row is one indexed 128-byte load
+// (row 0 of the table is zeros, so misses need no branch).  Any-hit
+// stops a tile once every ray is blocked (a block-wide vote per chunk).
+#include "common.cuh"
+
+enum { MODE_CLOSEST = 0, MODE_ROWS = 1, MODE_ANYHIT = 2 };
+
+// mt_chunk_test for one (ray, triangle): returns ok and sets w.  tri
+// holds a, e1 = b - a, e2 = c - a.
+__device__ __forceinline__ bool mt_test(const float* tri, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float t_min, float t_max,
+                                        float eps, float& w) {
+  const float ax = tri[0], ay = tri[1], az = tri[2];
+  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  // p = cross(d, e2)
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  // tvec = o - a
+  const float tx = ox - ax;
+  const float ty = oy - ay;
+  const float tz = oz - az;
+  // q = cross(tvec, e1)
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float u = tx * px + ty * py + tz * pz;
+  const float v = dx * qx + dy * qy + dz * qz;
+  const float sgn = (det > 0.0f) ? 1.0f : ((det < 0.0f) ? -1.0f : 0.0f);
+  const float adet = fabsf(det);
+  const float su = u * sgn;
+  const float sv = v * sgn;
+  if (!((adet > eps) && (su >= 0.0f) && (su <= adet) && (sv >= 0.0f) &&
+        (su + sv <= adet)))
+    return false;
+  w = (e2x * qx + e2y * qy + e2z * qz) / det;
+  return (w > t_min) && (w < t_max);
+}
+
+template <int MODE>
+__global__ void mt_trace_kernel(const float* __restrict__ payload,
+                                const float* __restrict__ comp,
+                                const int* __restrict__ ids,
+                                const int* __restrict__ counts,
+                                const float* __restrict__ attr,
+                                float* __restrict__ out_t,
+                                int* __restrict__ out_pid,
+                                float* __restrict__ out_rows,
+                                bool* __restrict__ out_blocked, int n_tiles,
+                                int r, int nc, int tc, float t_min,
+                                float t_max, float eps, float miss) {
+  extern __shared__ float chunk[];  // [tc, 9]
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x;
+  const long plane = (long)n_tiles * r;
+  const long idx = (long)tile * r + lane;
+  const int count = counts[tile];
+
+  const float ox = payload[0 * plane + idx];
+  const float oy = payload[1 * plane + idx];
+  const float oz = payload[2 * plane + idx];
+  const float dx = payload[3 * plane + idx];
+  const float dy = payload[4 * plane + idx];
+  const float dz = payload[5 * plane + idx];
+  const float excl = payload[6 * plane + idx];
+  const float cap = payload[7 * plane + idx];
+
+  float best_t = miss;
+  int best_id = 0;
+  bool blocked = false;
+  const int* list = ids + (long)tile * nc;
+  for (int k = 0; k < count; ++k) {
+    const int c = list[k];
+    __syncthreads();  // everyone is done with the previous chunk
+    for (int i = lane; i < tc * 9; i += blockDim.x)
+      chunk[i] = comp[(long)c * tc * 9 + i];
+    __syncthreads();
+    if (!blocked) {
+      const int pid0 = 1 + c * tc;
+      for (int s = 0; s < tc; ++s) {
+        float w;
+        if (!mt_test(chunk + s * 9, ox, oy, oz, dx, dy, dz, t_min, t_max,
+                     eps, w))
+          continue;
+        if ((float)(pid0 + s) == excl) continue;
+        if (MODE == MODE_ANYHIT) {
+          if (w < cap) {
+            blocked = true;
+            break;
+          }
+        } else if (w < best_t) {
+          best_t = w;
+          best_id = pid0 + s;
+        }
+      }
+    }
+    if (MODE == MODE_ANYHIT && __syncthreads_and(blocked)) break;
+  }
+
+  if (MODE == MODE_ANYHIT) {
+    out_blocked[idx] = blocked;
+    return;
+  }
+  out_t[idx] = best_t;
+  out_pid[idx] = best_id;
+  if (MODE == MODE_ROWS) {
+    const float* src = attr + (long)best_id * 32;
+    for (int j = 0; j < 32; ++j) out_rows[j * plane + idx] = src[j];
+  }
+}
+
+RT_EXPORT int rt_mt_trace(const float* payload, const float* comp,
+                          const int* ids, const int* counts,
+                          const float* attr, float* out_t, int* out_pid,
+                          float* out_rows, bool* out_blocked, int n_tiles,
+                          int r, int nc, int tc, float t_min, float t_max,
+                          float eps, float miss, int mode,
+                          cudaStream_t stream) {
+  if (n_tiles > 0) {
+    const size_t smem = (size_t)tc * 9 * sizeof(float);
+#define RT_LAUNCH(M)                                                      \
+  mt_trace_kernel<M><<<n_tiles, r, smem, stream>>>(                       \
+      payload, comp, ids, counts, attr, out_t, out_pid, out_rows,         \
+      out_blocked, n_tiles, r, nc, tc, t_min, t_max, eps, miss)
+    if (mode == MODE_CLOSEST)
+      RT_LAUNCH(MODE_CLOSEST);
+    else if (mode == MODE_ROWS)
+      RT_LAUNCH(MODE_ROWS);
+    else if (mode == MODE_ANYHIT)
+      RT_LAUNCH(MODE_ANYHIT);
+    else
+      return (int)cudaErrorInvalidValue;
+#undef RT_LAUNCH
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,69 @@
+"""Acceleration-structure backend protocol.
+
+Counterpart of ``rt_rs_tpu/handlers/base.py`` (reference: the
+``IntrsHandler`` trait, ``src/lib/handlers/mod.rs:52-67``).  A handler
+builds its device tensors from the packed scene (and may permute the
+scene's prims into its leaf order), then hands the frame path the
+intersect callables of the tiled contract of
+:func:`rt_rs_tpu_torch.ops.shade.trace_tiled`.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any
+
+from rt_rs_tpu_torch.config import ComputeConfig
+from rt_rs_tpu_torch.scene import Scene
+from rt_rs_tpu_torch.scene.arrays import SceneArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class IntrsStats:
+    """Handler name + acceleration-structure byte footprint
+    (``src/lib/handlers/mod.rs:47-50``)."""
+
+    name: str
+    size: int
+
+
+class IntrsHandler(abc.ABC):
+    """One acceleration backend."""
+
+    name: str = "?"
+    block_lanes: int = 128  # rays per ray tile; one pixel block each
+
+    @abc.abstractmethod
+    def build(self, scene: Scene, arrays: SceneArrays) -> tuple[Any, SceneArrays]:
+        """Build the device structures on ``arrays.device`` -> ``(accel,
+        arrays)``, where ``arrays`` is the (possibly leaf-reordered)
+        scene to shade with."""
+
+    @abc.abstractmethod
+    def stats(self, accel: Any) -> IntrsStats:
+        ...
+
+    @abc.abstractmethod
+    def intersect_tiled_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
+        """Closest hit over component-major ray tiles: ``(payload
+        [8, T, r], valid [T, r], t_cap=None) -> (t [T, r], pid [T, r])``
+        (payload row 6 is the f32 exclusion id)."""
+
+    def intersect_tiled_rows_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
+        """Closest hit that also emits the winners' shade-table rows:
+        ``(payload, valid, t_cap=None) -> (t, pid, rows [32, T, r])``.
+        ``None`` (default) = unsupported."""
+        return None
+
+    def intersect_tiled_anyhit_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
+        """Occlusion only: ``(payload, valid, t_cap=None) -> blocked
+        [T, r] bool``, True iff some prim other than the exclusion lies
+        in ``(t_min, payload row 7)``.  ``None`` (default) =
+        unsupported."""
+        return None
+
+    def rows_default(self, accel: Any, n_pixels: int) -> bool:
+        """Whether a frame takes the kernel-emitted-rows branch: the JAX
+        package's default for resident tables at every size."""
+        return True

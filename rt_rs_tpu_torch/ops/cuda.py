@@ -1,0 +1,155 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+The kernels live in ``rt_rs_tpu_torch/csrc/*.cu`` and are compiled for
+Hopper (``sm_90a``) by ``nvcc`` into one shared library with a plain C
+interface, loaded through ``ctypes``.  The build runs at first use, from
+the sources in this checkout only, into ``rt_rs_tpu_torch/build/<hash>``
+where the hash covers the sources and the flags, so an edited source
+rebuilds and an unchanged one loads the cached library.
+
+The flags pin the arithmetic: no FMA contraction (``-fmad=false``),
+IEEE division and square root, denormals kept, never
+``--use_fast_math``.  The kernels must equal their plain-PyTorch twins
+op for op (see csrc/common.cuh).
+
+Nothing here runs at import: the CPU tests import every module, and
+a CPU-only host may have no ``nvcc``.  A CUDA tensor handed to a kernel
+wrapper either launches the kernel or raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+LIB_NAME = "librt_rs_tpu_torch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points -> argument types (pointers and the stream as c_void_p).
+SIGNATURES = {
+    "rt_refine_cull": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "rt_mt_trace": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "rt_shade_pre": [_P] * 6 + [_I, _I, _I, _I] + [_P] * 4 + [_P],
+    "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P],
+}
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
+            "kernels cannot be built"
+        )
+    return found
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels (once per source hash) -> the library path.
+    The compiler's report (``-Xptxas=-v``: registers, shared memory,
+    spills per kernel) is kept beside it as ``build.log``."""
+    out_dir = BUILD / build_key()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = pathlib.Path(tmp) / LIB_NAME
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_lib), *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (out_dir / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# Kernel launches by wrapper name (mt_trace by mode, e.g. "mt_trace[rows]"),
+# counted by `call` once per launched kernel: a run shows from these that
+# it went through the kernels.  `LAUNCHES.clear()` resets them.
+LAUNCHES: collections.Counter[str] = collections.Counter()
+
+
+def call(counter: str, name: str, *args) -> None:
+    """Launch C entry point ``name`` on the current stream, raise on a
+    launch error (a refused launch never runs, and a later synchronize
+    would not report it), and count it under ``counter``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[counter] += 1
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def check(
+    name: str,
+    t: torch.Tensor,
+    dtype: torch.dtype,
+    shape: tuple[int, ...],
+    device: torch.device,
+) -> None:
+    """Validate one kernel argument before its pointer is passed on."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

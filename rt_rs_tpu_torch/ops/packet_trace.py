@@ -1,0 +1,609 @@
+"""Packet ray tracing: ray tiles against leaf-ordered triangle chunks.
+
+Counterpart of ``rt_rs_tpu/ops/pallas/packet_trace.py`` on its default
+path.  The host half is the same: prims in BVH leaf order are packed
+into 64-triangle chunks (:func:`build_tri_chunks`); per call, a
+conservative cull decides which chunks each 256-ray tile must test
+(the tile-interval cull for primaries, the per-ray slab cull for
+bounce and shadow batches), and a stable argsort compacts each tile's
+chunk list.  Two hand-written CUDA kernels do the rest:
+
+* :func:`refine_cull` — kernel A (csrc/refine_cull.cu), the per-ray
+  cull, replacing ``_refine_kernel``;
+* :func:`mt_trace` — kernel B (csrc/mt_trace.cu), the Möller–Trumbore
+  trace in closest-hit, emit-rows and any-hit modes, replacing
+  ``_mt_kernel`` + ``mt_chunk_test``.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+its plain-PyTorch twin (``*_reference``, same module) only for CPU
+tensors.  The twins are written op for op like the kernels, so on the
+card the two agree bit for bit.
+
+Layouts follow the JAX package: rays are component-major payloads
+``[8, T, r]`` (ox, oy, oz, dx, dy, dz, excl, cap).  The chunk table is
+compact on Hopper: ``comp [Nc, tc, 9]`` (a, e1 = b - a, e2 = c - a)
+instead of the TPU's lane-padded ``[Nc, tc, 128]``, and the rows table
+``attr [Nc * tc + 1, 32]`` is the reordered shade table with a zero
+row 0 (the miss row) instead of the TPU's transposed ``attr_t``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import numpy as np
+import torch
+
+from rt_rs_tpu_torch.ops import cuda
+
+LANES = 128  # the JAX package's lane width (its VMEM budgets count in it)
+TRI_CHUNK = 8  # the JAX package's unit of chunk-table size
+TUNED_TRI_CHUNK = 64  # triangles per chunk (the reference default)
+TUNED_RAY_TILE = 256  # rays per tile: one 16x16 pixel block
+# Chunk counts are padded to a multiple of CHUNK_ALIGN; pad chunks have
+# zero components (det = 0 -> always miss) and inverted bounds (culled).
+CHUNK_ALIGN = 32
+# The JAX package's resident-table cap (in 8-triangle units).  The port
+# keeps it so that both packages take the same path for a scene.
+MAX_VMEM_CHUNKS = 1536
+TILE_GROUP = 32  # tile counts are padded to a multiple of this
+MT_MODES = ("closest", "rows", "anyhit")
+
+
+@dataclasses.dataclass(frozen=True)
+class TriChunks:
+    """Leaf-ordered triangle soup in chunks of ``tc`` triangles.
+
+    ``comp [Nc, tc, 9]`` float32: a, e1, e2 per triangle.  ``bmin`` /
+    ``bmax`` ``[Nc, 3]``: chunk AABBs.  Triangle ``s`` of chunk ``c`` is
+    prim ``1 + c * tc + s`` (reordered, null-prefixed id space).
+    ``attr [Nc * tc + 1, 32]``: the winner-row table for the emit-rows
+    mode (row 0 zero), or None when the shade table has a non-finite
+    value."""
+
+    comp: torch.Tensor
+    bmin: torch.Tensor
+    bmax: torch.Tensor
+    num_chunks: int
+    attr: torch.Tensor | None = None
+
+    @property
+    def tri_chunk(self) -> int:
+        return int(self.comp.shape[1])
+
+
+def resident_fits(chunks: TriChunks, with_attrs: bool = False) -> bool:
+    """Whether the table is within the JAX package's resident budget
+    (12,288 triangles, or 8,192 with the rows table, at tc = 64).
+    Hopper has no such limit; the port keeps the rule so that a scene
+    takes the same path in both packages."""
+    tc = chunks.tri_chunk
+    tris = chunks.num_chunks * tc
+    per_tri = 512 + ((32 * LANES * 4) // tc if with_attrs else 0)
+    budget = MAX_VMEM_CHUNKS * TRI_CHUNK * 512  # bytes
+    return tris * per_tri <= budget
+
+
+def build_tri_chunks(
+    pa: np.ndarray,
+    pb: np.ndarray,
+    pc: np.ndarray,
+    max_chunks: int | None = MAX_VMEM_CHUNKS,
+    tri_chunk: int = TRI_CHUNK,
+    shade_rows: np.ndarray | None = None,  # [P+1, 32] shade table
+    device: str | torch.device = "cpu",
+) -> TriChunks:
+    """Pack reordered prim corners (rows 1.. of the scene arrays; row 0
+    is the null sentinel and is excluded) into chunks, in NumPy with
+    the JAX package's arithmetic, then place them on ``device``."""
+    pa = np.asarray(pa, dtype=np.float32)[1:]
+    pb = np.asarray(pb, dtype=np.float32)[1:]
+    pc = np.asarray(pc, dtype=np.float32)[1:]
+    p = pa.shape[0]
+    nc = max(1, -(-p // tri_chunk))
+    nc = -(-nc // CHUNK_ALIGN) * CHUNK_ALIGN
+    if max_chunks is not None and nc * tri_chunk > max_chunks * TRI_CHUNK:
+        raise ValueError(
+            f"scene has {p} triangles -> {nc} chunks x {tri_chunk}, "
+            f"exceeding the resident-table limit (~{max_chunks * TRI_CHUNK} "
+            "tris)"
+        )
+    pad = nc * tri_chunk - p
+
+    def padz(x):
+        return np.pad(x, ((0, pad), (0, 0)))
+
+    pa_, pb_, pc_ = padz(pa), padz(pb), padz(pc)  # degenerate pads -> miss
+    e1 = pb_ - pa_
+    e2 = pc_ - pa_
+    comp = np.concatenate([pa_, e1, e2], axis=1).reshape(nc, tri_chunk, 9)
+
+    tri_min = np.minimum(np.minimum(pa_, pb_), pc_)
+    tri_max = np.maximum(np.maximum(pa_, pb_), pc_)
+    if pad:
+        # Padded triangles must never enlarge chunk bounds.
+        tri_min[p:] = np.float32(np.finfo(np.float32).max)
+        tri_max[p:] = np.float32(-np.finfo(np.float32).max)
+    bmin = tri_min.reshape(nc, tri_chunk, 3).min(axis=1)
+    bmax = tri_max.reshape(nc, tri_chunk, 3).max(axis=1)
+
+    attr = None
+    if shade_rows is not None and not np.isfinite(shade_rows).all():
+        # The JAX package's rule: degenerate geometry (NaN smooth
+        # normals) keeps a scene off the emit-rows path, because its
+        # TPU rows matmul would spread a NaN to every ray of a tile.
+        from rt_rs_tpu_torch.utils.log import logger
+
+        logger.info(
+            "shade table has non-finite values (degenerate geometry); "
+            "kernel-emitted rows disabled"
+        )
+        shade_rows = None
+    if shade_rows is not None:
+        attr = np.zeros((nc * tri_chunk + 1, 32), dtype=np.float32)
+        attr[1 : p + 1] = np.asarray(shade_rows, dtype=np.float32)[1:]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return TriChunks(
+        comp=dev(comp),
+        bmin=dev(bmin),
+        bmax=dev(bmax),
+        num_chunks=nc,
+        attr=None if attr is None else dev(attr),
+    )
+
+
+def _f32(x: float, device: torch.device) -> torch.Tensor:
+    """A float32 scalar on ``device``: keeps every constant of the
+    twins in f32 and every division tensor-by-tensor (a CUDA tensor
+    divided by a host scalar is computed as a reciprocal multiply)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+# ----------------------------------------------------------------------
+# Tile-interval cull (primaries): plain PyTorch, as the JAX package's
+# XLA glue.
+
+
+def _interval_mul(u_lo, u_hi, i_lo, i_hi):
+    """Interval product bounds; NaN (0 * inf) resolves conservatively."""
+    cands = [u_lo * i_lo, u_lo * i_hi, u_hi * i_lo, u_hi * i_hi]
+    lo = cands[0]
+    hi = cands[0]
+    for c in cands[1:]:
+        lo = torch.minimum(lo, c)
+        hi = torch.maximum(hi, c)
+    lo = torch.where(torch.isnan(lo), -torch.inf, lo)
+    hi = torch.where(torch.isnan(hi), torch.inf, hi)
+    return lo, hi
+
+
+def chunk_overlap_mask_cm(
+    o3: torch.Tensor,  # [3, T, r] component-major origins
+    inv3: torch.Tensor,  # [3, T, r]
+    ray_valid: torch.Tensor,  # [T, r] bool
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    t_cap: torch.Tensor | None = None,  # [T, r]
+) -> torch.Tensor:
+    """Conservative [T, Nc] mask: False only if NO valid ray of the tile
+    can hit the chunk's AABB within the t-window (each tile's rays are
+    wrapped in one origin / inverse-direction interval box)."""
+    big = _f32(3.0e38, o3.device)
+    v = ray_valid[None, :, :]
+    o_lo = torch.where(v, o3, big).amin(dim=2).T  # [T, 3]
+    o_hi = torch.where(v, o3, -big).amax(dim=2).T
+    i_lo = torch.where(v, inv3, big).amin(dim=2).T
+    i_hi = torch.where(v, inv3, -big).amax(dim=2).T
+    return _overlap_from_bounds(
+        o_lo, o_hi, i_lo, i_hi, ray_valid, bmin, bmax,
+        t_min=t_min, t_max=t_max, t_cap=t_cap,
+    )
+
+
+def _wobble(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    return 1e-5 * torch.maximum(bmin.abs(), bmax.abs()) + 2e-6
+
+
+def _overlap_from_bounds(
+    o_lo, o_hi, i_lo, i_hi,  # [T, 3] per-tile interval bounds
+    ray_valid,  # [T, r] bool
+    bmin, bmax,  # [Nc, 3]
+    *,
+    t_min: float,
+    t_max: float,
+    t_cap: torch.Tensor | None,
+) -> torch.Tensor:
+    dev = bmin.device
+    wob = _wobble(bmin, bmax)
+    lo_b = bmin - wob
+    hi_b = bmax + wob
+    n_tiles = o_lo.shape[0]
+    nc = bmin.shape[0]
+    near_lb = torch.full((n_tiles, nc), -torch.inf, dtype=torch.float32, device=dev)
+    far_ub = torch.full((n_tiles, nc), torch.inf, dtype=torch.float32, device=dev)
+    for ax in range(3):
+        a_lo = lo_b[None, :, ax] - o_hi[:, None, ax]  # [T, Nc]
+        a_hi = lo_b[None, :, ax] - o_lo[:, None, ax]
+        b_lo = hi_b[None, :, ax] - o_hi[:, None, ax]
+        b_hi = hi_b[None, :, ax] - o_lo[:, None, ax]
+        il = i_lo[:, None, ax]
+        ih = i_hi[:, None, ax]
+        p0_lo, p0_hi = _interval_mul(a_lo, a_hi, il, ih)  # t0 bounds
+        p1_lo, p1_hi = _interval_mul(b_lo, b_hi, il, ih)  # t1 bounds
+        near_lb = torch.maximum(near_lb, torch.minimum(p0_lo, p1_lo))
+        far_ub = torch.minimum(far_ub, torch.maximum(p0_hi, p1_hi))
+    any_ray = ray_valid.any(dim=1)[:, None]
+    # Pad chunks carry inverted bounds (min > max); the interval test
+    # alone would not reject them, so cull them explicitly.
+    nonempty = (bmin <= bmax).all(dim=-1)[None, :]
+    t_max_t = _f32(t_max, dev)
+    if t_cap is None:
+        cap = t_max_t
+    else:
+        # A chunk beyond every valid ray's cap cannot matter.
+        cap = torch.minimum(
+            torch.where(ray_valid, t_cap, -torch.inf).amax(dim=1), t_max_t
+        )[:, None]
+    return (
+        any_ray
+        & nonempty
+        & (near_lb <= far_ub)
+        & (far_ub >= _f32(t_min, dev))
+        & (near_lb <= cap)
+    )
+
+
+# ----------------------------------------------------------------------
+# Kernel A: the per-ray refine cull (bounce and shadow batches).
+
+
+def refine_cull_reference(
+    payload: torch.Tensor,  # [8, T, r]
+    valid: torch.Tensor,  # [T, r] bool
+    bounds: torch.Tensor,  # [Nc, 6] wobbled lo xyz, hi xyz
+    capm: torch.Tensor,  # [T, r] min(cap, t_max)
+    *,
+    t_min: float,
+) -> torch.Tensor:
+    """Plain-PyTorch twin of kernel A -> [T, Nc] bool (any valid ray of
+    the tile passes the slab test), in TILE_GROUP-tile blocks so the
+    [B, r, Nc] temporaries stay small."""
+    n_tiles, r = valid.shape
+    nc = bounds.shape[0]
+    dev = payload.device
+    inv = torch.clamp(1.0 / payload[3:6], -1e30, 1e30)
+    lo = bounds[:, 0:3].T  # [3, Nc]
+    hi = bounds[:, 3:6].T
+    t_min_t = _f32(t_min, dev)
+    out = torch.zeros((n_tiles, nc), dtype=torch.bool, device=dev)
+    for b0 in range(0, n_tiles, TILE_GROUP):
+        sl = slice(b0, b0 + TILE_GROUP)
+        near = torch.full((1, 1, 1), -torch.inf, device=dev)
+        far = torch.full((1, 1, 1), torch.inf, device=dev)
+        for ax in range(3):
+            ob = payload[ax, sl][:, :, None]  # [B, r, 1]
+            ib = inv[ax, sl][:, :, None]
+            q0 = (lo[ax][None, None, :] - ob) * ib  # [B, r, Nc]
+            q1 = (hi[ax][None, None, :] - ob) * ib
+            near = torch.maximum(near, torch.minimum(q0, q1))
+            far = torch.minimum(far, torch.maximum(q0, q1))
+        ok = (
+            valid[sl][:, :, None]
+            & (near <= far)
+            & (far >= t_min_t)
+            & (near <= capm[sl][:, :, None])
+        )
+        out[sl] = ok.any(dim=1)
+    return out
+
+
+def refine_cull(
+    payload: torch.Tensor,
+    valid: torch.Tensor,
+    bounds: torch.Tensor,
+    capm: torch.Tensor,
+    *,
+    t_min: float,
+) -> torch.Tensor:
+    """Kernel A (csrc/refine_cull.cu) -> [T, Nc] bool.  CPU tensors run
+    :func:`refine_cull_reference`; CUDA tensors launch the kernel."""
+    if not payload.is_cuda:
+        return refine_cull_reference(payload, valid, bounds, capm, t_min=t_min)
+    n_tiles, r = valid.shape
+    nc = bounds.shape[0]
+    dev = payload.device
+    cuda.check("payload", payload, torch.float32, (8, n_tiles, r), dev)
+    cuda.check("valid", valid, torch.bool, (n_tiles, r), dev)
+    cuda.check("bounds", bounds, torch.float32, (nc, 6), dev)
+    cuda.check("capm", capm, torch.float32, (n_tiles, r), dev)
+    if r % 32 or r > 1024:
+        raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
+    if nc * 6 * 4 > 48 * 1024:
+        raise ValueError(f"{nc} chunks exceed the kernel's shared memory")
+    out = torch.empty((n_tiles, nc), dtype=torch.bool, device=dev)
+    cuda.call(
+        "refine_cull", "rt_refine_cull",
+        payload.data_ptr(), valid.data_ptr(), capm.data_ptr(),
+        bounds.data_ptr(), out.data_ptr(), n_tiles, r, nc, float(t_min),
+    )
+    return out
+
+
+def refine_inputs(
+    valid: torch.Tensor,
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    *,
+    t_max: float,
+    t_cap: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (bounds [Nc, 6], capm [T, r]): kernel A's chunk bounds
+    widened by the cull's wobble and each ray's window end."""
+    wob = _wobble(bmin, bmax)
+    bounds = torch.cat([bmin - wob, bmax + wob], dim=1).contiguous()
+    t_max_t = _f32(t_max, valid.device)
+    if t_cap is None:
+        capm = torch.full(valid.shape, t_max, dtype=torch.float32, device=valid.device)
+    else:
+        capm = torch.minimum(t_cap, t_max_t).contiguous()
+    return bounds, capm
+
+
+def chunk_overlap_mask_perray(
+    payload: torch.Tensor,  # [8, T, r]
+    valid: torch.Tensor,  # [T, r] bool
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    t_cap: torch.Tensor | None,
+) -> torch.Tensor:
+    """Per-ray slab cull OR-reduced over each tile's valid rays ->
+    [T, Nc] (``_perray_overlap_kernel_call`` of the JAX package): far
+    tighter lists than the interval cull when a tile's rays diverge."""
+    bounds, capm = refine_inputs(valid, bmin, bmax, t_max=t_max, t_cap=t_cap)
+    out = refine_cull(payload, valid, bounds, capm, t_min=t_min)
+    nonempty = (bmin <= bmax).all(dim=-1)
+    return out & nonempty[None, :]
+
+
+def compact(overlap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[T, Nc] mask -> (ids [T, Nc] int32, counts [T] int32): each
+    tile's overlapping chunk ids first, ascending (a stable argsort of
+    an int32 key, so the order is the same on every device)."""
+    key = (~overlap).to(torch.int32)
+    ids = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    counts = overlap.sum(dim=1, dtype=torch.int32)
+    return ids.contiguous(), counts
+
+
+# ----------------------------------------------------------------------
+# Kernel B: the Möller–Trumbore trace.
+
+
+def mt_chunk_test(tri, ox, oy, oz, dx, dy, dz, *, t_min, t_max, eps):
+    """The Möller–Trumbore lattice in kernel B's operation order ->
+    (ok, w).  ``tri`` holds the nine components (a, e1, e2), each
+    broadcastable against the ray components."""
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = tri
+    # p = cross(d, e2)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    # tvec = o - a
+    tx = ox - ax
+    ty = oy - ay
+    tz = oz - az
+    # q = cross(tvec, e1)
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    det = e1x * px + e1y * py + e1z * pz
+    u = tx * px + ty * py + tz * pz
+    v = dx * qx + dy * qy + dz * qz
+    # Two-sided test folded by sign (x * +-1 is exact).
+    sgn = torch.sign(det)
+    adet = det.abs()
+    su = u * sgn
+    sv = v * sgn
+    ok = (adet > eps) & (su >= 0.0) & (su <= adet) & (sv >= 0.0) & (su + sv <= adet)
+    w = (e2x * qx + e2y * qy + e2z * qz) / torch.where(ok, det, torch.ones_like(det))
+    ok = ok & (w > t_min) & (w < t_max)
+    return ok, w
+
+
+def mt_trace_reference(
+    comp: torch.Tensor,  # [Nc, tc, 9]
+    payload: torch.Tensor,  # [8, T, r]
+    ids: torch.Tensor,  # [T, Nc] int32
+    counts: torch.Tensor,  # [T] int32
+    attr: torch.Tensor | None = None,  # [Nc*tc+1, 32]
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str,
+):
+    """Plain-PyTorch twin of kernel B, vectorised over tiles, looping
+    over the list position ``k < max(counts)``.  Per chunk, the best
+    hit of each ray (min w, ties to the smallest triangle) replaces the
+    running best only when strictly nearer: the same result as the
+    kernel's ascending strict scan."""
+    dev = payload.device
+    n_tiles, r = payload.shape[1], payload.shape[2]
+    tc = comp.shape[1]
+    f = lambda x: _f32(x, dev)  # noqa: E731
+    t_min_t, t_max_t, eps_t = f(t_min), f(t_max), f(eps)
+    miss = f(float(np.float32(t_max + 1.0)))
+    ox, oy, oz, dx, dy, dz, excl, cap = (payload[i][:, None, :] for i in range(8))
+    sub = torch.arange(tc, dtype=torch.int32, device=dev)[None, :, None]
+    best_t = miss.expand(n_tiles, r).clone()
+    best_id = torch.zeros((n_tiles, r), dtype=torch.int32, device=dev)
+    blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
+    kmax = int(counts.max()) if n_tiles else 0
+    for k in range(kmax):
+        live = (counts > k)[:, None, None]  # [T, 1, 1]
+        c = ids[:, k].to(torch.int64)
+        tri = comp[c]  # [T, tc, 9]
+        ok, w = mt_chunk_test(
+            [tri[:, :, i : i + 1] for i in range(9)], ox, oy, oz, dx, dy, dz,
+            t_min=t_min_t, t_max=t_max_t, eps=eps_t,
+        )  # [T, tc, r]
+        pid0 = (1 + c.to(torch.int32) * tc)[:, None]  # [T, 1]
+        ok = ok & ((pid0[:, :, None] + sub).to(torch.float32) != excl) & live
+        if mode == "anyhit":
+            blocked = blocked | (ok & (w < cap)).any(dim=1)
+            continue
+        wm = torch.where(ok, w, miss)
+        cmin = wm.amin(dim=1)  # [T, r]
+        s_first = torch.where(wm == cmin[:, None, :], sub, tc).amin(dim=1)
+        better = cmin < best_t
+        best_t = torch.where(better, cmin, best_t)
+        best_id = torch.where(better, pid0 + s_first, best_id)
+    if mode == "anyhit":
+        return blocked
+    if mode == "rows":
+        rows = attr[best_id.to(torch.int64)].permute(2, 0, 1).contiguous()
+        return best_t, best_id, rows
+    return best_t, best_id
+
+
+def mt_trace(
+    comp: torch.Tensor,
+    payload: torch.Tensor,
+    ids: torch.Tensor,
+    counts: torch.Tensor,
+    attr: torch.Tensor | None = None,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str,
+):
+    """Kernel B (csrc/mt_trace.cu).  ``mode`` "closest" -> (t [T, r],
+    pid [T, r] int32); "rows" -> (t, pid, rows [32, T, r]); "anyhit" ->
+    blocked [T, r] bool.  CPU tensors run :func:`mt_trace_reference`;
+    CUDA tensors launch the kernel."""
+    if mode not in MT_MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
+    if mode == "rows" and attr is None:
+        raise ValueError("rows mode needs the attr table")
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode=mode)
+    if not payload.is_cuda:
+        return mt_trace_reference(comp, payload, ids, counts, attr, **kw)
+    nc, tc = comp.shape[0], comp.shape[1]
+    n_tiles, r = payload.shape[1], payload.shape[2]
+    dev = payload.device
+    cuda.check("comp", comp, torch.float32, (nc, tc, 9), dev)
+    cuda.check("payload", payload, torch.float32, (8, n_tiles, r), dev)
+    cuda.check("ids", ids, torch.int32, (n_tiles, nc), dev)
+    cuda.check("counts", counts, torch.int32, (n_tiles,), dev)
+    if mode == "rows":
+        cuda.check("attr", attr, torch.float32, (nc * tc + 1, 32), dev)
+    if r % 32 or r > 1024:
+        raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
+    out_t = out_pid = out_rows = out_blocked = None
+    if mode == "anyhit":
+        out_blocked = torch.empty((n_tiles, r), dtype=torch.bool, device=dev)
+    else:
+        out_t = torch.empty((n_tiles, r), dtype=torch.float32, device=dev)
+        out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
+    if mode == "rows":
+        out_rows = torch.empty((32, n_tiles, r), dtype=torch.float32, device=dev)
+    cuda.call(
+        f"mt_trace[{mode}]", "rt_mt_trace",
+        payload.data_ptr(), comp.data_ptr(), ids.data_ptr(),
+        counts.data_ptr(), cuda.ptr(attr if mode == "rows" else None),
+        cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
+        cuda.ptr(out_blocked), n_tiles, r, nc, tc, float(t_min),
+        float(t_max), float(eps), float(np.float32(t_max + 1.0)),
+        MT_MODES.index(mode),
+    )
+    if mode == "anyhit":
+        return out_blocked
+    if mode == "rows":
+        return out_t, out_pid, out_rows
+    return out_t, out_pid
+
+
+def packet_closest_hit_tiled(
+    chunks: TriChunks,
+    payload: torch.Tensor,  # [8, T, r] f32 component-major ray tiles
+    valid: torch.Tensor,  # [T, r] bool
+    t_cap: torch.Tensor | None = None,  # [T, r]
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    emit_rows: bool = False,
+    any_hit: bool = False,
+    refine: bool = False,
+):
+    """Closest hit over component-major ray tiles -> (t [T, r], pid
+    [T, r] int32), plus the winners' shade rows [32, T, r] with
+    ``emit_rows``; with ``any_hit``, blocked [T, r] bool: some prim
+    other than the ray's exclusion lies in (t_min, payload row 7).
+
+    Outputs are specified for valid rays only.  ``t_cap`` only tightens
+    culling.  ``refine`` takes the per-ray slab cull (kernel A) instead
+    of the tile-interval cull; both are conservative, so the results do
+    not depend on it."""
+    nc = chunks.num_chunks
+    # The JAX package carries prim ids as f32 and refuses ids at or
+    # above 2^24; the port keeps the same bound (and exclusion ids are
+    # still f32 in the payload).
+    if nc * chunks.tri_chunk + 1 >= 1 << 24:
+        raise ValueError(
+            "prim ids exceed f32 exact-integer range (2^24); scene too "
+            "large for exact exclusion/hit ids"
+        )
+    t_tiles = valid.shape[0]
+    if t_tiles % TILE_GROUP:
+        raise ValueError(f"tile count {t_tiles} not a multiple of {TILE_GROUP}")
+    if emit_rows and any_hit:
+        raise ValueError("emit_rows and any_hit are mutually exclusive")
+    if emit_rows and chunks.attr is None:
+        raise ValueError("emit_rows requires a chunk table built with shade_rows")
+    if refine not in (False, True, 0, 1):
+        raise NotImplementedError(
+            "subgroup refine (refine > 1) is not ported yet (ROADMAP module "
+            "item 15)"
+        )
+    if refine:
+        overlap = chunk_overlap_mask_perray(
+            payload, valid, chunks.bmin, chunks.bmax,
+            t_min=t_min, t_max=t_max, t_cap=t_cap,
+        )
+    else:
+        overlap = chunk_overlap_mask_cm(
+            payload[0:3], 1.0 / payload[3:6], valid, chunks.bmin, chunks.bmax,
+            t_min=t_min, t_max=t_max, t_cap=t_cap,
+        )
+    ids, counts = compact(overlap)
+    mode = "anyhit" if any_hit else ("rows" if emit_rows else "closest")
+    return mt_trace(
+        chunks.comp, payload, ids, counts, chunks.attr if emit_rows else None,
+        t_min=t_min, t_max=t_max, eps=eps, mode=mode,
+    )
+
+
+def tag_refine(fn, mode: str):
+    """Mark a tiled-entry callable with the refine policy so
+    :func:`rt_rs_tpu_torch.ops.shade.trace_tiled` can opt bounce and
+    shadow batches into the per-ray cull: ``"all"`` bakes
+    ``refine=True`` into every call, ``"bounces"`` only advertises
+    support."""
+    if mode not in ("off", "bounces", "all"):
+        raise ValueError(f"unknown refine mode {mode!r}")
+    if mode == "all":
+        fn = partial(fn, refine=True)
+    fn.supports_refine = mode != "off"
+    return fn

@@ -1,0 +1,304 @@
+"""Camera rays and the tiled bounce loop.
+
+Counterpart of ``rt_rs_tpu/ops/shade.py`` on the pbvh frame path:
+``render_tiled`` -> ``camera_ray_tiles`` + ``trace_tiled``.  Rays live
+as component-major ``[8, T, r]`` tiles end to end (ox, oy, oz, dx, dy,
+dz, excl, cap); each bounce is one row-emitting closest-hit call, one
+any-hit call for the shadow rays of every light, and the two shading
+kernels of :mod:`rt_rs_tpu_torch.ops.shade_tile`.  The semantics are
+the reference shader's bounce loop (compute.wgsl:219-280; headlight
+first, then the scene lights).
+
+Only ``trace_tiled``'s default branches are ported: the emit-rows
+branch, no retiling, no fused bounce kernel, no narrowed tiles.  The
+others raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from rt_rs_tpu_torch.config import ComputeConfig
+from rt_rs_tpu_torch.ops import shade_tile
+from rt_rs_tpu_torch.ops.packet_trace import TILE_GROUP, _f32
+from rt_rs_tpu_torch.scene.arrays import SceneArrays
+
+# fn(payload [8,T,r], valid [T,r], t_cap=None [T,r], **kw)
+#   -> (t [T,r], pid [T,r]) / (t, pid, rows [32,T,r]) / blocked [T,r]
+TiledIntersectFn = Callable[..., object]
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """v / |v| along the last axis, as ``v * rsqrt(sum(v^2))``."""
+    s = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
+    return v * torch.rsqrt(s)[..., None]
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [
+            a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0],
+        ]
+    )
+
+
+def padded_block_dims(
+    width: int, rows: int, block: tuple[int, int]
+) -> tuple[int, int]:
+    """(rows, width) padded up to multiples of the block shape."""
+    bh, bw = block
+    return -(-rows // bh) * bh, -(-width // bw) * bw
+
+
+def _blockify(grid: torch.Tensor, block: tuple[int, int]) -> torch.Tensor:
+    """Flatten a padded [Rp, Wp] grid in (block-row, block-col,
+    in-block-row, in-block-col) order."""
+    bh, bw = block
+    rp, wp = grid.shape
+    return (
+        grid.reshape(rp // bh, bh, wp // bw, bw)
+        .permute(0, 2, 1, 3)
+        .reshape(-1)
+    )
+
+
+def unblock_colors(
+    color: torch.Tensor,  # [Rp*Wp, 3] in block order
+    width: int,
+    rows: int,
+    block: tuple[int, int],
+) -> torch.Tensor:
+    """Invert the block ordering -> [rows, width, 3] raster image."""
+    bh, bw = block
+    rp, wp = padded_block_dims(width, rows, block)
+    img = (
+        color.reshape(rp // bh, wp // bw, bh, bw, 3)
+        .permute(0, 2, 1, 3, 4)
+        .reshape(rp, wp, 3)
+    )
+    return img[:rows, :width]
+
+
+def _pixel_grid(
+    width: int,
+    height: int,
+    rows: int,
+    block: tuple[int, int] | None,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Normalized pixel coordinates -> (norm_x [N], norm_y [N],
+    n_pixels), in raster order (``block`` None) or pixel-block order.
+    Block padding duplicates clamped border pixels; ``unblock_colors``
+    crops them away."""
+    f32 = torch.float32
+    xs = torch.arange(width, dtype=f32, device=device) / _f32(width, device) - 0.5
+    ys = torch.arange(rows, dtype=f32, device=device) / _f32(height, device) - 0.5
+    if block is None:
+        return xs.repeat(rows), ys.repeat_interleave(width), rows * width
+    rp, wp = padded_block_dims(width, rows, block)
+    xi = torch.clamp(torch.arange(wp, device=device), max=width - 1)
+    yi = torch.clamp(torch.arange(rp, device=device), max=rows - 1)
+    norm_x = _blockify(xs[xi][None, :].expand(rp, wp), block)
+    norm_y = _blockify(ys[yi][:, None].expand(rp, wp), block)
+    return norm_x, norm_y, rp * wp
+
+
+def camera_ray_tiles(
+    camera_pos: torch.Tensor,  # [3]
+    camera_at: torch.Tensor,  # [3]
+    width: int,
+    height: int,
+    ray_tile: int,
+    block: tuple[int, int] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Primary rays (pinhole, up = +Y, compute.wgsl:103-118) as
+    component-major tiles -> (payload [8, T, r], valid [T, r],
+    n_pixels), ``T`` padded to a multiple of TILE_GROUP."""
+    dev = camera_pos.device
+    dir_ = _normalize((camera_at - camera_pos)[None, :])[0]
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    right = _cross(dir_, up)
+
+    norm_x, norm_y, n_pixels = _pixel_grid(width, height, height, block, dev)
+    t_tiles = -(-n_pixels // ray_tile)
+    t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
+    n_pad = t_tiles * ray_tile
+    norm_x = torch.nn.functional.pad(norm_x, (0, n_pad - n_pixels))
+    norm_y = torch.nn.functional.pad(norm_y, (0, n_pad - n_pixels))
+
+    px = right[0] * norm_x + up[0] * norm_y + camera_pos[0] + dir_[0]
+    py = right[1] * norm_x + up[1] * norm_y + camera_pos[1] + dir_[1]
+    pz = right[2] * norm_x + up[2] * norm_y + camera_pos[2] + dir_[2]
+    vx = px - camera_pos[0]
+    vy = py - camera_pos[1]
+    vz = pz - camera_pos[2]
+    rinv = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    shape = (t_tiles, ray_tile)
+    zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
+    payload = torch.stack(
+        [
+            camera_pos[0].expand(shape),
+            camera_pos[1].expand(shape),
+            camera_pos[2].expand(shape),
+            (vx * rinv).reshape(shape),
+            (vy * rinv).reshape(shape),
+            (vz * rinv).reshape(shape),
+            zeros,  # excl
+            zeros,
+        ]
+    )
+    valid = (torch.arange(n_pad, device=dev) < n_pixels).reshape(shape)
+    return payload, valid, n_pixels
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to rt_rs_tpu_torch yet (ROADMAP module "
+        f"item {item})"
+    )
+
+
+def trace_tiled(
+    scene: SceneArrays,
+    intersect_fn: TiledIntersectFn,
+    cfg: ComputeConfig,
+    payload: torch.Tensor,  # [8, T, r] primary rays
+    valid: torch.Tensor,  # [T, r]
+    camera_pos: torch.Tensor,  # [3] (headlight position)
+    intersect_rows_fn: TiledIntersectFn | None = None,
+    intersect_anyhit_fn: TiledIntersectFn | None = None,
+    fuse_bounce: bool = False,
+    retile: bool = False,
+    narrow: int | None = None,
+) -> torch.Tensor:
+    """The bounce loop over component-major ray tiles -> color [3, T, r].
+
+    ``intersect_rows_fn`` emits the winners' shade rows from the trace
+    kernel (no row gathers).  Shadow rays of all lights go in one batch
+    to ``intersect_anyhit_fn`` (the occlusion bound rides payload row
+    7), minus the rays whose light cannot change the colour whatever
+    the verdict (shade_pre's mask; output-exact).  Bounce and shadow
+    batches opt into the per-ray cull when the backend advertises
+    ``supports_refine``.  ``intersect_fn`` (plain closest hit) is
+    what the gather branch will use; the default branch does not call
+    it."""
+    if fuse_bounce:
+        raise _not_ported("trace_tiled(fuse_bounce=True)", 15)
+    if retile:
+        raise _not_ported("trace_tiled(retile=True)", 15)
+    if narrow is not None:
+        raise _not_ported("trace_tiled(narrow=...)", 15)
+    if not scene.no_negative_materials:
+        raise _not_ported("the XLA trace() path for negative materials", 9)
+    if intersect_rows_fn is None or intersect_anyhit_fn is None:
+        raise _not_ported(
+            "trace_tiled without a rows or an any-hit entry (the gather branch)", 6
+        )
+    dev = payload.device
+    t_tiles, r = valid.shape
+    light_rows = []
+    if cfg.camera_light_source > 0.0:
+        light_rows.append(
+            torch.cat(
+                [
+                    camera_pos.to(torch.float32),
+                    _f32(cfg.camera_light_source, dev)[None],
+                ]
+            )
+        )
+    for j in range(scene.num_lights):
+        light_rows.append(
+            torch.cat([scene.light_pos[j], scene.light_strength[j : j + 1]])
+        )
+    k = len(light_rows)
+    color = torch.zeros((3, t_tiles, r), dtype=torch.float32, device=dev)
+    if k == 0:
+        # No light sources: every bounce contributes zero.
+        return color
+    lights = torch.stack(light_rows).contiguous()  # [k, 4]
+    sub = shade_tile.SUBGROUP
+
+    def refine_kw(fn):
+        # Secondary and shadow batches take the per-ray cull (their
+        # rays diverge within a tile); primaries keep the interval cull.
+        return {"refine": True} if getattr(fn, "supports_refine", False) else {}
+
+    def liveness(t, pid, active):
+        pid = torch.where(active, pid, 0)
+        valid_b = (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
+        active = active & valid_b
+        live_sg = active.reshape(t_tiles // sub, sub * r).any(dim=1).to(torch.int32)
+        return pid, active, live_sg
+
+    t, pid, rows = intersect_rows_fn(payload, valid)
+    pid, active, live_sg = liveness(t, pid, valid)
+    sh_pay, caps, cmasks, nxt = shade_tile.shade_pre(
+        rows, payload, t, pid.to(torch.float32), live_sg, lights,
+        emit_next=cfg.bounces > 1,
+    )
+
+    for bounce in range(cfg.bounces):
+        last = bounce + 1 >= cfg.bounces
+        # Shadow validity: live, and the light can contribute.
+        sh_valid = (active[None] & (cmasks > 0.0)).reshape(k * t_tiles, r)
+        blocked = intersect_anyhit_fn(
+            sh_pay, sh_valid, t_cap=caps.reshape(k * t_tiles, r),
+            **refine_kw(intersect_anyhit_fn),
+        )
+        sh_t = blocked.reshape(k, t_tiles, r).to(torch.float32)
+        if not last:
+            t2, pid2, rows2 = intersect_rows_fn(
+                nxt, active, **refine_kw(intersect_rows_fn)
+            )
+        color = color + shade_tile.shade_post(
+            rows, payload, t, active.to(torch.float32), sh_t, sh_t, caps,
+            live_sg, lights, first_bounce=bounce == 0,
+            t_min=cfg.t_min, t_max=cfg.t_max, blocked_mode=True,
+        )
+        if last:
+            break
+        pid2, active2, live_sg2 = liveness(t2, pid2, active)
+        sh_pay, caps, cmasks, nxt2 = shade_tile.shade_pre(
+            rows2, nxt, t2, pid2.to(torch.float32), live_sg2, lights,
+            emit_next=bounce + 2 < cfg.bounces,
+        )
+        rows, payload, t, pid = rows2, nxt, t2, pid2
+        active, live_sg, nxt = active2, live_sg2, nxt2
+
+    return color
+
+
+def render_tiled(
+    scene: SceneArrays,
+    intersect_fn: TiledIntersectFn,
+    cfg: ComputeConfig,
+    camera_pos: torch.Tensor,
+    camera_at: torch.Tensor,
+    width: int,
+    height: int,
+    ray_tile: int,
+    block: tuple[int, int] | None = None,
+    intersect_rows_fn: TiledIntersectFn | None = None,
+    intersect_anyhit_fn: TiledIntersectFn | None = None,
+    fuse_bounce: bool = False,
+    retile: bool = False,
+    narrow: int | None = None,
+) -> torch.Tensor:
+    """Full frame via the tiled path -> color [H, W, 3] float32."""
+    payload, valid, n_pixels = camera_ray_tiles(
+        camera_pos, camera_at, width, height, ray_tile, block=block
+    )
+    color = trace_tiled(
+        scene, intersect_fn, cfg, payload, valid, camera_pos,
+        intersect_rows_fn=intersect_rows_fn,
+        intersect_anyhit_fn=intersect_anyhit_fn,
+        fuse_bounce=fuse_bounce, retile=retile, narrow=narrow,
+    )
+    flat = color.reshape(3, -1)[:, :n_pixels].T  # [n_pixels, 3]
+    if block is not None:
+        return unblock_colors(flat, width, height, block)
+    return flat.reshape(height, width, 3)

@@ -1,0 +1,170 @@
+"""Scene data model, JSON serde and device packing.
+
+Counterpart of ``rt_rs_tpu/scene/__init__.py`` (reference:
+``src/lib/scene/mod.rs:16-272``): the same JSON schema (``camera``,
+``camera_controller``, ``prims``, ``vertices``, ``lights``,
+``materials``) and the same NumPy arrays, so a scene written by either
+package loads unchanged in the other.  :meth:`Scene.pack` places the
+:class:`SceneArrays` on an explicit torch device.
+
+OBJ import (``add_mesh``) is not ported yet (ROADMAP module item 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Mapping
+
+import numpy as np
+
+from rt_rs_tpu_torch.geom import (
+    Light,
+    Prim,
+    PrimMat,
+    PrimVertex,
+    SceneFormatError,
+    f32_json,
+)
+from rt_rs_tpu_torch.scene.camera import CameraController, CameraUniform
+
+
+@dataclasses.dataclass
+class Scene:
+    """An in-memory scene; numpy-backed for fast build/IO."""
+
+    camera: CameraUniform
+    camera_controller: CameraController
+    # [P, 3] uint32 vertex indices / [P] int32 material ids (no null prim here)
+    prim_indices: np.ndarray
+    prim_material: np.ndarray
+    # [V, 3] float32
+    vert_pos: np.ndarray
+    vert_norm: np.ndarray
+    # [L, 3] / [L]
+    light_pos: np.ndarray
+    light_strength: np.ndarray
+    # [M, 3] / [M, 3] / [M]
+    mat_color: np.ndarray
+    mat_albedo: np.ndarray
+    mat_spec: np.ndarray
+
+    @classmethod
+    def empty(
+        cls,
+        camera: CameraUniform | None = None,
+        camera_controller: CameraController | None = None,
+    ) -> "Scene":
+        return cls(
+            camera=camera or CameraUniform((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+            camera_controller=camera_controller or CameraController("Fixed"),
+            prim_indices=np.zeros((0, 3), dtype=np.uint32),
+            prim_material=np.zeros((0,), dtype=np.int32),
+            vert_pos=np.zeros((0, 3), dtype=np.float32),
+            vert_norm=np.zeros((0, 3), dtype=np.float32),
+            light_pos=np.zeros((0, 3), dtype=np.float32),
+            light_strength=np.zeros((0,), dtype=np.float32),
+            mat_color=np.zeros((0, 3), dtype=np.float32),
+            mat_albedo=np.zeros((0, 3), dtype=np.float32),
+            mat_spec=np.zeros((0,), dtype=np.float32),
+        )
+
+    @property
+    def num_prims(self) -> int:
+        return int(self.prim_indices.shape[0])
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.vert_pos.shape[0])
+
+    # ------------------------------------------------------------------
+    # JSON serde (reference schema, scene/mod.rs:29-109)
+
+    @classmethod
+    def from_json(cls, data: Mapping[str, Any]) -> "Scene":
+        try:
+            camera = CameraUniform.from_json(data["camera"])
+            controller = CameraController.from_json(data["camera_controller"])
+            prims = [Prim.from_json(p) for p in data["prims"]]
+            vertices = [PrimVertex.from_json(v) for v in data["vertices"]]
+            lights = [Light.from_json(l) for l in data["lights"]]
+            materials = [PrimMat.from_json(m) for m in data["materials"]]
+        except KeyError as e:
+            raise SceneFormatError(f"scene JSON missing field {e}") from e
+
+        scene = cls.empty(camera, controller)
+        if prims:
+            scene.prim_indices = np.array(
+                [p.indices for p in prims], dtype=np.uint32
+            )
+            scene.prim_material = np.array(
+                [p.material for p in prims], dtype=np.int32
+            )
+        if vertices:
+            scene.vert_pos = np.array([v.pos for v in vertices], dtype=np.float32)
+            scene.vert_norm = np.array([v.normal for v in vertices], dtype=np.float32)
+        if lights:
+            scene.light_pos = np.array([l.pos for l in lights], dtype=np.float32)
+            scene.light_strength = np.array(
+                [l.strength for l in lights], dtype=np.float32
+            )
+        if materials:
+            scene.mat_color = np.array([m.color for m in materials], dtype=np.float32)
+            scene.mat_albedo = np.array([m.albedo for m in materials], dtype=np.float32)
+            scene.mat_spec = np.array([m.spec for m in materials], dtype=np.float32)
+        return scene
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "camera": self.camera.to_json(),
+            "camera_controller": self.camera_controller.to_json(),
+            "prims": [
+                {
+                    "indices": [int(i) for i in self.prim_indices[p]],
+                    "material": int(self.prim_material[p]),
+                }
+                for p in range(self.num_prims)
+            ],
+            "vertices": [
+                {
+                    "pos": [f32_json(x) for x in self.vert_pos[v]],
+                    "normal": [f32_json(x) for x in self.vert_norm[v]],
+                }
+                for v in range(self.num_vertices)
+            ],
+            "lights": [
+                {
+                    "pos": [f32_json(x) for x in self.light_pos[l]],
+                    "strength": f32_json(self.light_strength[l]),
+                }
+                for l in range(self.light_pos.shape[0])
+            ],
+            "materials": [
+                {
+                    "color": [f32_json(x) for x in self.mat_color[m]],
+                    "albedo": [f32_json(x) for x in self.mat_albedo[m]],
+                    "spec": f32_json(self.mat_spec[m]),
+                }
+                for m in range(self.mat_color.shape[0])
+            ],
+        }
+
+    @classmethod
+    def load(cls, path: str) -> "Scene":
+        with open(path, "r") as f:
+            return cls.from_json(json.load(f))
+
+    def save(self, path: str, pretty: bool = True) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=2 if pretty else None)
+
+    # ------------------------------------------------------------------
+    # Device packing
+
+    def pack(self, device: str = "cpu") -> "SceneArrays":
+        from rt_rs_tpu_torch.scene.arrays import SceneArrays
+
+        return SceneArrays.from_scene(self, device)
+
+
+__all__ = ["Scene", "SceneFormatError"]

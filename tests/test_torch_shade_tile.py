@@ -1,0 +1,121 @@
+"""rt_rs_tpu_torch's shading twins against the JAX package's shading
+kernels (``shade_pre`` / ``shade_post``, interpret mode).
+
+The inputs are real frame state: a 64x48 ``torus_scene`` frame's
+primary hits (and its shadow verdicts) from the port.  Outputs are
+compared on active rays at atol 2e-6: the twins round every op
+separately and use torch's rsqrt / pow, the JAX kernels run through
+XLA:CPU, whose rsqrt, pow and contractions round differently in the
+last place.  Shadow-ray origins and light distances reach magnitudes of
+~55, where one ULP (3.8e-6) exceeds that atol, so ray and distance
+outputs also get rtol 2.4e-7 (2 ULP); the contribution masks must be
+equal and the colours meet atol 2e-6 alone.
+"""
+
+from __future__ import annotations
+
+import os
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rt_rs_tpu.ops.pallas import shade_tile as jst
+from rt_rs_tpu_torch import ComputeConfig, Config, Renderer, Resolution
+from rt_rs_tpu_torch.ops import shade, shade_tile
+from rt_rs_tpu_torch.scene.presets import torus_scene
+
+# pytest-xdist runs several test processes at once; torch's default of
+# one OpenMP thread per core in each of them oversubscribes the CPUs,
+# and the spinning threads slowed these tests about tenfold.
+torch.set_num_threads(
+    max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+)
+
+ATOL = 2e-6
+RAY_RTOL = 2.4e-7  # 2 ULP of float32
+
+
+def frame_state(headlight: float):
+    """Bounce 0 of a 64x48 frame: (renderer, rows, payload, t, pid,
+    active, live_sg, lights)."""
+    cfg = Config(
+        compute=ComputeConfig(camera_light_source=headlight),
+        resolution=Resolution.sized(64, 48),
+    )
+    r = Renderer(torus_scene(), config=cfg, device="cpu")
+    pos = torch.tensor(r.camera.pos, dtype=torch.float32)
+    payload, valid, _ = shade.camera_ray_tiles(
+        pos, torch.tensor(r.camera.at, dtype=torch.float32), 64, 48, 256, block=r.block
+    )
+    t, pid, rows = r._rows_fn(payload, valid)
+    pid = torch.where(valid, pid, 0)
+    active = valid & (pid != 0) & (t < cfg.compute.t_max) & (t > cfg.compute.t_min)
+    live_sg = active.reshape(-1, 8 * 256).any(dim=1).to(torch.int32)
+    lights = [r.arrays.light_pos, r.arrays.light_strength[:, None]]
+    lights = torch.cat(lights, dim=1)
+    if headlight > 0:
+        lights = torch.cat([torch.cat([pos, torch.tensor([headlight])])[None], lights])
+    return r, rows, payload, t, pid, active, live_sg, lights.contiguous()
+
+
+def _j(x):
+    return jnp.asarray(x.numpy())
+
+
+def close_on(ours, ref, active, what, rtol=0.0):
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    np.testing.assert_allclose(
+        ours[..., active], ref[..., active], rtol=rtol, atol=ATOL, err_msg=what
+    )
+
+
+@pytest.mark.parametrize("headlight", [0.0, 1.5])
+def test_shade_pre_matches_jax(headlight):
+    _, rows, payload, t, pid, active, live_sg, lights = frame_state(headlight)
+    a = active.numpy()
+    assert a.sum() > 2000  # most of the 3,072 pixels hit the scene
+    sh, caps, masks, nxt = shade_tile.shade_pre(
+        rows, payload, t, pid.float(), live_sg, lights, emit_next=True
+    )
+    jsh, jcaps, jmasks, jnxt = jst.shade_pre(
+        _j(rows), _j(payload), _j(t), _j(pid.float()), _j(live_sg), _j(lights),
+        emit_next=True, interpret=True,
+    )
+    k = lights.shape[0]
+    jsh = jnp.concatenate(list(jsh), axis=1)
+    close_on(sh, jsh, np.tile(a, (k, 1)), "shadow rays", rtol=RAY_RTOL)
+    close_on(caps, jnp.stack(list(jcaps)), a, "caps", rtol=RAY_RTOL)
+    np.testing.assert_array_equal(masks.numpy()[:, a], np.stack([np.asarray(m) for m in jmasks])[:, a])
+    close_on(nxt, jnxt, a, "reflection rays", rtol=RAY_RTOL)
+    # Dead subgroups write zeros; the cull mask drops some shadow rays.
+    dead = ~live_sg.bool().repeat_interleave(8)
+    assert not sh.reshape(8, k, -1, 256)[:, :, dead].any()
+    assert 0.0 < masks.numpy()[:, a].mean() < 1.0
+
+
+@pytest.mark.parametrize("blocked_mode", [True, False])
+@pytest.mark.parametrize("first_bounce", [True, False])
+def test_shade_post_matches_jax(blocked_mode, first_bounce):
+    r, rows, payload, t, pid, active, live_sg, lights = frame_state(0.0)
+    a = active.numpy()
+    k = lights.shape[0]
+    sh, caps, masks, _ = shade_tile.shade_pre(
+        rows, payload, t, pid.float(), live_sg, lights, emit_next=False
+    )
+    sh_valid = (active[None] & (masks > 0)).reshape(k * t.shape[0], -1)
+    kw = dict(t_cap=caps.reshape(k * t.shape[0], -1), refine=True)
+    if blocked_mode:
+        blocked = r._anyhit_fn(sh, sh_valid, **kw)
+        sh_t = sh_id = blocked.reshape(caps.shape).float()
+    else:
+        st, sid = r._intersect_fn(sh, sh_valid, **kw)
+        sh_t, sh_id = st.reshape(caps.shape), sid.reshape(caps.shape).float()
+    assert 0.0 < (sh_id.numpy()[:, a] != 0).mean() < 1.0  # lit and shadowed rays
+    args = (rows, payload, t, active.float(), sh_t, sh_id, caps, live_sg, lights)
+    flags = dict(first_bounce=first_bounce, t_min=0.01, t_max=1000.0, blocked_mode=blocked_mode)
+    ours = shade_tile.shade_post(*args, **flags)
+    ref = jst.shade_post(*(_j(x) for x in args), interpret=True, **flags)
+    close_on(ours, ref, a, "colour")
+    assert not ours.numpy()[:, ~a].any()  # inactive rays contribute nothing
+    assert ours.numpy()[:, a].mean() > 0.01
