@@ -1,9 +1,21 @@
 #!/usr/bin/env python3
-"""On-card smoke run of rt_rs_tpu_torch's frame path (one NVIDIA GPU).
+"""On-card smoke run of rt_rs_tpu_torch's frame paths (one NVIDIA GPU).
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
+
+Three frame paths are driven, each through ``Renderer(...,
+handler="pbvh", device="cuda")``:
+
+* ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
+  kernel-emitted rows and any-hit shadows;
+* ``segmented``: scenes beyond the resident table split into segments
+  (``streaming_mode="segmented"``, ``seg_order="auto"``), the gather
+  branch with closest-hit shadows: ``torus_row(2)`` (2 segments) and
+  ``torus_canyon()`` (50,562 triangles, 7 segments);
+* ``dma``: the same scenes on one table traced in streamed blocks
+  (``streaming_mode="dma"``, 128-ray tiles).
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -12,32 +24,46 @@ exits nonzero without printing a result):
    card's name and power limit.
 2. Build: compiles the hand-written kernels (rt_rs_tpu_torch/csrc) with
    nvcc and prints the build time and each kernel's register use.
-3. Kernels vs twins on the card: records every kernel call of one
-   ``torus_scene`` frame at 384x288 (primary rows call, per-bounce
-   refine culls, any-hit shadow batches and rows calls, shade_pre and
-   shade_post of every bounce) and replays each through the kernel and
-   through its plain-PyTorch twin.  Intersection and refine outputs
-   (t, pid, rows, blocked, overlap mask, compacted ids and counts) must
-   be bit-equal; shading outputs within 4 ULP (the twins use torch's
-   rsqrt / pow, whose CUDA builds may round differently from the
-   kernels' rsqrtf / powf; measured bit-equal so far).
-4. Frames: ``Renderer(torus_scene(), handler="pbvh", device="cuda")`` at
-   96x72 (held to the JAX package's stored frame within atol 2e-5,
-   tests/data/torch_port_torus_96x72.npz), 384x288 and 1920x1080
-   (finite, the right shape, not black).
-5. Timing (CUDA events): a 60-frame orbit at 384x288 and a 12-frame one
-   at 1080p (bench.py's protocol), then every kernel against its twin at
-   the 384x288 shapes.  Launch counters are reset right before phase 4
-   and read right after the orbits: every kernel of the path must have
-   launched.
+3. Kernels vs twins on the card.  Every kernel call of one frame is
+   recorded and replayed through the kernel and through its
+   plain-PyTorch twin: the ``torus_scene`` frame at 384x288, and the
+   ``torus_canyon()`` frame at 640x480 with segmented tables and with
+   ``"dma"``.  Intersection and refine outputs (t, pid, rows, blocked,
+   overlap masks, compacted ids and counts) must be bit-equal; shading
+   outputs within 4 ULP (the twins use torch's rsqrt / pow, whose CUDA
+   builds may round differently from the kernels' rsqrtf / powf).  Each
+   segmented call's (t, pid) must equal one flat call on
+   ``flatten_segments`` of its table, and each streamed call's the flat
+   closest hit under the same cull, on valid rays.
+4. Paths.  Launch counters are reset right before each path and read
+   right after it; every kernel of the path must have launched.
+   torus: the 96x72 frame against the JAX package's stored frame
+   (tests/data/torch_port_torus_96x72.npz, atol 2e-5), 384x288 and
+   1920x1080 frames and orbits (60 and 12 frames).  segmented and dma:
+   ``torus_row(2)`` at 96x72 against the JAX package's stored frame
+   (tests/data/torch_port_torus_row2_96x72.npz, atol 2e-5); segmented
+   also ``gather_band_torus()`` (one table past the rows table's cap:
+   the gather branch) at 32x16, finite and not black, its distance from
+   the stored frame (tests/data/torch_port_gather_band_32x16.npz) and
+   from the port's CPU frame printed; the canyon
+   at 640x480 (both) and 1920x1080 (segmented): finite, not black,
+   orbits of 30 and 12 frames; the canyon's segmented and DMA frames at
+   640x480 must be bit-equal.
+5. Kernel times (CUDA events), each against its twin and its bound (the
+   least time the card could take for the call's work), at the
+   384x288 torus frame's shapes and the 640x480 canyon frame's.
+6. Where the time goes: torch.profiler over canyon frames, device time
+   by kernel kind and the device's idle share.
 
-The second-to-last lines are one JSON object of per-kernel results and
-the ``nvidia-smi`` name / power-limit line; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last lines are JSON objects of frame times and of
+per-kernel results, then the ``nvidia-smi`` name / power-limit line;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import inspect
 import json
 import math
 import pathlib
@@ -48,20 +74,35 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-REF_FRAME = ROOT / "tests" / "data" / "torch_port_torus_96x72.npz"
+DEVICE = "cuda"
+TORUS_FRAME = ROOT / "tests" / "data" / "torch_port_torus_96x72.npz"
+ROW2_FRAME = ROOT / "tests" / "data" / "torch_port_torus_row2_96x72.npz"
+BAND_FRAME = ROOT / "tests" / "data" / "torch_port_gather_band_32x16.npz"
 # The bound the JAX package holds between its own two frame paths
-# (tests/test_shade_tiled.py).  The stored frame was rendered with
+# (tests/test_shade_tiled.py).  The stored frames were rendered with
 # XLA:CPU held to SSE4.2, so no FMA contraction (see
-# tests/test_torch_render.py); it rounds op by op like the port.
+# tests/test_torch_render.py); they round op by op like the port.
 REF_ATOL = 2e-5
 SHADE_MAX_ULP = 4
-SIZES = {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)}
+TORUS_REPLAY = (384, 288)
+CANYON_REPLAY = (640, 480)
+# path -> frame sizes driven (name -> width, height, orbit frames)
+SIZES = {
+    "torus": {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)},
+    "segmented": {"640x480": (640, 480, 30), "1920x1080": (1920, 1080, 12)},
+    "dma": {"640x480": (640, 480, 30)},
+}
+PROFILE = (("segmented", "640x480", 3), ("dma", "640x480", 3), ("segmented", "1920x1080", 2))
 
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "refine_cull": (
         "rt_rs_tpu_torch/csrc/refine_cull.cu",
         "rt_rs_tpu/ops/pallas/packet_trace.py:497",
+    ),
+    "mt_trace[closest]": (
+        "rt_rs_tpu_torch/csrc/mt_trace.cu",
+        "rt_rs_tpu/ops/pallas/packet_trace.py:746",
     ),
     "mt_trace[rows]": (
         "rt_rs_tpu_torch/csrc/mt_trace.cu",
@@ -70,6 +111,10 @@ KERNELS = {
     "mt_trace[anyhit]": (
         "rt_rs_tpu_torch/csrc/mt_trace.cu",
         "rt_rs_tpu/ops/pallas/packet_trace.py:746",
+    ),
+    "mt_stream": (
+        "rt_rs_tpu_torch/csrc/mt_stream.cu",
+        "rt_rs_tpu/ops/pallas/packet_stream.py:57",
     ),
     "shade_pre": (
         "rt_rs_tpu_torch/csrc/shade_pre.cu",
@@ -80,6 +125,17 @@ KERNELS = {
         "rt_rs_tpu/ops/pallas/shade_tile.py:226",
     ),
 }
+# path -> the kernels it must launch
+PATHS = {
+    "torus": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
+    "segmented": ("refine_cull", "mt_trace[closest]", "shade_pre", "shade_post"),
+    "dma": ("mt_stream", "shade_pre", "shade_post"),
+}
+
+# The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
+# f32 outside the tensor cores, and HBM3 bandwidth.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def say(*parts) -> None:
@@ -161,6 +217,16 @@ def check_ulp(what: str, kern, twin) -> tuple[float, int]:
     return err, ulp
 
 
+def check_valid_equal(what: str, ours, flat, valid) -> None:
+    """Bit-equal on valid rays (outputs are specified there only)."""
+    for i, (a, b) in enumerate(zip(outputs(ours), outputs(flat), strict=True)):
+        x, y = a[..., valid], b[..., valid]
+        if x.dtype.is_floating_point and max_ulp(x, y) != 0:
+            raise AssertionError(f"{what} output {i}: != the flat call ({max_ulp(x, y)} ULP)")
+        if not x.dtype.is_floating_point and not bool((x == y).all()):
+            raise AssertionError(f"{what} output {i}: {int((x != y).sum())} rays != the flat call")
+
+
 # ----------------------------------------------------------------------
 # phases
 
@@ -195,16 +261,19 @@ def phase_build():
 
 
 class Recorder:
-    """Wraps the four kernel wrappers for one frame and keeps each
-    call's arguments (the frame path calls them through these module
-    attributes)."""
+    """Wraps the kernel wrappers (and the segmented and streamed
+    entries) for one frame and keeps each call's arguments and result
+    (the frame path calls them through these module attributes)."""
 
     def __init__(self):
-        from rt_rs_tpu_torch.ops import packet_trace, shade_tile
+        from rt_rs_tpu_torch.ops import packet_stream, packet_trace, shade_tile
 
         self.targets = [
             (packet_trace, "refine_cull"),
             (packet_trace, "mt_trace"),
+            (packet_trace, "packet_closest_hit_segmented_tiled"),
+            (packet_stream, "mt_stream"),
+            (packet_stream, "stream_closest_hit"),
             (shade_tile, "shade_pre"),
             (shade_tile, "shade_post"),
         ]
@@ -217,8 +286,9 @@ class Recorder:
             self.saved.append((mod, name, fn))
 
             def rec(*args, _fn=fn, _name=name, **kw):
-                self.calls[_name].append((args, kw))
-                return _fn(*args, **kw)
+                out = _fn(*args, **kw)
+                self.calls[_name].append((args, kw, out))
+                return out
 
             setattr(mod, name, rec)
         return self
@@ -228,68 +298,141 @@ class Recorder:
             setattr(mod, name, fn)
 
 
-def renderer(width: int, height: int):
+def renderer(width: int, height: int, scene=None, **handler_kwargs):
     from rt_rs_tpu_torch import Config, Renderer, Resolution
     from rt_rs_tpu_torch.scene.presets import torus_scene
 
     return Renderer(
-        torus_scene(),
+        torus_scene() if scene is None else scene,
         config=Config(resolution=Resolution.sized(width, height)),
         handler="pbvh",
-        device="cuda",
+        handler_kwargs=handler_kwargs or None,
+        device=DEVICE,
     )
 
 
-def phase_compare():
-    """Every kernel call of one 384x288 frame, kernel vs twin."""
-    import torch
+def canyon(width: int, height: int, mode: str):
+    from rt_rs_tpu_torch.scene.presets import torus_canyon
 
+    return renderer(width, height, torus_canyon(), streaming_mode=mode)
+
+
+def replay(label: str, calls, errs: dict, ulps: dict) -> None:
+    """Every recorded kernel call through kernel and twin."""
+    from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
-    r = renderer(384, 288)
-    with Recorder() as rec:
-        r.render_frame()
-    calls = rec.calls
-    errs = {name: 0.0 for name in KERNELS}
-    for i, (a, kw) in enumerate(calls["refine_cull"]):
+    for i, (a, kw, _) in enumerate(calls["refine_cull"]):
         kern, twin = pt.refine_cull(*a, **kw), pt.refine_cull_reference(*a, **kw)
         errs["refine_cull"] = max(
-            errs["refine_cull"],
-            check_equal(f"refine_cull#{i}", kern, twin),
+            errs["refine_cull"], check_equal(f"{label} refine_cull#{i}", kern, twin)
         )
-        check_equal(f"compact#{i}", pt.compact(kern), pt.compact(twin))
-    modes_seen = set()
-    for i, (a, kw) in enumerate(calls["mt_trace"]):
-        mode = kw["mode"]
-        modes_seen.add(mode)
+        check_equal(f"{label} compact#{i}", pt.compact(kern), pt.compact(twin))
+    for i, (a, kw, _) in enumerate(calls["mt_trace"]):
+        name = f"mt_trace[{kw['mode']}]"
         kern, twin = pt.mt_trace(*a, **kw), pt.mt_trace_reference(*a, **kw)
-        name = f"mt_trace[{mode}]"
-        errs[name] = max(errs[name], check_equal(f"{name}#{i}", kern, twin))
-        if i == 0:  # the primary call, also in closest-hit mode
-            kw0 = dict(kw, mode="closest")
-            a0 = a[:4]
-            check_equal(
-                "mt_trace[closest]#0",
-                pt.mt_trace(*a0, **kw0),
-                pt.mt_trace_reference(*a0, **kw0),
-            )
-    ulps = {}
+        errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
+    for i, (a, kw, _) in enumerate(calls["mt_stream"]):
+        kern, twin = ps.mt_stream(*a, **kw), ps.mt_stream_reference(*a, **kw)
+        errs["mt_stream"] = max(
+            errs["mt_stream"], check_equal(f"{label} mt_stream#{i}", kern, twin)
+        )
     for name, kern_fn, twin_fn in (
         ("shade_pre", st.shade_pre, st.shade_pre_reference),
         ("shade_post", st.shade_post, st.shade_post_reference),
     ):
-        for i, (a, kw) in enumerate(calls[name]):
-            err, ulp = check_ulp(f"{name}#{i}", kern_fn(*a, **kw), twin_fn(*a, **kw))
+        for i, (a, kw, _) in enumerate(calls[name]):
+            err, ulp = check_ulp(f"{label} {name}#{i}", kern_fn(*a, **kw), twin_fn(*a, **kw))
             errs[name] = max(errs[name], err)
             ulps[name] = max(ulps.get(name, 0), ulp)
-    torch.cuda.synchronize()
-    n = {k: len(v) for k, v in calls.items()}
-    say(
-        f"[compare] 384x288 frame calls {n}, mt modes {sorted(modes_seen)}: "
-        f"intersection + refine bit-equal, shading max ULP {ulps}"
-    )
-    return errs, calls
+
+
+def bind(fn, a, kw) -> dict:
+    """A recorded call's arguments by parameter name."""
+    b = inspect.signature(fn).bind(*a, **kw)
+    b.apply_defaults()
+    return dict(b.arguments)
+
+
+def check_against_flat(label: str, calls) -> tuple[int, int]:
+    """Each segmented call against one flat call on its flattened table,
+    each streamed call against the flat closest hit under the same
+    interval cull on the same 128-ray tiles; bit-equal on valid rays."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_stream as ps
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    flat_of: dict[int, object] = {}
+    segs = calls["packet_closest_hit_segmented_tiled"]
+    for i, (a, kw, out) in enumerate(segs):
+        b = bind(pt.packet_closest_hit_segmented_tiled, a, kw)
+        seg = b.pop("seg")
+        table = flat_of.setdefault(id(seg), pt.flatten_segments(seg))
+        b.pop("chain")
+        b.pop("seg_order")
+        flat = pt.packet_closest_hit_tiled(table, **b)
+        check_valid_equal(f"{label} segmented call #{i}", out, flat, b["valid"])
+    streams = calls["stream_closest_hit"]
+    for i, (a, kw, out) in enumerate(streams):
+        b = bind(ps.stream_closest_hit, a, kw)
+        win = dict(t_min=b["t_min"], t_max=b["t_max"])
+        s = ps.stream_inputs(b["chunks"], b["o"], b["d"], b["excl"], b["valid"], b["t_cap"], **win)
+        v = s.payload[7] > 0
+        cap = b["t_cap"]
+        if cap is not None:
+            cap = torch.cat([cap, cap.new_zeros(v.numel() - s.n)]).reshape(v.shape)
+        ft, fpid = pt.packet_closest_hit_tiled(
+            b["chunks"], s.payload, v, cap, eps=b["eps"], refine=False, **win
+        )
+        flat = (ft.reshape(-1)[: s.n], fpid.reshape(-1)[: s.n])
+        check_valid_equal(f"{label} streamed call #{i}", out, flat, v.reshape(-1)[: s.n])
+    return len(segs), len(streams)
+
+
+def phase_compare():
+    """Every kernel call of one torus frame (384x288) and of one canyon
+    frame (640x480) per canyon mode, kernel vs twin."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    errs = {name: 0.0 for name in KERNELS}
+    ulps: dict[str, int] = {}
+    recorded = {}
+    cases = {
+        "torus": lambda: renderer(*TORUS_REPLAY),
+        "canyon segmented": lambda: canyon(*CANYON_REPLAY, "segmented"),
+        "canyon dma": lambda: canyon(*CANYON_REPLAY, "dma"),
+    }
+    for label, make in cases.items():
+        r = make()
+        with Recorder() as rec:
+            r.render_frame()
+        calls = rec.calls
+        t0 = time.perf_counter()
+        replay(label, calls, errs, ulps)
+        if label == "torus":  # the primary rows call, also in closest-hit mode
+            a, kw, _ = calls["mt_trace"][0]
+            kw0 = dict(kw, mode="closest")
+            check_equal(
+                "torus mt_trace[closest]#0",
+                pt.mt_trace(*a[:4], **kw0), pt.mt_trace_reference(*a[:4], **kw0),
+            )
+        n_seg, n_stream = check_against_flat(label, calls)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        n = {k: len(v) for k, v in calls.items() if v}
+        modes = sorted({kw["mode"] for _, kw, _ in calls["mt_trace"]})
+        say(
+            f"[compare] {label} {r.width}x{r.height} frame calls {n}, mt modes "
+            f"{modes}: intersection + refine bit-equal, shading max ULP {ulps}; "
+            f"{n_seg} segmented and {n_stream} streamed calls equal the flat "
+            f"call; replay {time.perf_counter() - t0:.1f} s"
+        )
+        recorded[label] = calls
+    return errs, recorded
 
 
 def reset_counts() -> None:
@@ -317,45 +460,116 @@ def check_frame(name: str, frame, width: int, height: int) -> None:
     say(f"[frame] {name}: finite, mean {mean:.6f}, max {float(frame.max()):.6f}")
 
 
-def phase_frames_and_orbits(card: str) -> tuple[dict[str, int], dict[str, float]]:
+def check_stored(name: str, r, path: pathlib.Path) -> None:
     import numpy as np
+
+    ref = np.load(path)["frame"]
+    frame = r.render_frame().cpu().numpy()
+    err = float(np.abs(frame - ref).max())
+    if not err <= REF_ATOL:
+        raise AssertionError(f"{name} vs the JAX package's stored frame: max {err}")
+    say(f"[frame] {name} vs the JAX package's stored frame: max abs {err:.3g} (atol {REF_ATOL})")
+
+
+def gather_band() -> None:
+    """The gather branch on one table: ``gather_band_torus()`` at 32x16,
+    finite and not black.  Its distance from the JAX package's stored
+    frame and from the port's own CPU frame is printed, not held: one
+    pixel of this frame flips under last-place changes of the glue's
+    rounding (see PERF.md); the gather branch is held to a stored frame
+    by ``torus_row(2)`` above."""
+    import numpy as np
+
+    global DEVICE
+    from rt_rs_tpu_torch.scene.presets import gather_band_torus
+
+    frame = renderer(32, 16, gather_band_torus()).render_frame()
+    check_frame("gather band 32x16", frame, 32, 16)
+    frame = frame.cpu().numpy()
+    device, DEVICE = DEVICE, "cpu"
+    try:
+        on_cpu = renderer(32, 16, gather_band_torus()).render_frame().numpy()
+    finally:
+        DEVICE = device
+    for what, ref in (
+        ("the JAX package's stored frame", np.load(BAND_FRAME)["frame"]),
+        ("the port's CPU frame", on_cpu),
+    ):
+        d = np.abs(frame - ref)
+        far = np.argwhere(d > REF_ATOL)
+        say(
+            f"[frame] gather band 32x16 vs {what}: max abs {d.max():.3g}, "
+            f"{len(far)} of {d.size} values beyond {REF_ATOL} at (row, col) "
+            f"{sorted({(int(i), int(j)) for i, j, _ in far})}"
+        )
+
+
+def orbit_ms(name: str, r, frames: int, card: str) -> float:
+    """A full orbit in ``frames`` steps -> ms/frame (CUDA events)."""
     import torch
 
-    reset_counts()
-    ref = np.load(REF_FRAME)["frame"]
-    frame = renderer(96, 72).render_frame().cpu().numpy()
-    diff = np.abs(frame - ref)
-    err = float(diff.max())
-    if not err <= REF_ATOL:
-        raise AssertionError(f"96x72 frame vs the JAX package's: max {err}")
-    say(f"[frame] 96x72 vs JAX package frame: max abs {err:.3g} (atol {REF_ATOL})")
+    mult = 2.0 * math.pi / frames / 0.0314
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(frames):
+        out = r.render_frame(block=False)
+        r.orbit(mult)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / frames * 1e3
+    ms = start.elapsed_time(end) / frames
+    check_frame(f"{name} orbit end", out, r.width, r.height)
+    say(
+        f"[orbit] {name}: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms "
+        f"host, {frames} frames; {card}"
+    )
+    return ms
 
-    frame_ms = {}
-    for name, (w, h, frames) in SIZES.items():
-        r = renderer(w, h)
-        check_frame(name, r.render_frame(), w, h)  # also the warm-up
-        mult = 2.0 * math.pi / frames / 0.0314  # one full orbit
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(frames):
-            out = r.render_frame(block=False)
-            r.orbit(mult)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / frames * 1e3
-        frame_ms[name] = start.elapsed_time(end) / frames
-        check_frame(f"{name} orbit end", out, w, h)
-        say(
-            f"[orbit] {name}: {frame_ms[name]:.3f} ms/frame (CUDA events), "
-            f"{host_ms:.3f} ms host, {frames} frames; {card}"
+
+def drive_path(path: str, card: str) -> tuple[dict, dict, dict]:
+    """One path's frames and orbits -> (frame ms, first frames, renderers)."""
+    from rt_rs_tpu_torch.scene.presets import gather_band_torus, torus_row
+
+    if path == "torus":
+        check_stored("torus 96x72", renderer(96, 72), TORUS_FRAME)
+    else:
+        r = renderer(96, 72, torus_row(2), streaming_mode=path)
+        check_stored(f"torus_row(2) {path} 96x72", r, ROW2_FRAME)
+    if path == "segmented":
+        gather_band()
+    frame_ms, first, kept = {}, {}, {}
+    for size, (w, h, frames) in SIZES[path].items():
+        r = renderer(w, h) if path == "torus" else canyon(w, h, path)
+        name = f"torus {size}" if path == "torus" else f"canyon {path} {size}"
+        first[size] = r.render_frame()  # also the warm-up
+        check_frame(name, first[size], w, h)
+        frame_ms[name] = orbit_ms(name, r, frames, card)
+        kept[size] = r
+    return frame_ms, first, kept
+
+
+def phase_paths(card: str):
+    """Each path with the launch counters reset before and read after."""
+    import torch
+
+    counts, frame_ms, first, kept = {}, {}, {}, {}
+    for path, needed in PATHS.items():
+        reset_counts()
+        ms, first[path], kept[path] = drive_path(path, card)
+        counts[path] = read_counts()
+        frame_ms.update(ms)
+        missing = [k for k in needed if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels never launched on the path: {missing}")
+        say(f"[launches] {path}: {counts[path]}")
+    a, b = first["segmented"]["640x480"], first["dma"]["640x480"]
+    if not torch.equal(a, b):
+        raise AssertionError(
+            f"canyon 640x480: segmented and dma frames differ (max {max_abs(a, b)})"
         )
-    counts = read_counts()
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the frame path: {missing}")
-    say(f"[launches] {counts}")
-    return counts, frame_ms
+    say("[frame] canyon 640x480: segmented and dma frames bit-equal")
+    return counts, frame_ms, kept
 
 
 def time_ms(fn, reps: int) -> float:
@@ -371,39 +585,239 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_times(calls, card: str) -> dict[str, tuple[float, float]]:
-    """Kernel vs twin at the 384x288 frame's shapes: the primary rows
-    call, bounce 0's shadow batch and its refine cull, bounce 0's
-    shading."""
+# ----------------------------------------------------------------------
+# bounds: the least time the card could take for a call's work, the
+# larger of its f32 operations over PEAK_F32_OPS and its bytes (each
+# input read once, each output written once, as far as this call's data
+# needs them) over PEAK_BYTES.  Operations count f32 multiplies, adds,
+# subtractions, divisions and square roots of the twins' arithmetic;
+# comparisons and selects are not counted.
+
+# mt_chunk_test per (ray, triangle): cross(d, e2) 9, o - a 3,
+# cross(t, e1) 9, det / u / v 5 each, the sign fold 2, su + sv 1.
+MT_OPS = 39
+# refine_cull per (ray, chunk): two slab distances per axis (sub, mul).
+SLAB_OPS = 12
+# shade twins per live ray: the hit point and normal, each light's
+# shadow ray and cull terms (pre) or diffuse and specular terms (post),
+# the reflected ray (pre), the colour (post).
+HIT_NORMAL_OPS = 77
+PRE_LIGHT_OPS, PRE_NEXT_OPS = 43, 34
+POST_LIGHT_OPS, POST_TAIL_OPS = 41, 9
+
+
+def _bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def anyhit_pairs(b: dict) -> int:
+    """Ray-triangle pairs an any-hit call needs: each ray's listed
+    pairs, in list order, up to and including its first blocking hit
+    (the kernel stops a ray there)."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    comp, payload, ids, counts = (b[k] for k in ("comp", "payload", "ids", "counts"))
+    tc = comp.shape[1]
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=payload.device)  # noqa: E731
+    win = dict(t_min=f(b["t_min"]), t_max=f(b["t_max"]), eps=f(b["eps"]))
+    sub = torch.arange(tc, device=payload.device)[None, :, None]
+    done = torch.zeros(payload.shape[1:], dtype=torch.bool, device=payload.device)
+    pairs = 0
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        for sel in pt.twin_slices((counts > k).nonzero()[:, 0], tc * payload.shape[2]):
+            ox, oy, oz, dx, dy, dz, excl, cap = (payload[i, sel][:, None, :] for i in range(8))
+            c = ids[sel, k].long()
+            tri = comp[c]
+            ok, w = pt.mt_chunk_test(
+                [tri[:, :, i : i + 1] for i in range(9)], ox, oy, oz, dx, dy, dz, **win
+            )
+            pid = (1 + b["pid_base"] + c[:, None, None] * tc + sub).float()
+            hit = ok & (pid != excl) & (w < cap)  # [S, tc, r]
+            any_hit = hit.any(dim=1)
+            tested = torch.where(any_hit, hit.int().argmax(dim=1) + 1, tc)
+            pairs += int(torch.where(done[sel], 0, tested).sum())
+            done[sel] |= any_hit
+    return pairs
+
+
+def bound(name: str, a, kw) -> tuple[float, str]:
+    """-> (bound ms, "bytes" or "operations") for one recorded call."""
+    from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
-    mt = calls["mt_trace"]
+    if name == "refine_cull":
+        b = bind(pt.refine_cull_reference, a, kw)
+        payload, valid, bounds = b["payload"], b["valid"], b["bounds"]
+        n_tiles, r = valid.shape
+        live = int(valid.any(dim=1).sum())
+        nc = bounds.shape[0]
+        ops = live * r * (nc * SLAB_OPS + 3)  # + the 3 reciprocals
+        nbytes = live * r * (6 * 4 + 1 + 4) + _bytes(bounds) + n_tiles * nc
+    elif name.startswith("mt_trace"):
+        b = bind(pt.mt_trace_reference, a, kw)
+        comp, payload, counts = b["comp"], b["payload"], b["counts"]
+        n_tiles, r = payload.shape[1], payload.shape[2]
+        entries = int(counts.sum())
+        if b["mode"] == "anyhit":
+            ops = anyhit_pairs(b) * MT_OPS
+        else:
+            ops = entries * comp.shape[1] * r * MT_OPS
+        out = {"closest": 8, "rows": 8 + 128, "anyhit": 1}[b["mode"]]
+        nbytes = (
+            _bytes(payload, comp, counts) + entries * 4 + n_tiles * r * out
+            + (_bytes(b["attr"]) if b["mode"] == "rows" else 0)
+        )
+    elif name == "mt_stream":
+        b = bind(ps.mt_stream_reference, a, kw)
+        payload, table, words, blockids, counts = (
+            b[k] for k in ("payload", "table", "words", "blockids", "counts")
+        )
+        n_tiles, r = payload.shape[1], payload.shape[2]
+        tc = table.shape[1]
+        group = counts.new_tensor(range(n_tiles)).long() // pt.TILE_GROUP
+        listed = (
+            words.new_tensor(range(words.shape[1]))[None, :] < counts[group][:, None]
+        )
+        w = words.gather(1, blockids[group].long())  # words in list order
+        bits = sum(((w >> j) & 1) for j in range(32))  # popcount
+        chunk_tests = int((bits * listed).sum())
+        ops = chunk_tests * tc * r * MT_OPS
+        nbytes = n_tiles * r * (7 * 4 + 8) + _bytes(table, words, blockids, counts)
+    elif name in ("shade_pre", "shade_post"):
+        fn = st.shade_pre_reference if name == "shade_pre" else st.shade_post_reference
+        b = bind(fn, a, kw)
+        t, live_sg, lights = b["t"], b["live_sg"], b["lights"]
+        n_tiles, r = t.shape
+        k = lights.shape[0]
+        live = min(n_tiles, int((live_sg != 0).sum()) * st.SUBGROUP) * r
+        if name == "shade_pre":
+            nxt = bool(b["emit_next"])
+            ops = live * (HIT_NORMAL_OPS + k * PRE_LIGHT_OPS + (PRE_NEXT_OPS if nxt else 0))
+            reads = live * (19 + 6 + 2) * 4  # rows 0-17 and 24, rays, t, pid
+            writes = n_tiles * r * (10 * k + (8 if nxt else 0)) * 4
+        else:
+            per_light = 1 if b["blocked_mode"] else 3
+            ops = live * (HIT_NORMAL_OPS + k * POST_LIGHT_OPS + POST_TAIL_OPS)
+            reads = live * (25 + 6 + 2 + k * per_light) * 4  # rows 0-24, rays, t, active
+            writes = n_tiles * r * 3 * 4
+        nbytes = reads + writes + _bytes(live_sg, lights)
+    else:
+        raise KeyError(name)
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_kernel_times(recorded, card: str) -> dict[str, tuple[float, float, float, str]]:
+    """Kernel vs twin vs bound: at the 384x288 torus frame's shapes (the
+    primary rows call, bounce 0's shadow batch and its refine cull,
+    bounce 0's shading), and at the 640x480 canyon frame's (its
+    busiest segment call in closest-hit mode and its busiest streamed
+    call)."""
+    from rt_rs_tpu_torch.ops import packet_stream as ps
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+    from rt_rs_tpu_torch.ops import shade_tile as st
+
+    torus, seg, dma = (recorded[k] for k in ("torus", "canyon segmented", "canyon dma"))
+    mt = torus["mt_trace"]
+    entries = lambda c: int(c[0][3].sum())  # noqa: E731  (counts of an mt_trace call)
     picks = {
-        "refine_cull": (pt.refine_cull, pt.refine_cull_reference, calls["refine_cull"][0]),
+        "refine_cull": (pt.refine_cull, pt.refine_cull_reference, torus["refine_cull"][0], 5),
+        "mt_trace[closest]": (
+            pt.mt_trace, pt.mt_trace_reference, max(seg["mt_trace"], key=entries), 2,
+        ),
         "mt_trace[rows]": (
             pt.mt_trace, pt.mt_trace_reference,
-            next(c for c in mt if c[1]["mode"] == "rows"),
+            next(c for c in mt if c[1]["mode"] == "rows"), 5,
         ),
         "mt_trace[anyhit]": (
             pt.mt_trace, pt.mt_trace_reference,
-            next(c for c in mt if c[1]["mode"] == "anyhit"),
+            next(c for c in mt if c[1]["mode"] == "anyhit"), 5,
         ),
-        "shade_pre": (st.shade_pre, st.shade_pre_reference, calls["shade_pre"][0]),
-        "shade_post": (st.shade_post, st.shade_post_reference, calls["shade_post"][0]),
+        "mt_stream": (
+            ps.mt_stream, ps.mt_stream_reference,
+            max(dma["mt_stream"], key=lambda c: c[0][0].shape[1]), 1,
+        ),
+        "shade_pre": (st.shade_pre, st.shade_pre_reference, torus["shade_pre"][0], 5),
+        "shade_post": (st.shade_post, st.shade_post_reference, torus["shade_post"][0], 5),
     }
     times = {}
-    for name, (kern, twin, (a, kw)) in picks.items():
+    for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
         k_ms = time_ms(lambda: kern(*a, **kw), 50)
-        t_ms = time_ms(lambda: twin(*a, **kw), 5)
-        times[name] = (k_ms, t_ms)
+        t_ms = time_ms(lambda: twin(*a, **kw), twin_reps)
+        b_ms, by = bound(name, a, kw)
+        times[name] = (k_ms, t_ms, b_ms, by)
         work = ""
         if name.startswith("mt_trace"):
             # list entries: (tile, chunk) pairs, each tc x r ray-triangle tests
-            entries = int(a[3].sum())
-            work = f", {entries} entries, {k_ms * 1e3 / entries:.4f} us/entry"
-        say(f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms{work}; {card}")
+            n = entries((a, kw))
+            work = f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
+        say(
+            f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}){work}; {card}"
+        )
     return times
+
+
+# kernel name fragment -> kind, for the profile's breakdown
+KINDS = (
+    ("mt_trace_kernel", "mt_trace"),
+    ("mt_stream_kernel", "mt_stream"),
+    ("refine_cull_kernel", "refine_cull"),
+    ("shade_pre_kernel", "shade_pre"),
+    ("shade_post_kernel", "shade_post"),
+    ("sort", "sort (compaction)"),
+    ("index", "gather / index"),
+    ("gather", "gather / index"),
+    ("scatter", "gather / index"),
+    ("reduce", "reductions"),
+    ("elementwise", "elementwise glue"),
+    ("memcpy", "copies"),
+    ("memset", "copies"),
+)
+
+
+def kind_of(kernel: str) -> str:
+    low = kernel.lower()
+    return next((kind for frag, kind in KINDS if frag in low), "other")
+
+
+def phase_profile(kept, card: str) -> None:
+    """Device time per frame by kernel kind, and the device's idle share
+    of the profiled wall time, over a few orbit steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for path, size, frames in PROFILE:
+        r = kept[path][size]
+        r.render_frame()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                r.render_frame(block=False)
+                r.orbit(1.0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+        us, n = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU:
+                continue
+            kind = kind_of(e.name)
+            us[kind] += e.time_range.elapsed_us()
+            n[kind] += 1
+        busy = sum(us.values()) / 1e3 / frames
+        parts = ", ".join(
+            f"{k} {us[k] / 1e3 / frames:.3f} ms ({n[k] / frames:.0f})"
+            for k, _ in us.most_common()
+        )
+        say(
+            f"[profile] canyon {path} {size}: {wall_ms:.3f} ms/frame profiled wall, "
+            f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; "
+            f"per frame by kind (launches): {parts}; {card}"
+        )
 
 
 def main(full: bool = True) -> None:
@@ -412,21 +826,30 @@ def main(full: bool = True) -> None:
     phase_device()
     card = card_line()
     phase_build()
-    errs, calls = phase_compare()
+    errs, recorded = phase_compare()
     if not full:
         return
-    counts, frame_ms = phase_frames_and_orbits(card)
-    times = phase_kernel_times(calls, card)
+    counts, frame_ms, kept = phase_paths(card)
+    times = phase_kernel_times(recorded, card)
+    phase_profile(kept, card)
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": rep,
-            "launches": counts[name],
+            "launches": sum(c[name] for c in counts.values()),
+            "launches_by_path": {p: c[name] for p, c in counts.items()},
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": times[name][2],
+            "bound_by": times[name][3],
+            # No single PyTorch call computes these functions (a masked
+            # Möller–Trumbore closest hit over per-tile chunk lists, a
+            # per-ray slab cull OR-reduced per tile, the fused shading
+            # passes).
+            "library_ms": None,
         }
         for name, (src, rep) in KERNELS.items()
     ]

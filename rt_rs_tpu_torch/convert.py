@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rt_rs_tpu_torch.ops.packet_trace import TriChunks
+from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks, TriChunks
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
 
@@ -22,7 +22,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a copy: JAX arrays are read-only
 
 
-def scene_arrays(src, device: str | torch.device = "cpu") -> SceneArrays:
+def scene_arrays(src, *, device: str | torch.device) -> SceneArrays:
     """The JAX package's ``SceneArrays`` (same field names) -> the
     port's, value for value."""
     fields = {}
@@ -40,7 +40,8 @@ def tri_chunks(
     bmax,  # [Nc, 3]
     num_chunks: int,
     attr_t=None,  # [Nc, 32, 128] f32: attr_t[c, j, s] = row 1 + c*tc + s
-    device: str | torch.device = "cpu",
+    *,
+    device: str | torch.device,
 ) -> TriChunks:
     """The JAX package's lane-padded ``TriChunks`` arrays -> the port's
     compact table: ``comp [Nc, tc, 9]`` and the rows table
@@ -61,3 +62,38 @@ def tri_chunks(
         num_chunks=int(num_chunks),
         attr=None if attr is None else _tensor(attr, device),
     )
+
+
+def segmented_chunks(src, *, device: str | torch.device) -> SegmentedTriChunks:
+    """The JAX package's ``SegmentedTriChunks`` (segments of lane-padded
+    tables, each with its slice of ``attr_t``) -> the port's: the same
+    segments as views on one compact table, sharing one global rows
+    table.  Raises if the JAX package's ``prim_base`` is not the
+    segments' chunk offsets times ``tc``."""
+    segs = list(src.segments)
+
+    def cat(field):
+        parts = [getattr(s, field) for s in segs]
+        if any(p is None for p in parts):
+            return None
+        return np.concatenate([np.asarray(p, dtype=np.float32) for p in parts])
+
+    flat = tri_chunks(
+        cat("comp"), cat("bmin"), cat("bmax"), sum(s.num_chunks for s in segs),
+        attr_t=cat("attr_t"), device=device,
+    )
+    tc = flat.tri_chunk
+    parts, bases, c0 = [], [], 0
+    for s in segs:
+        c1 = c0 + int(s.num_chunks)
+        parts.append(
+            TriChunks(
+                comp=flat.comp[c0:c1], bmin=flat.bmin[c0:c1], bmax=flat.bmax[c0:c1],
+                num_chunks=c1 - c0, attr=flat.attr,
+            )
+        )
+        bases.append(c0 * tc)
+        c0 = c1
+    if tuple(bases) != tuple(int(b) for b in src.prim_base):
+        raise ValueError(f"prim_base {tuple(src.prim_base)} != chunk offsets {tuple(bases)}")
+    return SegmentedTriChunks(segments=tuple(parts), prim_base=tuple(bases))

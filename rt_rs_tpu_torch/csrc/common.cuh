@@ -29,6 +29,43 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// mt_chunk_test (rt_rs_tpu/ops/pallas/packet_trace.py:678) for one
+// (ray, triangle), shared by kernels B and E: returns ok and sets w.
+// tri holds a, e1 = b - a, e2 = c - a.  The exclusion test is the
+// caller's.
+__device__ __forceinline__ bool mt_test(const float* tri, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float t_min, float t_max,
+                                        float eps, float& w) {
+  const float ax = tri[0], ay = tri[1], az = tri[2];
+  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  // p = cross(d, e2)
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  // tvec = o - a
+  const float tx = ox - ax;
+  const float ty = oy - ay;
+  const float tz = oz - az;
+  // q = cross(tvec, e1)
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float u = tx * px + ty * py + tz * pz;
+  const float v = dx * qx + dy * qy + dz * qz;
+  const float sgn = (det > 0.0f) ? 1.0f : ((det < 0.0f) ? -1.0f : 0.0f);
+  const float adet = fabsf(det);
+  const float su = u * sgn;
+  const float sv = v * sgn;
+  if (!((adet > eps) && (su >= 0.0f) && (su <= adet) && (sv >= 0.0f) &&
+        (su + sv <= adet)))
+    return false;
+  w = (e2x * qx + e2y * qy + e2z * qz) / det;
+  return (w > t_min) && (w < t_max);
+}
+
 // Hit point + interpolated unit normal of one ray, op for op
 // rt_rs_tpu/ops/pallas/shade_tile.py::_hit_normal (the corner
 // rotation of compute.wgsl:120-151 is baked into the shade-table

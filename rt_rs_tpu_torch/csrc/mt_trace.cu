@@ -11,7 +11,10 @@
 // sv >= 0, su + sv <= adet), t_min < w < t_max, and pid != excl
 // (payload row 6).  Closest hit: the minimum w, ties to the smallest
 // pid, misses (t_max + 1, 0).  Any-hit: some ok hit has w < cap
-// (payload row 7).  Tiles with an empty list write misses.
+// (payload row 7).  Tiles with an empty list write misses.  Prim ids
+// are global: triangle s of chunk c is 1 + pid_base + c * tc + s (a
+// segment of a larger table passes its base), and the rows table is
+// indexed by that global id.
 //
 // What bounds it on this card: f32 arithmetic, ~40 ops per (ray,
 // triangle) pair, with the chunk's 64 x 9 floats read from shared
@@ -27,41 +30,6 @@
 
 enum { MODE_CLOSEST = 0, MODE_ROWS = 1, MODE_ANYHIT = 2 };
 
-// mt_chunk_test for one (ray, triangle): returns ok and sets w.  tri
-// holds a, e1 = b - a, e2 = c - a.
-__device__ __forceinline__ bool mt_test(const float* tri, float ox, float oy,
-                                        float oz, float dx, float dy,
-                                        float dz, float t_min, float t_max,
-                                        float eps, float& w) {
-  const float ax = tri[0], ay = tri[1], az = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-  // p = cross(d, e2)
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  // tvec = o - a
-  const float tx = ox - ax;
-  const float ty = oy - ay;
-  const float tz = oz - az;
-  // q = cross(tvec, e1)
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float u = tx * px + ty * py + tz * pz;
-  const float v = dx * qx + dy * qy + dz * qz;
-  const float sgn = (det > 0.0f) ? 1.0f : ((det < 0.0f) ? -1.0f : 0.0f);
-  const float adet = fabsf(det);
-  const float su = u * sgn;
-  const float sv = v * sgn;
-  if (!((adet > eps) && (su >= 0.0f) && (su <= adet) && (sv >= 0.0f) &&
-        (su + sv <= adet)))
-    return false;
-  w = (e2x * qx + e2y * qy + e2z * qz) / det;
-  return (w > t_min) && (w < t_max);
-}
-
 template <int MODE>
 __global__ void mt_trace_kernel(const float* __restrict__ payload,
                                 const float* __restrict__ comp,
@@ -72,8 +40,9 @@ __global__ void mt_trace_kernel(const float* __restrict__ payload,
                                 int* __restrict__ out_pid,
                                 float* __restrict__ out_rows,
                                 bool* __restrict__ out_blocked, int n_tiles,
-                                int r, int nc, int tc, float t_min,
-                                float t_max, float eps, float miss) {
+                                int r, int nc, int tc, int pid_base,
+                                float t_min, float t_max, float eps,
+                                float miss) {
   extern __shared__ float chunk[];  // [tc, 9]
   const int tile = blockIdx.x;
   const int lane = threadIdx.x;
@@ -101,7 +70,7 @@ __global__ void mt_trace_kernel(const float* __restrict__ payload,
       chunk[i] = comp[(long)c * tc * 9 + i];
     __syncthreads();
     if (!blocked) {
-      const int pid0 = 1 + c * tc;
+      const int pid0 = 1 + pid_base + c * tc;
       for (int s = 0; s < tc; ++s) {
         float w;
         if (!mt_test(chunk + s * 9, ox, oy, oz, dx, dy, dz, t_min, t_max,
@@ -138,15 +107,15 @@ RT_EXPORT int rt_mt_trace(const float* payload, const float* comp,
                           const int* ids, const int* counts,
                           const float* attr, float* out_t, int* out_pid,
                           float* out_rows, bool* out_blocked, int n_tiles,
-                          int r, int nc, int tc, float t_min, float t_max,
-                          float eps, float miss, int mode,
+                          int r, int nc, int tc, int pid_base, float t_min,
+                          float t_max, float eps, float miss, int mode,
                           cudaStream_t stream) {
   if (n_tiles > 0) {
     const size_t smem = (size_t)tc * 9 * sizeof(float);
 #define RT_LAUNCH(M)                                                      \
   mt_trace_kernel<M><<<n_tiles, r, smem, stream>>>(                       \
       payload, comp, ids, counts, attr, out_t, out_pid, out_rows,         \
-      out_blocked, n_tiles, r, nc, tc, t_min, t_max, eps, miss)
+      out_blocked, n_tiles, r, nc, tc, pid_base, t_min, t_max, eps, miss)
     if (mode == MODE_CLOSEST)
       RT_LAUNCH(MODE_CLOSEST);
     else if (mode == MODE_ROWS)

@@ -14,6 +14,8 @@ import abc
 import dataclasses
 from typing import Any
 
+import torch
+
 from rt_rs_tpu_torch.config import ComputeConfig
 from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
@@ -45,10 +47,31 @@ class IntrsHandler(abc.ABC):
         ...
 
     @abc.abstractmethod
+    def intersect_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
+        """Closest hit over a flat batch of rays: ``(o [N, 3], d [N, 3],
+        excl [N] int32, valid [N] bool or None, *, t_cap=None [N]) ->
+        (t [N], pid [N] int32)``; outputs are specified for valid rays,
+        and ``t_cap`` only narrows culling."""
+
     def intersect_tiled_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
         """Closest hit over component-major ray tiles: ``(payload
         [8, T, r], valid [T, r], t_cap=None) -> (t [T, r], pid [T, r])``
-        (payload row 6 is the f32 exclusion id)."""
+        (payload row 6 is the f32 exclusion id).
+
+        Backends with a native tiled entry override this; the default
+        adapts :meth:`intersect_fn` with one relayout per call."""
+        aos = self.intersect_fn(accel, arrays, cfg)
+
+        def tiled(payload, valid, t_cap=None):
+            t_tiles, r = valid.shape
+            o = payload[0:3].permute(1, 2, 0).reshape(-1, 3)
+            d = payload[3:6].permute(1, 2, 0).reshape(-1, 3)
+            excl = payload[6].reshape(-1).to(torch.int32)
+            cap = None if t_cap is None else t_cap.reshape(-1)
+            t, pid = aos(o, d, excl, valid.reshape(-1), t_cap=cap)
+            return t.reshape(t_tiles, r), pid.reshape(t_tiles, r)
+
+        return tiled
 
     def intersect_tiled_rows_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
         """Closest hit that also emits the winners' shade-table rows:
@@ -67,3 +90,37 @@ class IntrsHandler(abc.ABC):
         """Whether a frame takes the kernel-emitted-rows branch: the JAX
         package's default for resident tables at every size."""
         return True
+
+
+def tiled_as_flat(tiled_fn, ray_tile: int):
+    """A tiled closest-hit entry as an :meth:`IntrsHandler.intersect_fn`
+    (the JAX package's ``packet_closest_hit`` layout): the rays are
+    padded into ``ray_tile``-ray tiles, TILE_GROUP-aligned, and the
+    results cut back to ``N``."""
+    from rt_rs_tpu_torch.ops.packet_trace import TILE_GROUP
+
+    def flat(o, d, excl, valid=None, *, t_cap=None):
+        n = o.shape[0]
+        t_tiles = max(1, -(-n // ray_tile))
+        t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
+        n_pad = t_tiles * ray_tile
+
+        def tiles(x):  # [N, ...] -> [T, r, ...], zero padded
+            fill = x.new_zeros((n_pad - n, *x.shape[1:]))
+            return torch.cat([x, fill]).reshape(t_tiles, ray_tile, *x.shape[1:])
+
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=o.device)
+        payload = torch.cat(
+            [
+                tiles(o).permute(2, 0, 1),
+                tiles(d).permute(2, 0, 1),
+                tiles(excl)[None].to(torch.float32),
+                o.new_zeros((1, t_tiles, ray_tile)),
+            ]
+        ).contiguous()
+        cap = None if t_cap is None else tiles(t_cap)
+        t, pid = tiled_fn(payload, tiles(valid), cap)
+        return t.reshape(-1)[:n], pid.reshape(-1)[:n]
+
+    return flat

@@ -1,15 +1,22 @@
 """Packet-BVH backend: the frame path's intersect kernels.
 
-Counterpart of ``rt_rs_tpu/handlers/pbvh.py`` for resident chunk
-tables.  ``build`` builds the BVH (which fixes the leaf order), reorders
-the scene's prims into it, and packs the chunk table with its shade
-rows on the scene's device; the intersect entries bind
-:func:`rt_rs_tpu_torch.ops.packet_trace.packet_closest_hit_tiled` in
-its closest-hit, emit-rows and any-hit modes.
+Counterpart of ``rt_rs_tpu/handlers/pbvh.py``.  ``build`` builds the
+BVH (which fixes the leaf order), reorders the scene's prims into it,
+and packs the chunk table on the scene's device.  Up to the JAX
+package's resident cap (12,288 triangles) the table stays flat and the
+intersect entries bind
+:func:`rt_rs_tpu_torch.ops.packet_trace.packet_closest_hit_tiled` in its
+closest-hit, emit-rows and any-hit modes.  Beyond it, as in the JAX
+package, ``streaming_mode="segmented"`` (the default) splits the table
+into segments traced by
+:func:`~rt_rs_tpu_torch.ops.packet_trace.packet_closest_hit_segmented_tiled`
+(gather branch by default; rows and any-hit on request), and
+``streaming_mode="dma"`` keeps one table without shade rows, traced in
+blocks by :func:`rt_rs_tpu_torch.ops.packet_stream.stream_closest_hit`
+through the flat-ray adapter (128-ray tiles, gather branch only).
 
-Scenes beyond the JAX package's resident cap (its segmented and
-DMA-streaming tables) and the dual-granularity table are not ported
-yet (ROADMAP module item 10): they raise ``NotImplementedError``.
+The dual-granularity table (``tri_chunk_fine``) is not ported yet
+(ROADMAP module item 10): it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,19 +25,10 @@ from functools import partial
 
 from rt_rs_tpu_torch.bvh import BvhData, build_bvh
 from rt_rs_tpu_torch.config import ComputeConfig
-from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
+from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats, tiled_as_flat
 from rt_rs_tpu_torch.handlers.bvh import reorder_scene_arrays
-from rt_rs_tpu_torch.ops.packet_trace import (
-    MAX_VMEM_CHUNKS,
-    TRI_CHUNK,
-    TUNED_RAY_TILE,
-    TUNED_TRI_CHUNK,
-    TriChunks,
-    build_tri_chunks,
-    packet_closest_hit_tiled,
-    resident_fits,
-    tag_refine,
-)
+from rt_rs_tpu_torch.ops import packet_stream
+from rt_rs_tpu_torch.ops import packet_trace as pt
 from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
@@ -43,7 +41,6 @@ def _not_ported(what: str) -> NotImplementedError:
 
 class PacketBvhIntrs(IntrsHandler):
     name = "Packet-BVH"
-    block_lanes = TUNED_RAY_TILE  # one 16x16 pixel block per ray tile
 
     def __init__(
         self,
@@ -51,76 +48,124 @@ class PacketBvhIntrs(IntrsHandler):
         target_item_count: int = 2,
         tri_chunk_fine: int | None = None,
         streaming_mode: str = "segmented",
+        chain: bool = True,
+        seg_order: tuple[int, ...] | None = None,
     ):
         """``eps`` / ``target_item_count`` drive the BVH build
-        (handlers/bvh.rs:33, 82).  The JAX package's other table
-        layouts raise."""
+        (handlers/bvh.rs:33, 82).  ``streaming_mode`` picks the table
+        beyond the resident cap; ``chain`` threads each segment's
+        result into the next segment's cull (exact either way);
+        ``seg_order`` fixes the segment visit order (None = scene order;
+        ``Renderer(seg_order="auto")`` sets it per frame)."""
         if tri_chunk_fine is not None:
             raise _not_ported("the dual-granularity table (tri_chunk_fine)")
         if streaming_mode not in ("segmented", "dma"):
             raise ValueError(f"unknown streaming_mode {streaming_mode!r}")
-        if streaming_mode == "dma":
-            raise _not_ported('streaming_mode="dma"')
         self.eps = eps
         self.target_item_count = target_item_count
+        self.streaming_mode = streaming_mode
+        self.chain = chain
+        self.seg_order = seg_order
         self.bvh_data: BvhData | None = None
 
-    def build(self, scene: Scene, arrays: SceneArrays) -> tuple[TriChunks, SceneArrays]:
+    @property
+    def block_lanes(self) -> int:
+        """Rays per tile, one pixel block each: 256 (16x16), or 128
+        (8x16) for the streaming kernel's fixed tile."""
+        if self.streaming_mode == "dma":
+            return packet_stream.STREAM_LANES
+        return pt.TUNED_RAY_TILE
+
+    def build(self, scene: Scene, arrays: SceneArrays):
         self.bvh_data = build_bvh(
             scene, eps=self.eps, target_item_count=self.target_item_count
         )
         arrays = reorder_scene_arrays(arrays, self.bvh_data.indices)
         n_tris = arrays.pa.shape[0] - 1  # minus the null sentinel
-        if n_tris > MAX_VMEM_CHUNKS * TRI_CHUNK:
-            raise _not_ported(
-                f"a {n_tris}-triangle scene (beyond the resident cap of "
-                f"{MAX_VMEM_CHUNKS * TRI_CHUNK}; segmented tables)"
-            )
-        chunks = build_tri_chunks(
+        streaming = n_tris > pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
+        # Resident and segmented tables carry the shade rows; the
+        # streamed table does not (kernel E has no rows mode).
+        dma = streaming and self.streaming_mode == "dma"
+        chunks = pt.build_tri_chunks(
             arrays.pa.cpu().numpy(),
             arrays.pb.cpu().numpy(),
             arrays.pc.cpu().numpy(),
             max_chunks=None,
-            tri_chunk=TUNED_TRI_CHUNK,
-            shade_rows=arrays.shade_table.cpu().numpy(),
+            tri_chunk=pt.TUNED_TRI_CHUNK,
+            shade_rows=None if dma else arrays.shade_table.cpu().numpy(),
             device=arrays.device,
         )
+        if streaming and not dma:
+            return pt.split_chunks(chunks), arrays
         return chunks, arrays
 
-    def stats(self, accel: TriChunks) -> IntrsStats:
-        """The chunk table's device footprint: components, bounds and
-        the rows table."""
-        parts = [accel.comp, accel.bmin, accel.bmax]
-        if accel.attr is not None:
-            parts.append(accel.attr)
+    def stats(self, accel) -> IntrsStats:
+        """The table's device footprint: components and bounds of every
+        segment, and the shared rows table once."""
+        parts = self._segments(accel) or (accel,)
+        tensors = [t for p in parts for t in (p.comp, p.bmin, p.bmax)]
+        if parts[0].attr is not None:
+            tensors.append(parts[0].attr)
         return IntrsStats(
-            name=self.name, size=sum(t.numel() * t.element_size() for t in parts)
+            name=self.name, size=sum(t.numel() * t.element_size() for t in tensors)
         )
 
-    def _entry(self, accel: TriChunks, cfg: ComputeConfig, **mode):
-        # Bounce and shadow batches take the per-ray refine cull; the
-        # coherent primaries keep the tile-interval cull.
-        return tag_refine(
-            partial(
-                packet_closest_hit_tiled,
-                accel,
-                t_min=cfg.t_min,
-                t_max=cfg.t_max,
-                eps=cfg.eps,
-                **mode,
-            ),
-            "bounces",
+    @staticmethod
+    def _segments(accel):
+        return accel.segments if isinstance(accel, pt.SegmentedTriChunks) else None
+
+    @staticmethod
+    def _streamed(accel) -> bool:
+        """A flat table beyond the resident cap: the DMA-streamed one."""
+        return (
+            isinstance(accel, pt.TriChunks)
+            and accel.num_chunks * accel.tri_chunk > pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
         )
 
-    def intersect_tiled_fn(self, accel: TriChunks, arrays: SceneArrays, cfg: ComputeConfig):
+    def _entry(self, accel, cfg: ComputeConfig, **mode):
+        """The tiled entry for ``accel`` in one mode, tagged so bounce
+        and shadow batches take the per-ray refine cull (the coherent
+        primaries keep the tile-interval cull)."""
+        kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, **mode)
+        if self._segments(accel) is not None:
+            fn = partial(
+                pt.packet_closest_hit_segmented_tiled, accel,
+                chain=self.chain, seg_order=self.seg_order, **kw,
+            )
+        else:
+            fn = partial(pt.packet_closest_hit_tiled, accel, **kw)
+        return pt.tag_refine(fn, "bounces")
+
+    def intersect_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if self._streamed(accel):
+            return partial(
+                packet_stream.stream_closest_hit, accel,
+                t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
+            )
+        return tiled_as_flat(self._entry(accel, cfg), self.block_lanes)
+
+    def intersect_tiled_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if self._streamed(accel):
+            # The streamed table has no tiled entry: adapt the flat one.
+            return super().intersect_tiled_fn(accel, arrays, cfg)
         return self._entry(accel, cfg)
 
-    def intersect_tiled_rows_fn(self, accel: TriChunks, arrays: SceneArrays, cfg: ComputeConfig):
-        if accel.attr is None or not resident_fits(accel, with_attrs=True):
-            return None
+    def intersect_tiled_rows_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        segs = self._segments(accel)
+        if segs is not None:
+            if segs[0].attr is None:
+                return None
+        elif accel.attr is None or not pt.resident_fits(accel, with_attrs=True):
+            return None  # incl. the streamed table, which has no rows
         return self._entry(accel, cfg, emit_rows=True)
 
-    def intersect_tiled_anyhit_fn(self, accel: TriChunks, arrays: SceneArrays, cfg: ComputeConfig):
-        if not resident_fits(accel):
-            return None
+    def rows_default(self, accel, n_pixels: int) -> bool:
+        """Segmented tables take the gather branch unless rows are
+        forced: the JAX package measured per-segment rows slower on the
+        TPU at every size."""
+        return self._segments(accel) is None
+
+    def intersect_tiled_anyhit_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if self._segments(accel) is None and not pt.resident_fits(accel):
+            return None  # the streamed table has no any-hit entry
         return self._entry(accel, cfg, any_hit=True)

@@ -35,9 +35,10 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 LIB_NAME = "librt_rs_tpu_torch_kernels.so"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xptxas=-v",
 )
@@ -48,7 +49,8 @@ _F = ctypes.c_float
 # C entry points -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "rt_refine_cull": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "rt_mt_trace": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "rt_mt_trace": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "rt_mt_stream": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_shade_pre": [_P] * 6 + [_I, _I, _I, _I] + [_P] * 4 + [_P],
     "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P],
 }
@@ -82,25 +84,42 @@ def build_key() -> str:
 
 def build() -> pathlib.Path:
     """Compile the kernels (once per source hash) -> the library path.
-    The compiler's report (``-Xptxas=-v``: registers, shared memory,
-    spills per kernel) is kept beside it as ``build.log``."""
+    Each source compiles in its own ``nvcc``, all started together, then
+    one ``nvcc -shared`` links them.  The compilers' reports
+    (``-Xptxas=-v``: registers, shared memory, spills per kernel) are
+    kept beside the library as ``build.log``."""
     out_dir = BUILD / build_key()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = pathlib.Path(tmp) / LIB_NAME
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_lib), *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        tmp = pathlib.Path(tmp)
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        tmp_lib = tmp / LIB_NAME
+        if not failed:
+            cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stdout + proc.stderr)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp_lib, lib)
     return lib
 

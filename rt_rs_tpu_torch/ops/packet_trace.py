@@ -25,6 +25,14 @@ compact on Hopper: ``comp [Nc, tc, 9]`` (a, e1 = b - a, e2 = c - a)
 instead of the TPU's lane-padded ``[Nc, tc, 128]``, and the rows table
 ``attr [Nc * tc + 1, 32]`` is the reordered shade table with a zero
 row 0 (the miss row) instead of the TPU's transposed ``attr_t``.
+
+Tables beyond the JAX package's resident cap are split into segments
+(:class:`SegmentedTriChunks`) exactly where the JAX package splits
+them, and traced segment by segment with a prim-id base and a (t, pid)
+merge (:func:`packet_closest_hit_segmented_tiled`).  Hopper has no
+VMEM cap to honour: a segment is an API and merge layer whose result
+equals one flat call on :func:`flatten_segments` bit for bit.  All
+segments share the one global rows table.
 """
 
 from __future__ import annotations
@@ -57,10 +65,11 @@ class TriChunks:
 
     ``comp [Nc, tc, 9]`` float32: a, e1, e2 per triangle.  ``bmin`` /
     ``bmax`` ``[Nc, 3]``: chunk AABBs.  Triangle ``s`` of chunk ``c`` is
-    prim ``1 + c * tc + s`` (reordered, null-prefixed id space).
-    ``attr [Nc * tc + 1, 32]``: the winner-row table for the emit-rows
-    mode (row 0 zero), or None when the shade table has a non-finite
-    value."""
+    prim ``1 + c * tc + s`` (reordered, null-prefixed id space), plus
+    the table's prim-id base when it is a segment.  ``attr [P + 1,
+    32]``: the winner-row table for the emit-rows mode (row 0 zero),
+    indexed by global prim id, so segments share it; None when the
+    shade table has a non-finite value."""
 
     comp: torch.Tensor
     bmin: torch.Tensor
@@ -92,7 +101,8 @@ def build_tri_chunks(
     max_chunks: int | None = MAX_VMEM_CHUNKS,
     tri_chunk: int = TRI_CHUNK,
     shade_rows: np.ndarray | None = None,  # [P+1, 32] shade table
-    device: str | torch.device = "cpu",
+    *,
+    device: str | torch.device,
 ) -> TriChunks:
     """Pack reordered prim corners (rows 1.. of the scene arrays; row 0
     is the null sentinel and is excluded) into chunks, in NumPy with
@@ -179,6 +189,31 @@ def _interval_mul(u_lo, u_hi, i_lo, i_hi):
     lo = torch.where(torch.isnan(lo), -torch.inf, lo)
     hi = torch.where(torch.isnan(hi), torch.inf, hi)
     return lo, hi
+
+
+def chunk_overlap_mask(
+    o: torch.Tensor,  # [T, r, 3] ray-major origins
+    inv_d: torch.Tensor,  # [T, r, 3]
+    ray_valid: torch.Tensor,  # [T, r] bool
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    t_cap: torch.Tensor | None = None,  # [T, r]
+) -> torch.Tensor:
+    """:func:`chunk_overlap_mask_cm` on ray-major tiles (the streaming
+    path's layout) -> the same conservative [T, Nc] mask."""
+    big = _f32(3.0e38, o.device)
+    v = ray_valid[..., None]
+    o_lo = torch.where(v, o, big).amin(dim=1)  # [T, 3]
+    o_hi = torch.where(v, o, -big).amax(dim=1)
+    i_lo = torch.where(v, inv_d, big).amin(dim=1)
+    i_hi = torch.where(v, inv_d, -big).amax(dim=1)
+    return _overlap_from_bounds(
+        o_lo, o_hi, i_lo, i_hi, ray_valid, bmin, bmax,
+        t_min=t_min, t_max=t_max, t_cap=t_cap,
+    )
 
 
 def chunk_overlap_mask_cm(
@@ -420,54 +455,63 @@ def mt_chunk_test(tri, ox, oy, oz, dx, dy, dz, *, t_min, t_max, eps):
     return ok, w
 
 
+def twin_slices(tiles: torch.Tensor, per_tile: int):
+    """Split a twin's tile selection into slices whose [S, per_tile]
+    lattice stays within a fixed element budget (smaller on the CPU)."""
+    budget = 2**22 if tiles.device.type == "cpu" else 2**25
+    step = max(1, budget // per_tile)
+    return [tiles[s0 : s0 + step] for s0 in range(0, tiles.numel(), step)]
+
+
 def mt_trace_reference(
     comp: torch.Tensor,  # [Nc, tc, 9]
     payload: torch.Tensor,  # [8, T, r]
     ids: torch.Tensor,  # [T, Nc] int32
     counts: torch.Tensor,  # [T] int32
-    attr: torch.Tensor | None = None,  # [Nc*tc+1, 32]
+    attr: torch.Tensor | None = None,  # [>= pid_base + Nc*tc + 1, 32]
     *,
     t_min: float,
     t_max: float,
     eps: float,
     mode: str,
+    pid_base: int = 0,
 ):
-    """Plain-PyTorch twin of kernel B, vectorised over tiles, looping
-    over the list position ``k < max(counts)``.  Per chunk, the best
-    hit of each ray (min w, ties to the smallest triangle) replaces the
-    running best only when strictly nearer: the same result as the
-    kernel's ascending strict scan."""
+    """Plain-PyTorch twin of kernel B, vectorised over the tiles whose
+    list reaches position ``k``, looping over ``k < max(counts)``.  Per
+    chunk, the best hit of each ray (min w, ties to the smallest
+    triangle) replaces the running best only when strictly nearer: the
+    same result as the kernel's ascending strict scan."""
     dev = payload.device
     n_tiles, r = payload.shape[1], payload.shape[2]
     tc = comp.shape[1]
     f = lambda x: _f32(x, dev)  # noqa: E731
     t_min_t, t_max_t, eps_t = f(t_min), f(t_max), f(eps)
     miss = f(float(np.float32(t_max + 1.0)))
-    ox, oy, oz, dx, dy, dz, excl, cap = (payload[i][:, None, :] for i in range(8))
     sub = torch.arange(tc, dtype=torch.int32, device=dev)[None, :, None]
     best_t = miss.expand(n_tiles, r).clone()
     best_id = torch.zeros((n_tiles, r), dtype=torch.int32, device=dev)
     blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
     kmax = int(counts.max()) if n_tiles else 0
     for k in range(kmax):
-        live = (counts > k)[:, None, None]  # [T, 1, 1]
-        c = ids[:, k].to(torch.int64)
-        tri = comp[c]  # [T, tc, 9]
-        ok, w = mt_chunk_test(
-            [tri[:, :, i : i + 1] for i in range(9)], ox, oy, oz, dx, dy, dz,
-            t_min=t_min_t, t_max=t_max_t, eps=eps_t,
-        )  # [T, tc, r]
-        pid0 = (1 + c.to(torch.int32) * tc)[:, None]  # [T, 1]
-        ok = ok & ((pid0[:, :, None] + sub).to(torch.float32) != excl) & live
-        if mode == "anyhit":
-            blocked = blocked | (ok & (w < cap)).any(dim=1)
-            continue
-        wm = torch.where(ok, w, miss)
-        cmin = wm.amin(dim=1)  # [T, r]
-        s_first = torch.where(wm == cmin[:, None, :], sub, tc).amin(dim=1)
-        better = cmin < best_t
-        best_t = torch.where(better, cmin, best_t)
-        best_id = torch.where(better, pid0 + s_first, best_id)
+        for sel in twin_slices((counts > k).nonzero()[:, 0], tc * r):
+            ox, oy, oz, dx, dy, dz, excl, cap = (payload[i, sel][:, None, :] for i in range(8))
+            c = ids[sel, k].to(torch.int64)
+            tri = comp[c]  # [S, tc, 9]
+            ok, w = mt_chunk_test(
+                [tri[:, :, i : i + 1] for i in range(9)], ox, oy, oz, dx, dy, dz,
+                t_min=t_min_t, t_max=t_max_t, eps=eps_t,
+            )  # [S, tc, r]
+            pid0 = (1 + pid_base + c.to(torch.int32) * tc)[:, None]  # [S, 1]
+            ok = ok & ((pid0[:, :, None] + sub).to(torch.float32) != excl)
+            if mode == "anyhit":
+                blocked[sel] |= (ok & (w < cap)).any(dim=1)
+                continue
+            wm = torch.where(ok, w, miss)
+            cmin = wm.amin(dim=1)  # [S, r]
+            s_first = torch.where(wm == cmin[:, None, :], sub, tc).amin(dim=1)
+            better = cmin < best_t[sel]
+            best_t[sel] = torch.where(better, cmin, best_t[sel])
+            best_id[sel] = torch.where(better, pid0 + s_first, best_id[sel])
     if mode == "anyhit":
         return blocked
     if mode == "rows":
@@ -487,16 +531,19 @@ def mt_trace(
     t_max: float,
     eps: float,
     mode: str,
+    pid_base: int = 0,
 ):
     """Kernel B (csrc/mt_trace.cu).  ``mode`` "closest" -> (t [T, r],
     pid [T, r] int32); "rows" -> (t, pid, rows [32, T, r]); "anyhit" ->
-    blocked [T, r] bool.  CPU tensors run :func:`mt_trace_reference`;
-    CUDA tensors launch the kernel."""
+    blocked [T, r] bool.  Prim ids are global: triangle ``s`` of chunk
+    ``c`` is ``1 + pid_base + c * tc + s``, for the exclusion test, the
+    returned pid and the row read from ``attr``.  CPU tensors run
+    :func:`mt_trace_reference`; CUDA tensors launch the kernel."""
     if mode not in MT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
     if mode == "rows" and attr is None:
         raise ValueError("rows mode needs the attr table")
-    kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode=mode)
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base)
     if not payload.is_cuda:
         return mt_trace_reference(comp, payload, ids, counts, attr, **kw)
     nc, tc = comp.shape[0], comp.shape[1]
@@ -507,7 +554,10 @@ def mt_trace(
     cuda.check("ids", ids, torch.int32, (n_tiles, nc), dev)
     cuda.check("counts", counts, torch.int32, (n_tiles,), dev)
     if mode == "rows":
-        cuda.check("attr", attr, torch.float32, (nc * tc + 1, 32), dev)
+        need = pid_base + nc * tc + 1
+        cuda.check("attr", attr, torch.float32, (attr.shape[0], 32), dev)
+        if attr.shape[0] < need:
+            raise ValueError(f"attr: {attr.shape[0]} rows, need at least {need}")
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
     out_t = out_pid = out_rows = out_blocked = None
@@ -523,7 +573,7 @@ def mt_trace(
         payload.data_ptr(), comp.data_ptr(), ids.data_ptr(),
         counts.data_ptr(), cuda.ptr(attr if mode == "rows" else None),
         cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
-        cuda.ptr(out_blocked), n_tiles, r, nc, tc, float(t_min),
+        cuda.ptr(out_blocked), n_tiles, r, nc, tc, int(pid_base), float(t_min),
         float(t_max), float(eps), float(np.float32(t_max + 1.0)),
         MT_MODES.index(mode),
     )
@@ -543,6 +593,7 @@ def packet_closest_hit_tiled(
     t_min: float,
     t_max: float,
     eps: float,
+    pid_base: int = 0,
     emit_rows: bool = False,
     any_hit: bool = False,
     refine: bool = False,
@@ -555,12 +606,15 @@ def packet_closest_hit_tiled(
     Outputs are specified for valid rays only.  ``t_cap`` only tightens
     culling.  ``refine`` takes the per-ray slab cull (kernel A) instead
     of the tile-interval cull; both are conservative, so the results do
-    not depend on it."""
+    not depend on it.  ``pid_base`` shifts the table's prim ids into a
+    global id space (a segment of a larger table): the exclusion test,
+    the returned ids and the rows read from ``chunks.attr`` are global;
+    misses stay 0."""
     nc = chunks.num_chunks
     # The JAX package carries prim ids as f32 and refuses ids at or
     # above 2^24; the port keeps the same bound (and exclusion ids are
     # still f32 in the payload).
-    if nc * chunks.tri_chunk + 1 >= 1 << 24:
+    if pid_base + nc * chunks.tri_chunk + 1 >= 1 << 24:
         raise ValueError(
             "prim ids exceed f32 exact-integer range (2^24); scene too "
             "large for exact exclusion/hit ids"
@@ -591,8 +645,194 @@ def packet_closest_hit_tiled(
     mode = "anyhit" if any_hit else ("rows" if emit_rows else "closest")
     return mt_trace(
         chunks.comp, payload, ids, counts, chunks.attr if emit_rows else None,
-        t_min=t_min, t_max=t_max, eps=eps, mode=mode,
+        t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base,
     )
+
+
+# ----------------------------------------------------------------------
+# Segmented tables: the JAX package's beyond-VMEM split, kept so that
+# segment boundaries, prim bases and seg_order tuples mean the same in
+# both packages.
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentedTriChunks:
+    """A chunk table split into segments; ``prim_base[i]`` is segment
+    i's global prim-id offset.  Segments are slices of one table and
+    share its rows table."""
+
+    segments: tuple[TriChunks, ...]
+    prim_base: tuple[int, ...]
+
+    @property
+    def num_chunks(self) -> int:
+        return sum(s.num_chunks for s in self.segments)
+
+
+def split_chunks_traced(
+    chunks: TriChunks, max_seg_tris: int | None = None
+) -> SegmentedTriChunks:
+    """Split a chunk table into segments of views on it.
+
+    Sized by the JAX package's byte model, not by the port's own
+    ``[Nc, tc, 9]`` bytes: a triangle costs 512 B of lane-padded
+    components plus ``32 * LANES * 4 / tc`` B of rows table when the
+    table carries one, against the budget ``MAX_VMEM_CHUNKS * TRI_CHUNK
+    * 512`` B; segments are whole multiples of CHUNK_ALIGN chunks (8,192
+    triangles at tc = 64 with rows, 12,288 without)."""
+    nc = chunks.num_chunks
+    tc = chunks.tri_chunk
+    if max_seg_tris is None:
+        budget = MAX_VMEM_CHUNKS * TRI_CHUNK * 512
+        per_tri = 512 + ((32 * LANES * 4) // tc if chunks.attr is not None else 0)
+        max_seg_tris = budget // per_tri
+    seg_chunks = max(CHUNK_ALIGN, (max_seg_tris // tc) // CHUNK_ALIGN * CHUNK_ALIGN)
+    segments, bases = [], []
+    for s0 in range(0, nc, seg_chunks):
+        s1 = min(nc, s0 + seg_chunks)
+        segments.append(
+            TriChunks(
+                comp=chunks.comp[s0:s1],
+                bmin=chunks.bmin[s0:s1],
+                bmax=chunks.bmax[s0:s1],
+                num_chunks=s1 - s0,
+                attr=chunks.attr,
+            )
+        )
+        bases.append(s0 * tc)
+    return SegmentedTriChunks(segments=tuple(segments), prim_base=tuple(bases))
+
+
+def split_chunks(chunks: TriChunks, max_seg_tris: int | None = None) -> SegmentedTriChunks:
+    """:func:`split_chunks_traced` with each segment's components and
+    bounds in a buffer of its own (the shared rows table stays one)."""
+    seg = split_chunks_traced(chunks, max_seg_tris)
+    return SegmentedTriChunks(
+        segments=tuple(
+            dataclasses.replace(
+                s, comp=s.comp.clone(), bmin=s.bmin.clone(), bmax=s.bmax.clone()
+            )
+            for s in seg.segments
+        ),
+        prim_base=seg.prim_base,
+    )
+
+
+def flatten_segments(accel, pad_multiple: int = 1) -> TriChunks:
+    """The one flat chunk table behind a segmented (or flat) table.
+    Segments were sliced from one table, so concatenating them
+    reproduces it exactly.  ``pad_multiple`` appends never-hit chunks
+    (zero components, inverted bounds, zero rows) so the chunk count
+    divides it."""
+    if isinstance(accel, TriChunks):
+        parts = (accel,)
+    elif isinstance(accel, SegmentedTriChunks):
+        parts = accel.segments
+    else:
+        raise TypeError(f"no flat chunk table behind {type(accel).__name__}")
+    if len(parts) == 1 and parts[0].num_chunks % pad_multiple == 0:
+        return parts[0]
+    comp = torch.cat([s.comp for s in parts])
+    bmin = torch.cat([s.bmin for s in parts])
+    bmax = torch.cat([s.bmax for s in parts])
+    attr = parts[0].attr if all(s.attr is not None for s in parts) else None
+    nc = sum(s.num_chunks for s in parts)
+    nc_pad = -(-nc // pad_multiple) * pad_multiple
+    if nc_pad != nc:
+        extra = nc_pad - nc
+        tc = comp.shape[1]
+        fmax = float(np.finfo(np.float32).max)
+        comp = torch.cat([comp, comp.new_zeros((extra, tc, 9))])
+        bmin = torch.cat([bmin, bmin.new_full((extra, 3), fmax)])
+        bmax = torch.cat([bmax, bmax.new_full((extra, 3), -fmax)])
+        if attr is not None:
+            attr = torch.cat([attr, attr.new_zeros((nc_pad * tc + 1 - attr.shape[0], 32))])
+    return TriChunks(comp=comp, bmin=bmin, bmax=bmax, num_chunks=nc_pad, attr=attr)
+
+
+def _check_total_prims_f32(seg: SegmentedTriChunks) -> None:
+    """Global prim ids (and the exclusion ids compared with them) must
+    stay exact in f32: below 2^24."""
+    last = seg.segments[-1]
+    total = seg.prim_base[-1] + last.num_chunks * last.tri_chunk
+    if total + 1 >= 1 << 24:
+        raise ValueError(
+            "prim ids exceed f32 exact-integer range (2^24); scene too "
+            "large for exact exclusion/hit ids"
+        )
+
+
+def packet_closest_hit_segmented_tiled(
+    seg: SegmentedTriChunks,
+    payload: torch.Tensor,  # [8, T, r]; the excl row holds global ids
+    valid: torch.Tensor,  # [T, r]
+    t_cap: torch.Tensor | None = None,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    emit_rows: bool = False,
+    any_hit: bool = False,
+    chain: bool = True,
+    refine: bool = False,
+    seg_order: tuple[int, ...] | None = None,
+):
+    """:func:`packet_closest_hit_tiled` over a segmented table: one call
+    per segment with its ``pid_base``, merged.
+
+    Closest hit merges (t, pid)-lexicographically (equal t keeps the
+    smallest global prim id), so the result is the same for every visit
+    order ``seg_order`` (a permutation of the segments; None = scene
+    order) and equals one flat call bit for bit; with ``emit_rows`` the
+    winner's rows are selected alongside.  Any-hit ORs the segments'
+    verdicts, each masked by its call's validity (outputs for invalid
+    rays are unspecified).  ``chain`` feeds each segment's result into
+    the next call's cull: closest hit caps the next segment at
+    ``min(t_cap, best so far)``, any-hit drops rays already blocked.
+    Both are exact: a chunk culled by the cap could only lose the merge,
+    and a blocked ray's verdict is final."""
+    if emit_rows and any_hit:
+        raise ValueError("emit_rows and any_hit are mutually exclusive")
+    _check_total_prims_f32(seg)
+    n_seg = len(seg.segments)
+    if seg_order is None:
+        seg_order = tuple(range(n_seg))
+    elif sorted(seg_order) != list(range(n_seg)):
+        raise ValueError(
+            f"seg_order {seg_order!r} is not a permutation of range({n_seg})"
+        )
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, refine=refine)
+    visit = [(seg.prim_base[s], seg.segments[s]) for s in seg_order]
+    if any_hit:
+        blocked = None
+        valid_s = valid
+        for base, part in visit:
+            b_s = packet_closest_hit_tiled(
+                part, payload, valid_s, t_cap, pid_base=base, any_hit=True, **kw
+            )
+            b_s = b_s & valid_s
+            blocked = b_s if blocked is None else (blocked | b_s)
+            if chain:
+                valid_s = valid & ~blocked
+        return blocked
+    best = None
+    for base, part in visit:
+        cap_s = t_cap
+        if chain and best is not None:
+            cap_s = best[0] if cap_s is None else torch.minimum(cap_s, best[0])
+        out = packet_closest_hit_tiled(
+            part, payload, valid, cap_s, pid_base=base, emit_rows=emit_rows, **kw
+        )
+        if best is None:
+            best = out
+            continue
+        t_s, id_s = out[0], out[1]
+        better = (t_s < best[0]) | ((t_s == best[0]) & (id_s < best[1]))
+        best = tuple(
+            torch.where(better[None] if o.dim() == 3 else better, o, b)
+            for o, b in zip(out, best)
+        )
+    return best
 
 
 def tag_refine(fn, mode: str):

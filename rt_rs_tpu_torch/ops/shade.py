@@ -3,15 +3,16 @@
 Counterpart of ``rt_rs_tpu/ops/shade.py`` on the pbvh frame path:
 ``render_tiled`` -> ``camera_ray_tiles`` + ``trace_tiled``.  Rays live
 as component-major ``[8, T, r]`` tiles end to end (ox, oy, oz, dx, dy,
-dz, excl, cap); each bounce is one row-emitting closest-hit call, one
-any-hit call for the shadow rays of every light, and the two shading
-kernels of :mod:`rt_rs_tpu_torch.ops.shade_tile`.  The semantics are
+dz, excl, cap); each bounce is one or two intersect calls (see
+:func:`trace_tiled`) and the two shading kernels of
+:mod:`rt_rs_tpu_torch.ops.shade_tile`.  The semantics are
 the reference shader's bounce loop (compute.wgsl:219-280; headlight
 first, then the scene lights).
 
-Only ``trace_tiled``'s default branches are ported: the emit-rows
-branch, no retiling, no fused bounce kernel, no narrowed tiles.  The
-others raise ``NotImplementedError`` naming their ROADMAP item.
+``trace_tiled``'s emit-rows branch (resident tables) and gather branch
+(segmented and streamed tables, and resident tables too large for the
+rows table) are ported; retiling, the fused bounce kernel and narrowed
+tiles raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -177,15 +178,18 @@ def trace_tiled(
 ) -> torch.Tensor:
     """The bounce loop over component-major ray tiles -> color [3, T, r].
 
-    ``intersect_rows_fn`` emits the winners' shade rows from the trace
-    kernel (no row gathers).  Shadow rays of all lights go in one batch
-    to ``intersect_anyhit_fn`` (the occlusion bound rides payload row
-    7), minus the rays whose light cannot change the colour whatever
-    the verdict (shade_pre's mask; output-exact).  Bounce and shadow
-    batches opt into the per-ray cull when the backend advertises
-    ``supports_refine``.  ``intersect_fn`` (plain closest hit) is
-    what the gather branch will use; the default branch does not call
-    it."""
+    With ``intersect_rows_fn`` (the emit branch) every closest-hit call
+    also returns the winners' shade rows, so no row is gathered; shadow
+    rays of all lights go in one batch to ``intersect_anyhit_fn`` (the
+    occlusion bound rides payload row 7), or to ``intersect_fn`` in
+    closest-hit mode when there is no any-hit entry.  Without it (the
+    gather branch) each bounce makes one closest-hit call over the
+    light-major shadow rays with the next bounce's rays appended (caps
+    ``t_max``), and gathers the hits' rows from the scene's shade
+    table.  Either way shadow rays whose light cannot change the colour
+    whatever the verdict are dropped from the batch (shade_pre's mask;
+    output-exact), and bounce and shadow batches opt into the per-ray
+    cull when the entry advertises ``supports_refine``."""
     if fuse_bounce:
         raise _not_ported("trace_tiled(fuse_bounce=True)", 15)
     if retile:
@@ -194,10 +198,6 @@ def trace_tiled(
         raise _not_ported("trace_tiled(narrow=...)", 15)
     if not scene.no_negative_materials:
         raise _not_ported("the XLA trace() path for negative materials", 9)
-    if intersect_rows_fn is None or intersect_anyhit_fn is None:
-        raise _not_ported(
-            "trace_tiled without a rows or an any-hit entry (the gather branch)", 6
-        )
     dev = payload.device
     t_tiles, r = valid.shape
     light_rows = []
@@ -221,21 +221,32 @@ def trace_tiled(
         return color
     lights = torch.stack(light_rows).contiguous()  # [k, 4]
     sub = shade_tile.SUBGROUP
+    emit = intersect_rows_fn is not None
+    table = scene.shade_table
 
     def refine_kw(fn):
         # Secondary and shadow batches take the per-ray cull (their
         # rays diverge within a tile); primaries keep the interval cull.
         return {"refine": True} if getattr(fn, "supports_refine", False) else {}
 
-    def liveness(t, pid, active):
+    def liveness(t, pid, active, rows):
+        """Validity update and, in the gather branch, the hits' rows
+        (row 0, zeros, for dead rays; the emit branch's rows of dead
+        rays hold their hit's row instead: every consumer masks them)."""
         pid = torch.where(active, pid, 0)
         valid_b = (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
         active = active & valid_b
+        if rows is None:
+            rows = table[pid.reshape(-1).to(torch.int64)].T.reshape(32, t_tiles, r)
+            rows = rows.contiguous()
         live_sg = active.reshape(t_tiles // sub, sub * r).any(dim=1).to(torch.int32)
-        return pid, active, live_sg
+        return pid, rows, active, live_sg
 
-    t, pid, rows = intersect_rows_fn(payload, valid)
-    pid, active, live_sg = liveness(t, pid, valid)
+    if emit:
+        t, pid, rows = intersect_rows_fn(payload, valid)
+    else:
+        (t, pid), rows = intersect_fn(payload, valid), None
+    pid, rows, active, live_sg = liveness(t, pid, valid, rows)
     sh_pay, caps, cmasks, nxt = shade_tile.shade_pre(
         rows, payload, t, pid.to(torch.float32), live_sg, lights,
         emit_next=cfg.bounces > 1,
@@ -245,28 +256,51 @@ def trace_tiled(
         last = bounce + 1 >= cfg.bounces
         # Shadow validity: live, and the light can contribute.
         sh_valid = (active[None] & (cmasks > 0.0)).reshape(k * t_tiles, r)
-        blocked = intersect_anyhit_fn(
-            sh_pay, sh_valid, t_cap=caps.reshape(k * t_tiles, r),
-            **refine_kw(intersect_anyhit_fn),
-        )
-        sh_t = blocked.reshape(k, t_tiles, r).to(torch.float32)
-        if not last:
+        sh_caps = caps.reshape(k * t_tiles, r)
+        blocked_mode = emit and intersect_anyhit_fn is not None
+        rows2 = None
+        if blocked_mode:
+            blocked = intersect_anyhit_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_anyhit_fn)
+            )
+            sh_t = sh_id = blocked.reshape(k, t_tiles, r).to(torch.float32)
+        elif emit:
+            st, sid = intersect_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_fn)
+            )
+            sh_t, sh_id = st.reshape(k, t_tiles, r), sid.reshape(k, t_tiles, r)
+        else:
+            # One call: light-major shadow rays, then the next bounce's.
+            if not last:
+                sh_pay = torch.cat([sh_pay, nxt], dim=1)
+                sh_valid = torch.cat([sh_valid, active])
+                sh_caps = torch.cat([sh_caps, torch.full_like(t, cfg.t_max)])
+            st, sid = intersect_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_fn)
+            )
+            n_sh = k * t_tiles
+            sh_t = st[:n_sh].reshape(k, t_tiles, r)
+            sh_id = sid[:n_sh].reshape(k, t_tiles, r)
+            if not last:
+                t2, pid2 = st[n_sh:], sid[n_sh:]
+        if emit and not last:
             t2, pid2, rows2 = intersect_rows_fn(
                 nxt, active, **refine_kw(intersect_rows_fn)
             )
         color = color + shade_tile.shade_post(
-            rows, payload, t, active.to(torch.float32), sh_t, sh_t, caps,
-            live_sg, lights, first_bounce=bounce == 0,
-            t_min=cfg.t_min, t_max=cfg.t_max, blocked_mode=True,
+            rows, payload, t, active.to(torch.float32), sh_t.contiguous(),
+            sh_id.to(torch.float32).contiguous(), caps, live_sg, lights,
+            first_bounce=bounce == 0, t_min=cfg.t_min, t_max=cfg.t_max,
+            blocked_mode=blocked_mode,
         )
         if last:
             break
-        pid2, active2, live_sg2 = liveness(t2, pid2, active)
+        pid2, rows2, active2, live_sg2 = liveness(t2, pid2, active, rows2)
         sh_pay, caps, cmasks, nxt2 = shade_tile.shade_pre(
-            rows2, nxt, t2, pid2.to(torch.float32), live_sg2, lights,
+            rows2, nxt, t2.contiguous(), pid2.to(torch.float32), live_sg2, lights,
             emit_next=bounce + 2 < cfg.bounces,
         )
-        rows, payload, t, pid = rows2, nxt, t2, pid2
+        rows, payload, t, pid = rows2, nxt, t2.contiguous(), pid2
         active, live_sg, nxt = active2, live_sg2, nxt2
 
     return color

@@ -8,13 +8,13 @@ renders a frame by calling :func:`rt_rs_tpu_torch.ops.shade.render_tiled`
 every kernel of the frame is a hand-written CUDA kernel; on the CPU the
 same calls run their plain-PyTorch twins.
 
-Not ported yet: ``animate(chain>1)``, ``seg_order`` (segmented tables),
-the XLA fallback for negative materials and ``DynamicRenderer``
-(ROADMAP module items 9, 10 and 12).
+Not ported yet: ``animate(chain>1)``, the XLA fallback for negative
+materials and ``DynamicRenderer`` (ROADMAP module items 9 and 12).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
 from typing import Any, Callable
@@ -27,6 +27,28 @@ from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
 from rt_rs_tpu_torch.ops import shade
 from rt_rs_tpu_torch.scene import Scene
+
+
+def _segmented_parts(accel):
+    """The accel's segments if it is a segmented table, else None."""
+    from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks
+
+    return accel.segments if isinstance(accel, SegmentedTriChunks) else None
+
+
+# 26 snap directions ({-1,0,1}^3 minus the origin, normalized): the
+# quantization grid of seg_order="auto", which bounds the number of
+# distinct segment orders (and cached entries) at 26.
+_SNAP_DIRS = np.array(
+    [
+        (x, y, z)
+        for x in (-1.0, 0.0, 1.0)
+        for y in (-1.0, 0.0, 1.0)
+        for z in (-1.0, 0.0, 1.0)
+        if (x, y, z) != (0.0, 0.0, 0.0)
+    ]
+)
+_SNAP_DIRS /= np.linalg.norm(_SNAP_DIRS, axis=1, keepdims=True)
 
 
 def device_sync(x: torch.Tensor) -> None:
@@ -46,14 +68,29 @@ class Renderer:
         handler_kwargs: dict[str, Any] | None = None,
         size: tuple[int, int] | None = None,
         device: str | torch.device = "cuda",
+        force_rows: bool | None = None,
+        seg_order: str | tuple[int, ...] | None = "auto",
     ):
         """``device`` is where every tensor lives and every kernel runs
         (default ``"cuda"``; there is no fallback to the CPU: pass
         ``device="cpu"`` to run the plain-PyTorch twins).  Rays are
         generated in pixel blocks of one ray tile each, shaped by the
-        config's workgroup hint (16x16 for pbvh's 256-ray tiles)."""
+        config's workgroup hint (16x16 for pbvh's 256-ray tiles, 8x16
+        for the streaming kernel's 128).
+
+        ``force_rows`` overrides the handler's ``rows_default`` (None:
+        the kernel-emitted-rows branch for resident tables, the gather
+        branch for segmented ones).  ``seg_order`` sets the visit order
+        of a segmented table's segments: ``"auto"`` (default) visits
+        them camera-front-to-back each frame, with the camera direction
+        snapped to 26 bins; a tuple fixes one order; ``"scene"`` keeps
+        build order.  Results are the same for every order (the merge
+        is (t, pid)-lexicographic); the order only decides how early
+        near hits cap the farther segments' culls.  A no-op for other
+        tables."""
         self.scene = scene
         self.device = torch.device(device)
+        self.force_rows = force_rows
         self.config = config or Config()
         if isinstance(handler, IntrsHandler):
             self.handler = handler
@@ -64,10 +101,35 @@ class Renderer:
             size if size is not None else self.config.resolution.size()
         )
 
-        arrays = scene.pack(self.device)
+        arrays = scene.pack(device=self.device)
         self.accel, self.arrays = self.handler.build(scene, arrays)
         self.stats: IntrsStats = self.handler.stats(self.accel)
-        self._bind()
+        if not self.arrays.no_negative_materials:
+            raise NotImplementedError(
+                "scenes with negative materials need the XLA trace() path, "
+                "which is not ported to rt_rs_tpu_torch yet (ROADMAP module "
+                "item 9)"
+            )
+        self._entries: dict[int, tuple] = {}
+
+        self.seg_order = seg_order
+        self._order_handlers: dict[tuple[int, ...], IntrsHandler] = {}
+        self._seg_centers: np.ndarray | None = None
+        if seg_order not in ("scene", None):
+            segs = _segmented_parts(self.accel)
+            if segs is None or not hasattr(self.handler, "seg_order"):
+                self.seg_order = "scene"  # inapplicable: a no-op
+            elif isinstance(seg_order, tuple):
+                self._frame_handler_for(tuple(int(i) for i in seg_order))
+            elif seg_order == "auto":
+                self._seg_centers = np.stack(
+                    [
+                        (s.bmin.amin(0) + s.bmax.amax(0)).cpu().numpy() / 2.0
+                        for s in segs
+                    ]
+                )
+            else:
+                raise ValueError(f"unknown seg_order {seg_order!r}")
 
         self.camera = scene.camera
         self.camera_controller = scene.camera_controller
@@ -80,25 +142,59 @@ class Renderer:
                 stacklevel=2,
             )
 
-    def _bind(self) -> None:
-        """Bind the handler's intersect entries to the current config:
-        kernel-emitted rows with any-hit shadows where the handler
-        offers them (the frame path's default)."""
-        if not self.arrays.no_negative_materials:
-            raise NotImplementedError(
-                "scenes with negative materials need the XLA trace() path, "
-                "which is not ported to rt_rs_tpu_torch yet (ROADMAP module "
-                "item 9)"
+    def _frame_handler_for(self, order: tuple[int, ...]) -> IntrsHandler:
+        """A cached shallow copy of the handler pinned to one segment
+        visit order."""
+        h = self._order_handlers.get(order)
+        if h is None:
+            h = copy.copy(self.handler)
+            h.seg_order = order
+            self._order_handlers[order] = h
+        return h
+
+    def _frame_handler(self) -> IntrsHandler:
+        """The handler for this frame: with ``seg_order="auto"`` on a
+        segmented table, a copy pinned to the camera-front-to-back order
+        (segment centres sorted by distance from a point at the camera's
+        distance in the snapped camera direction)."""
+        if self._seg_centers is None:
+            if self._order_handlers:  # a fixed tuple: its one copy
+                return next(iter(self._order_handlers.values()))
+            return self.handler
+        centers = self._seg_centers
+        mid = centers.mean(0)
+        v = np.asarray(self.camera.pos, np.float64) - mid
+        r = float(np.linalg.norm(v))
+        if not np.isfinite(r) or r == 0.0:
+            return self.handler
+        u = _SNAP_DIRS[int(np.argmax(_SNAP_DIRS @ (v / r)))]
+        d = np.linalg.norm(centers - (mid + u * r), axis=1)
+        return self._frame_handler_for(tuple(int(i) for i in np.argsort(d, kind="stable")))
+
+    def _bound(self, h: IntrsHandler) -> tuple:
+        """``h``'s intersect entries under the current config ->
+        (closest hit, rows or None, any-hit or None): kernel-emitted
+        rows with any-hit shadows where the handler offers them and
+        ``force_rows`` / ``rows_default`` asks for them, else the gather
+        branch."""
+        entries = self._entries.get(id(h))
+        if entries is None:
+            cfg = self.config.compute
+            rows_fn = anyhit_fn = None
+            use_rows = (
+                h.rows_default(self.accel, self.width * self.height)
+                if self.force_rows is None
+                else self.force_rows
             )
-        h, cfg = self.handler, self.config.compute
-        self._rows_fn = self._anyhit_fn = None
-        if h.rows_default(self.accel, self.width * self.height):
-            self._rows_fn = h.intersect_tiled_rows_fn(self.accel, self.arrays, cfg)
-            if self._rows_fn is not None:
-                self._anyhit_fn = h.intersect_tiled_anyhit_fn(
-                    self.accel, self.arrays, cfg
-                )
-        self._intersect_fn = h.intersect_tiled_fn(self.accel, self.arrays, cfg)
+            if use_rows:
+                rows_fn = h.intersect_tiled_rows_fn(self.accel, self.arrays, cfg)
+                if rows_fn is not None:
+                    anyhit_fn = h.intersect_tiled_anyhit_fn(self.accel, self.arrays, cfg)
+            entries = (
+                h.intersect_tiled_fn(self.accel, self.arrays, cfg), rows_fn, anyhit_fn
+            )
+            self._entries[id(h)] = entries
+        return entries
 
     def _camera_tensor(self, v) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
@@ -106,9 +202,10 @@ class Renderer:
     def render_frame(self, block: bool = True) -> torch.Tensor:
         """Render one frame -> [H, W, 3] float32 tensor on the device.
         ``block`` waits for the device to finish it."""
+        intersect_fn, rows_fn, anyhit_fn = self._bound(self._frame_handler())
         out = shade.render_tiled(
             self.arrays,
-            self._intersect_fn,
+            intersect_fn,
             self.config.compute,
             self._camera_tensor(self.camera.pos),
             self._camera_tensor(self.camera.at),
@@ -116,8 +213,8 @@ class Renderer:
             self.height,
             ray_tile=self.handler.block_lanes,
             block=self.block,
-            intersect_rows_fn=self._rows_fn,
-            intersect_anyhit_fn=self._anyhit_fn,
+            intersect_rows_fn=rows_fn,
+            intersect_anyhit_fn=anyhit_fn,
         )
         if block:
             device_sync(out)
@@ -140,7 +237,7 @@ class Renderer:
         self.config = Config(
             compute=compute, resolution=self.config.resolution, fps=self.config.fps
         )
-        self._bind()
+        self._entries.clear()
 
     def animate(
         self,

@@ -17,6 +17,7 @@ import json
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from rt_rs_tpu_torch.geom import (
     Light,
@@ -161,7 +162,9 @@ class Scene:
     # ------------------------------------------------------------------
     # Device packing
 
-    def pack(self, device: str = "cpu") -> "SceneArrays":
+    def pack(self, *, device: str | torch.device) -> "SceneArrays":
+        """The scene's device arrays, on ``device`` (no default: the
+        port's entry points run on the card unless asked otherwise)."""
         from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
         return SceneArrays.from_scene(self, device)

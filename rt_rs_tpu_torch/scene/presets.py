@@ -11,6 +11,13 @@ scene.to_json())`` (the f32 values round-trip exactly).
   two lights of the JAX package's mesh presets, 4 bounces (the
   ``ComputeConfig`` default).  At 6,322 triangles it fits the
   with-attrs resident table, so both packages take the emit-rows path.
+* :func:`gather_band_torus` — a 10,002-triangle torus scene: one
+  table, but past the rows table's cap, so the gather branch.
+* :func:`torus_row` and :func:`torus_canyon` — scenes beyond the
+  resident cap built with :func:`tiled_copies`: 2 or 3 tori in a row
+  (12,642 / 18,962 triangles; the teapots3 analogue) and the 8-torus,
+  50,562-triangle canyon of the JAX package's segmented-path
+  measurements.
 * :func:`random_soup` — the ``_random_scene`` pattern of the fuzz
   tests (normal-distributed vertices, one white material) plus a
   camera and a light so it renders.
@@ -28,17 +35,11 @@ LIGHT_POS = ((30.0, 40.0, -20.0), (-25.0, 30.0, 25.0))
 LIGHT_STRENGTH = (1.6, 1.2)
 
 
-def torus_scene(
-    major: float = 2.0,
-    minor: float = 0.8,
-    segments: tuple[int, int] = (79, 40),
-    floor_y: float = -1.2,
-    floor_half: float = 20.0,
-) -> Scene:
-    """A smooth-normal torus (axis +Y, centred on the origin) above a
-    square floor, seen from (0, 3, -9) with the Orbit controller.
-    ``segments = (around the axis, around the tube)`` gives
-    ``2 * s0 * s1`` triangles (6,320 at the default)."""
+def _torus_mesh(
+    major: float, minor: float, segments: tuple[int, int]
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A smooth-normal torus (axis +Y, centred on the origin) ->
+    (positions, normals, triangles); ``2 * s0 * s1`` triangles."""
     n_u, n_v = segments
     u = np.arange(n_u, dtype=np.float64) * (2.0 * np.pi / n_u)
     v = np.arange(n_v, dtype=np.float64) * (2.0 * np.pi / n_v)
@@ -64,31 +65,119 @@ def torus_scene(
     tris = np.stack(
         [np.stack([a, b, c], 1), np.stack([a, c, d], 1)], axis=1
     ).reshape(-1, 3)
+    return pos, nrm, tris
 
-    nv = pos.shape[0]
+
+def _add_floor(scene: Scene, floor_y: float, floor_half: float) -> Scene:
+    """Append a square 2-triangle floor (material 1) to ``scene``."""
+    nv = scene.vert_pos.shape[0]
     f = floor_half
     floor_pos = np.array(
         [[-f, floor_y, -f], [f, floor_y, -f], [f, floor_y, f], [-f, floor_y, f]]
     )
     floor_nrm = np.tile([[0.0, 1.0, 0.0]], (4, 1))
     floor_tris = nv + np.array([[0, 1, 2], [0, 2, 3]])
+    scene.vert_pos = np.concatenate([scene.vert_pos, floor_pos]).astype(np.float32)
+    scene.vert_norm = np.concatenate([scene.vert_norm, floor_nrm]).astype(np.float32)
+    scene.prim_indices = np.concatenate([scene.prim_indices, floor_tris]).astype(np.uint32)
+    scene.prim_material = np.concatenate(
+        [scene.prim_material, np.ones(2, np.int32)]
+    ).astype(np.int32)
+    return scene
 
+
+def _torus_only(major: float, minor: float, segments: tuple[int, int]) -> Scene:
+    """The torus of :func:`torus_scene` without its floor, with its
+    camera, lights and both materials (torus 0, floor 1)."""
+    pos, nrm, tris = _torus_mesh(major, minor, segments)
     scene = Scene.empty(
         camera=CameraUniform((0.0, 3.0, -9.0), (0.0, 0.0, 0.0)),
         camera_controller=CameraController("Orbit"),
     )
-    scene.vert_pos = np.concatenate([pos, floor_pos]).astype(np.float32)
-    scene.vert_norm = np.concatenate([nrm, floor_nrm]).astype(np.float32)
-    scene.prim_indices = np.concatenate([tris, floor_tris]).astype(np.uint32)
-    scene.prim_material = np.concatenate(
-        [np.zeros(len(tris), np.int32), np.ones(2, np.int32)]
-    )
+    scene.vert_pos = pos.astype(np.float32)
+    scene.vert_norm = nrm.astype(np.float32)
+    scene.prim_indices = tris.astype(np.uint32)
+    scene.prim_material = np.zeros(len(tris), np.int32)
     scene.light_pos = np.array(LIGHT_POS, dtype=np.float32)
     scene.light_strength = np.array(LIGHT_STRENGTH, dtype=np.float32)
     scene.mat_color = np.array([[0.5, 0.1, 0.1], [0.6, 0.6, 0.6]], np.float32)
     scene.mat_albedo = np.array([[0.9, 0.1, 0.3], [0.8, 0.2, 0.5]], np.float32)
     scene.mat_spec = np.array([10.0, 4.0], np.float32)
     return scene
+
+
+def torus_scene(
+    major: float = 2.0,
+    minor: float = 0.8,
+    segments: tuple[int, int] = (79, 40),
+    floor_y: float = -1.2,
+    floor_half: float = 20.0,
+) -> Scene:
+    """A smooth-normal torus (axis +Y, centred on the origin) above a
+    square floor, seen from (0, 3, -9) with the Orbit controller.
+    ``segments = (around the axis, around the tube)`` gives
+    ``2 * s0 * s1`` triangles (6,320 at the default)."""
+    return _add_floor(_torus_only(major, minor, segments), floor_y, floor_half)
+
+
+def gather_band_torus() -> Scene:
+    """:func:`torus_scene` with a finer torus: 10,000 + 2 triangles.
+    That is beyond the with-rows resident cap (8,192) but within the
+    plain one (12,288), so both packages keep one table and take the
+    gather branch."""
+    return torus_scene(segments=(100, 50))
+
+
+def tiled_copies(base: Scene, offsets) -> Scene:
+    """``base``'s geometry replicated at ``offsets`` (camera, lights and
+    materials carried over): the JAX package's beyond-resident scene
+    recipe (``rt_rs_tpu/scene/presets.py::tiled_copies``)."""
+    big = Scene.empty(camera=base.camera, camera_controller=base.camera_controller)
+    big.light_pos = base.light_pos
+    big.light_strength = base.light_strength
+    big.mat_color = base.mat_color
+    big.mat_albedo = base.mat_albedo
+    big.mat_spec = base.mat_spec
+    nv = base.vert_pos.shape[0]
+    big.vert_pos = np.concatenate(
+        [base.vert_pos + np.asarray(off, np.float32) for off in offsets]
+    )
+    big.vert_norm = np.concatenate([base.vert_norm] * len(offsets))
+    big.prim_indices = np.concatenate(
+        [base.prim_indices + i * nv for i in range(len(offsets))]
+    ).astype(np.uint32)
+    big.prim_material = np.concatenate([base.prim_material] * len(offsets))
+    return big
+
+
+def torus_row(n: int = 2, floor_y: float = -1.2, floor_half: float = 20.0) -> Scene:
+    """``n`` tori of :func:`torus_scene` in a row along x, 8 apart (the
+    JAX package's ``tiled_teapots`` recipe), over one floor, with
+    torus_scene's camera and lights: 6,320 n + 2 triangles.  n = 2 gives
+    12,642 (2 segments), n = 3 gives 18,962 (3 segments, the teapots3
+    analogue)."""
+    offsets = [((i - (n - 1) / 2.0) * 8.0, 0.0, 0.0) for i in range(n)]
+    base = _torus_only(2.0, 0.8, (79, 40))
+    return _add_floor(tiled_copies(base, offsets), floor_y, floor_half)
+
+
+def torus_canyon(floor_y: float = -1.2, floor_half: float = 40.0) -> Scene:
+    """The JAX package's 50K-triangle "canyon" layout
+    (experiments/measure_round3.py:49-73) with tori: 8 copies of the
+    torus of :func:`torus_scene` at (+-9, 0 or 7, +-9), over one floor
+    (not one per copy, so the upper tori do not rest on a slab),
+    8 x 6,320 + 2 = 50,562 triangles (7 segments of at most 8,192).
+    torus_scene's lights and materials; the camera is pulled back to
+    (0, 16, -36), looking at (0, 3, 0), so the whole canyon is in view."""
+    offsets = [
+        (dx * 9.0, dy * 7.0, dz * 9.0)
+        for dx in (-1, 1)
+        for dy in (0, 1)
+        for dz in (-1, 1)
+    ]
+    scene = tiled_copies(_torus_only(2.0, 0.8, (79, 40)), offsets)
+    scene.camera = CameraUniform((0.0, 16.0, -36.0), (0.0, 3.0, 0.0))
+    return _add_floor(scene, floor_y, floor_half)
 
 
 def random_soup(seed: int, n: int, scale: float = 5.0) -> Scene:

@@ -45,7 +45,7 @@ KW = dict(t_min=T_MIN, t_max=T_MAX, eps=EPS)
 def tables():
     """(port TriChunks, JAX TriChunks, n_prims) for torus_scene."""
     scene = torus_scene()
-    chunks, arrays = PacketBvhIntrs().build(scene, scene.pack("cpu"))
+    chunks, arrays = PacketBvhIntrs().build(scene, scene.pack(device="cpu"))
     corners = [arrays.pa.numpy(), arrays.pb.numpy(), arrays.pc.numpy()]
     jc = jpt.build_tri_chunks(
         *corners, max_chunks=None, tri_chunk=64,

@@ -130,19 +130,20 @@ def test_unported_paths_raise():
     with pytest.raises(KeyError, match="pbvh"):
         get_handler("bvh")
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_handler("pbvh", streaming_mode="dma")
+        get_handler("pbvh", tri_chunk_fine=16)
     neg = random_soup(1, 10)
     neg.prim_material[0] = -1
     with pytest.raises(NotImplementedError, match="item 9"):
         Renderer(neg, config=_config(16, 16), device="cpu")
     r = Renderer(random_soup(2, 10), config=_config(16, 16), device="cpu")
+    intersect_fn, rows_fn, anyhit_fn = r._bound(r.handler)
     for knob in ({"fuse_bounce": True}, {"retile": True}, {"narrow": 128}):
         with pytest.raises(NotImplementedError, match="item 15"):
             shade.render_tiled(
-                r.arrays, r._intersect_fn, r.config.compute,
+                r.arrays, intersect_fn, r.config.compute,
                 torch.tensor([0.0, 2.0, -20.0]), torch.zeros(3), 16, 16, 256,
-                block=r.block, intersect_rows_fn=r._rows_fn,
-                intersect_anyhit_fn=r._anyhit_fn, **knob,
+                block=r.block, intersect_rows_fn=rows_fn,
+                intersect_anyhit_fn=anyhit_fn, **knob,
             )
 
 

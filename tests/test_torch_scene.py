@@ -9,6 +9,7 @@ JAX package through their JSON.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 
@@ -62,7 +63,7 @@ def assert_arrays_equal(ours: SceneArrays, ref) -> None:
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_pack_byte_equal(name):
     ours, ref = both(name)
-    assert_arrays_equal(ours.pack("cpu"), ref.pack())
+    assert_arrays_equal(ours.pack(device="cpu"), ref.pack())
 
 
 def test_torus_size():
@@ -81,7 +82,7 @@ def test_duplicate_triples_collapse_like_jax():
     scene.prim_indices = np.concatenate([scene.prim_indices, scene.prim_indices[:2]])
     scene.prim_material = np.zeros(scene.num_prims, np.int32)
     ref = rt_rs_tpu.Scene.from_json(scene.to_json())
-    assert_arrays_equal(scene.pack("cpu"), ref.pack())
+    assert_arrays_equal(scene.pack(device="cpu"), ref.pack())
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -92,7 +93,7 @@ def test_bvh_and_reorder_identical(name):
         a, b = getattr(data, f.name), getattr(jdata, f.name)
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f.name
     assert_arrays_equal(
-        reorder_scene_arrays(ours.pack("cpu"), data.indices),
+        reorder_scene_arrays(ours.pack(device="cpu"), data.indices),
         jax_reorder(ref.pack(), jdata.indices),
     )
 
@@ -111,13 +112,15 @@ def test_bvh_json_round_trip(tmp_path):
 @pytest.mark.parametrize("name", ["torus", "soup"])
 def test_tri_chunks_byte_equal_through_convert(name):
     ours, ref = both(name)
-    _, arrays = PacketBvhIntrs().build(ours, ours.pack("cpu"))
+    _, arrays = PacketBvhIntrs().build(ours, ours.pack(device="cpu"))
     table = arrays.shade_table.numpy()
     corners = [arrays.pa.numpy(), arrays.pb.numpy(), arrays.pc.numpy()]
-    mine = pt.build_tri_chunks(*corners, max_chunks=None, tri_chunk=64, shade_rows=table)
+    mine = pt.build_tri_chunks(
+        *corners, max_chunks=None, tri_chunk=64, shade_rows=table, device="cpu"
+    )
     jc = jpt.build_tri_chunks(*corners, max_chunks=None, tri_chunk=64, shade_rows=table)
     theirs = convert.tri_chunks(
-        jc.comp, jc.bmin, jc.bmax, jc.num_chunks, attr_t=jc.attr_t
+        jc.comp, jc.bmin, jc.bmax, jc.num_chunks, attr_t=jc.attr_t, device="cpu"
     )
     assert mine.num_chunks == theirs.num_chunks == jc.num_chunks
     assert mine.num_chunks % pt.CHUNK_ALIGN == 0
@@ -133,17 +136,30 @@ def test_tri_chunks_byte_equal_through_convert(name):
 
 def test_tri_chunks_drop_rows_for_non_finite_table():
     scene = random_soup(5, 20)
-    arrays = scene.pack("cpu")
+    arrays = scene.pack(device="cpu")
     table = arrays.shade_table.numpy().copy()
     table[3, 10] = np.nan
     corners = [arrays.pa.numpy(), arrays.pb.numpy(), arrays.pc.numpy()]
-    assert pt.build_tri_chunks(*corners, tri_chunk=64, shade_rows=table).attr is None
+    ours = pt.build_tri_chunks(*corners, tri_chunk=64, shade_rows=table, device="cpu")
+    assert ours.attr is None
     assert jpt.build_tri_chunks(*corners, tri_chunk=64, shade_rows=table).attr_t is None
+
+
+@pytest.mark.parametrize(
+    "fn",
+    [Scene.pack, pt.build_tri_chunks, convert.scene_arrays, convert.tri_chunks,
+     convert.segmented_chunks],
+    ids=lambda f: f.__qualname__,
+)
+def test_device_is_a_required_keyword(fn):
+    """Packing and conversion name their device: no CPU default."""
+    p = inspect.signature(fn).parameters["device"]
+    assert p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is inspect.Parameter.empty
 
 
 def test_convert_scene_arrays():
     _, ref = both("soup")
-    assert_arrays_equal(convert.scene_arrays(ref.pack()), ref.pack())
+    assert_arrays_equal(convert.scene_arrays(ref.pack(), device="cpu"), ref.pack())
 
 
 def test_json_round_trip_both_packages(tmp_path):
@@ -151,11 +167,11 @@ def test_json_round_trip_both_packages(tmp_path):
     path = tmp_path / "torus.json"
     scene.save(str(path))
     ours, ref = Scene.load(str(path)), rt_rs_tpu.Scene.load(str(path))
-    assert_arrays_equal(ours.pack("cpu"), ref.pack())
-    assert_arrays_equal(ours.pack("cpu"), scene.pack("cpu"))
+    assert_arrays_equal(ours.pack(device="cpu"), ref.pack())
+    assert_arrays_equal(ours.pack(device="cpu"), scene.pack(device="cpu"))
     # And back: the JAX package's JSON loads in the port unchanged.
     again = Scene.from_json(json.loads(json.dumps(ref.to_json())))
-    assert_arrays_equal(again.pack("cpu"), ref.pack())
+    assert_arrays_equal(again.pack(device="cpu"), ref.pack())
     assert ours.camera == scene.camera
 
 

@@ -48,7 +48,7 @@ def frame_state(headlight: float):
     payload, valid, _ = shade.camera_ray_tiles(
         pos, torch.tensor(r.camera.at, dtype=torch.float32), 64, 48, 256, block=r.block
     )
-    t, pid, rows = r._rows_fn(payload, valid)
+    t, pid, rows = r._bound(r.handler)[1](payload, valid)
     pid = torch.where(valid, pid, 0)
     active = valid & (pid != 0) & (t < cfg.compute.t_max) & (t > cfg.compute.t_min)
     live_sg = active.reshape(-1, 8 * 256).any(dim=1).to(torch.int32)
@@ -105,11 +105,12 @@ def test_shade_post_matches_jax(blocked_mode, first_bounce):
     )
     sh_valid = (active[None] & (masks > 0)).reshape(k * t.shape[0], -1)
     kw = dict(t_cap=caps.reshape(k * t.shape[0], -1), refine=True)
+    intersect_fn, _, anyhit_fn = r._bound(r.handler)
     if blocked_mode:
-        blocked = r._anyhit_fn(sh, sh_valid, **kw)
+        blocked = anyhit_fn(sh, sh_valid, **kw)
         sh_t = sh_id = blocked.reshape(caps.shape).float()
     else:
-        st, sid = r._intersect_fn(sh, sh_valid, **kw)
+        st, sid = intersect_fn(sh, sh_valid, **kw)
         sh_t, sh_id = st.reshape(caps.shape), sid.reshape(caps.shape).float()
     assert 0.0 < (sh_id.numpy()[:, a] != 0).mean() < 1.0  # lit and shadowed rays
     args = (rows, payload, t, active.float(), sh_t, sh_id, caps, live_sg, lights)
