@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Three frame paths are driven, each through ``Renderer(...,
+Four frame paths are driven, each through ``Renderer(...,
 handler="pbvh", device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
@@ -15,7 +15,12 @@ handler="pbvh", device="cuda")``:
   branch with closest-hit shadows: ``torus_row(2)`` (2 segments) and
   ``torus_canyon()`` (50,562 triangles, 7 segments);
 * ``dma``: the same scenes on one table traced in streamed blocks
-  (``streaming_mode="dma"``, 128-ray tiles).
+  (``streaming_mode="dma"``, 128-ray tiles);
+* ``knobs``: the frame knobs that default off: the fused bounce kernel
+  (``fuse_bounce=True``) and early exit (``handler_kwargs={"early_exit":
+  True}``) on ``torus_scene`` and ``torus_row(2)``, early exit on the
+  segmented canyon, and the glue-only knobs (``retile``, ``narrow``,
+  ``shadow_cull=False``, ``cull_block``, ``refine="all"``).
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -26,9 +31,10 @@ exits nonzero without printing a result):
    nvcc and prints the build time and each kernel's register use.
 3. Kernels vs twins on the card.  Every kernel call of one frame is
    recorded and replayed through the kernel and through its
-   plain-PyTorch twin: the ``torus_scene`` frame at 384x288, and the
-   ``torus_canyon()`` frame at 640x480 with segmented tables and with
-   ``"dma"``.  Intersection and refine outputs (t, pid, rows, blocked,
+   plain-PyTorch twin: the ``torus_scene`` frame at 384x288, default
+   and with the knobs path's knobs, and the ``torus_canyon()`` frame at
+   640x480 with segmented tables, with ``"dma"`` and segmented with
+   early exit.  Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal; shading
    outputs within 4 ULP (the twins use torch's rsqrt / pow, whose CUDA
    builds may round differently from the kernels' rsqrtf / powf).  Each
@@ -48,15 +54,29 @@ exits nonzero without printing a result):
    from the port's CPU frame printed; the canyon
    at 640x480 (both) and 1920x1080 (segmented): finite, not black,
    orbits of 30 and 12 frames; the canyon's segmented and DMA frames at
-   640x480 must be bit-equal.
-5. Kernel times (CUDA events), each against its twin and its bound (the
+   640x480 must be bit-equal.  knobs: the 96x72 frames of
+   ``torus_scene`` and of segmented ``torus_row(2)`` against the stored
+   frames; every other knob frame bit-equal to the default path's frame
+   of the same scene and size (torus 384x288 and 1080p, then orbits of
+   60 and 12 frames; the canyon at 640x480; a camera with pos == at);
+   early exit's sort of NaN keys equal on the card and the CPU.
+5. The knob A/Bs (experiments/early_exit_ab.py's protocol: the knob
+   off and on in interleaved turns): early exit on torus 1080p and
+   canyon segmented 640x480 orbits, with the closest-hit list entries of
+   one frame against the entries early exit tested; the fused bounce
+   kernel on torus 384x288 orbits.
+6. Kernel times (CUDA events), each against its twin and its bound (the
    least time the card could take for the call's work), at the
-   384x288 torus frame's shapes and the 640x480 canyon frame's.
-6. Where the time goes: torch.profiler over canyon frames, device time
+   384x288 torus frame's shapes, the 640x480 canyon frame's and the
+   torus 1080p early-exit frame's primary call; early-exit calls also
+   as the default call over the same lists, the fused shading call also
+   as shade_post + shade_pre.
+7. Where the time goes: torch.profiler over canyon frames (default and
+   early exit) and torus 1080p frames (default and knobs), device time
    by kernel kind and the device's idle share.
 
-The second-to-last lines are JSON objects of frame times and of
-per-kernel results, then the ``nvidia-smi`` name / power-limit line;
+The second-to-last lines are JSON objects of frame times (with the
+A/B) and of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,7 +112,15 @@ SIZES = {
     "segmented": {"640x480": (640, 480, 30), "1920x1080": (1920, 1080, 12)},
     "dma": {"640x480": (640, 480, 30)},
 }
-PROFILE = (("segmented", "640x480", 3), ("dma", "640x480", 3), ("segmented", "1920x1080", 2))
+# (label, path, kept renderer, orbit steps) profiled in phase 7
+PROFILE = (
+    ("canyon segmented 640x480", "segmented", "640x480", 3),
+    ("canyon dma 640x480", "dma", "640x480", 3),
+    ("canyon segmented 1920x1080", "segmented", "1920x1080", 2),
+    ("canyon segmented early_exit 640x480", "knobs", "canyon 640x480", 3),
+    ("torus 1920x1080", "torus", "1920x1080", 3),
+    ("knobs torus 1920x1080", "knobs", "1920x1080", 3),
+)
 
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -124,13 +152,44 @@ KERNELS = {
         "rt_rs_tpu_torch/csrc/shade_post.cu",
         "rt_rs_tpu/ops/pallas/shade_tile.py:226",
     ),
+    "mt_trace[closest,early_exit]": (
+        "rt_rs_tpu_torch/csrc/mt_trace.cu",
+        "rt_rs_tpu/ops/pallas/packet_trace.py:746",
+    ),
+    "mt_trace[rows,early_exit]": (
+        "rt_rs_tpu_torch/csrc/mt_trace.cu",
+        "rt_rs_tpu/ops/pallas/packet_trace.py:746",
+    ),
+    "shade_bounce": (
+        "rt_rs_tpu_torch/csrc/shade_bounce.cu",
+        "rt_rs_tpu/ops/pallas/shade_tile.py:352",
+    ),
 }
 # path -> the kernels it must launch
 PATHS = {
     "torus": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     "segmented": ("refine_cull", "mt_trace[closest]", "shade_pre", "shade_post"),
     "dma": ("mt_stream", "shade_pre", "shade_post"),
+    "knobs": (
+        "refine_cull", "mt_trace[rows,early_exit]", "mt_trace[anyhit]",
+        "mt_trace[closest,early_exit]", "shade_bounce",
+    ),
 }
+# The knobs path's torus and segmented frames: the fused bounce kernel
+# and early exit (Renderer kwargs, handler kwargs).
+KNOBS = ({"fuse_bounce": True}, {"early_exit": True})
+# Knobs that change only the glue: one 384x288 torus frame each, bit-equal
+# to the default frame.
+GLUE_KNOBS = {
+    "retile": ({"retile": True}, {}),
+    "narrow=128": ({"narrow": 128}, {}),
+    "shadow_cull=False": ({"shadow_cull": False}, {}),
+    "cull_block=4": ({}, {"cull_block": 4}),
+    "refine=all": ({}, {"refine": "all"}),
+}
+# The A/Bs (experiments/early_exit_ab.py's protocol): orbits in
+# interleaved turns, the knob off (False) and on (True).
+AB_ORDER = (False, True, True, False, False, True)
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
 # f32 outside the tensor cores, and HBM3 bandwidth.
@@ -276,6 +335,7 @@ class Recorder:
             (packet_stream, "stream_closest_hit"),
             (shade_tile, "shade_pre"),
             (shade_tile, "shade_post"),
+            (shade_tile, "shade_bounce"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -298,7 +358,9 @@ class Recorder:
             setattr(mod, name, fn)
 
 
-def renderer(width: int, height: int, scene=None, **handler_kwargs):
+def renderer(width: int, height: int, scene=None, knobs=None, **handler_kwargs):
+    """A pbvh Renderer of ``scene`` (default ``torus_scene()``) with the
+    Renderer kwargs ``knobs`` and the handler kwargs given."""
     from rt_rs_tpu_torch import Config, Renderer, Resolution
     from rt_rs_tpu_torch.scene.presets import torus_scene
 
@@ -308,13 +370,14 @@ def renderer(width: int, height: int, scene=None, **handler_kwargs):
         handler="pbvh",
         handler_kwargs=handler_kwargs or None,
         device=DEVICE,
+        **(knobs or {}),
     )
 
 
-def canyon(width: int, height: int, mode: str):
+def canyon(width: int, height: int, mode: str, **handler_kwargs):
     from rt_rs_tpu_torch.scene.presets import torus_canyon
 
-    return renderer(width, height, torus_canyon(), streaming_mode=mode)
+    return renderer(width, height, torus_canyon(), streaming_mode=mode, **handler_kwargs)
 
 
 def replay(label: str, calls, errs: dict, ulps: dict) -> None:
@@ -330,7 +393,7 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         )
         check_equal(f"{label} compact#{i}", pt.compact(kern), pt.compact(twin))
     for i, (a, kw, _) in enumerate(calls["mt_trace"]):
-        name = f"mt_trace[{kw['mode']}]"
+        name = pt.mt_name(kw["mode"], bind(pt.mt_trace_reference, a, kw)["ed"] is not None)
         kern, twin = pt.mt_trace(*a, **kw), pt.mt_trace_reference(*a, **kw)
         errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
     for i, (a, kw, _) in enumerate(calls["mt_stream"]):
@@ -341,6 +404,7 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
     for name, kern_fn, twin_fn in (
         ("shade_pre", st.shade_pre, st.shade_pre_reference),
         ("shade_post", st.shade_post, st.shade_post_reference),
+        ("shade_bounce", st.shade_bounce, st.shade_bounce_reference),
     ):
         for i, (a, kw, _) in enumerate(calls[name]):
             err, ulp = check_ulp(f"{label} {name}#{i}", kern_fn(*a, **kw), twin_fn(*a, **kw))
@@ -392,8 +456,10 @@ def check_against_flat(label: str, calls) -> tuple[int, int]:
 
 
 def phase_compare():
-    """Every kernel call of one torus frame (384x288) and of one canyon
-    frame (640x480) per canyon mode, kernel vs twin."""
+    """Every kernel call of one torus frame (384x288), default and with
+    the knobs path's fused bounce kernel and early exit, and of one
+    canyon frame (640x480) per canyon mode and with early exit, kernel vs
+    twin."""
     import torch
 
     from rt_rs_tpu_torch.ops import packet_trace as pt
@@ -405,6 +471,8 @@ def phase_compare():
         "torus": lambda: renderer(*TORUS_REPLAY),
         "canyon segmented": lambda: canyon(*CANYON_REPLAY, "segmented"),
         "canyon dma": lambda: canyon(*CANYON_REPLAY, "dma"),
+        "torus knobs": lambda: renderer(*TORUS_REPLAY, knobs=KNOBS[0], **KNOBS[1]),
+        "canyon early_exit": lambda: canyon(*CANYON_REPLAY, "segmented", early_exit=True),
     }
     for label, make in cases.items():
         r = make()
@@ -424,7 +492,12 @@ def phase_compare():
         if DEVICE == "cuda":
             torch.cuda.synchronize()
         n = {k: len(v) for k, v in calls.items() if v}
-        modes = sorted({kw["mode"] for _, kw, _ in calls["mt_trace"]})
+        modes = sorted(
+            {
+                pt.mt_name(kw["mode"], bind(pt.mt_trace_reference, a, kw)["ed"] is not None)
+                for a, kw, _ in calls["mt_trace"]
+            }
+        )
         say(
             f"[compare] {label} {r.width}x{r.height} frame calls {n}, mt modes "
             f"{modes}: intersection + refine bit-equal, shading max ULP {ulps}; "
@@ -549,6 +622,79 @@ def drive_path(path: str, card: str) -> tuple[dict, dict, dict]:
     return frame_ms, first, kept
 
 
+def same_frame(what: str, a, b) -> None:
+    """Bit-equal frames (NaN where the other is NaN)."""
+    import torch
+
+    nan = torch.isnan(a)
+    if not (torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])):
+        raise AssertionError(f"{what}: differs from the default frame (max {max_abs(a, b)})")
+    say(f"[frame] {what}: bit-equal to the default frame")
+
+
+def drive_knobs(card: str, first: dict) -> tuple[dict, dict]:
+    """The knobs path: the fused bounce kernel and early exit on
+    ``torus_scene`` (96x72 against the stored frame; 384x288 and 1080p
+    bit-equal to the torus path's first frames, then orbits) and on the
+    segmented ``torus_row(2)`` (96x72 against its stored frame: the
+    gather branch); the segmented canyon with early exit at 640x480,
+    bit-equal to the segmented path's frame; each glue-only knob once at
+    384x288; early exit under a camera with pos == at (NaN rays)."""
+    import warnings
+
+    from rt_rs_tpu_torch.scene.camera import CameraUniform
+    from rt_rs_tpu_torch.scene.presets import torus_row, torus_scene
+
+    knobs, hkw = KNOBS
+    check_stored("knobs torus 96x72", renderer(96, 72, knobs=knobs, **hkw), TORUS_FRAME)
+    row2 = renderer(96, 72, torus_row(2), knobs=knobs, **hkw)
+    check_stored("knobs torus_row(2) segmented 96x72", row2, ROW2_FRAME)
+    frame_ms, kept = {}, {}
+    for size, (w, h, frames) in SIZES["torus"].items():
+        r = renderer(w, h, knobs=knobs, **hkw)
+        name = f"knobs torus {size}"
+        f = r.render_frame()
+        check_frame(name, f, w, h)
+        same_frame(name, f, first["torus"][size])
+        frame_ms[name] = orbit_ms(name, r, frames, card)
+        kept[size] = r
+    w, h = CANYON_REPLAY
+    r = canyon(w, h, "segmented", early_exit=True)
+    same_frame(f"canyon segmented early_exit {w}x{h}", r.render_frame(), first["segmented"][f"{w}x{h}"])
+    kept[f"canyon {w}x{h}"] = r
+    for name, (knobs_g, hkw_g) in GLUE_KNOBS.items():
+        w, h = TORUS_REPLAY
+        f = renderer(w, h, knobs=knobs_g, **hkw_g).render_frame()
+        same_frame(f"torus {w}x{h} {name}", f, first["torus"][f"{w}x{h}"])
+    scene = torus_scene()
+    scene.camera = CameraUniform((1.0, 1.0, 1.0), (1.0, 1.0, 1.0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        a = renderer(64, 48, scene, early_exit=True).render_frame()
+        b = renderer(64, 48, scene).render_frame()
+    same_frame("camera pos == at, early_exit 64x48", a, b)
+    check_nan_sort()
+    return frame_ms, kept
+
+
+def check_nan_sort() -> None:
+    """Early exit's stable sort puts NaN keys where NumPy's (and so
+    jnp.argsort) does, on the card as on the CPU."""
+    import numpy as np
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    key = torch.tensor([[1.0, math.nan, 3e38, -1.0, math.nan, 2.0, 3e38, 0.5]])
+    listed = torch.ones_like(key, dtype=torch.bool)
+    on_card = pt.early_exit_lists(listed.to(DEVICE), key.to(DEVICE))[0].cpu()
+    on_cpu = pt.early_exit_lists(listed, key)[0]
+    ref = np.argsort(key.numpy(), axis=1, kind="stable")
+    if not (np.array_equal(on_card.numpy(), ref) and np.array_equal(on_cpu.numpy(), ref)):
+        raise AssertionError(f"NaN keys sort differently: card {on_card}, cpu {on_cpu}, numpy {ref}")
+    say(f"[compare] early-exit sort with NaN keys: card = CPU = NumPy {ref[0].tolist()}")
+
+
 def phase_paths(card: str):
     """Each path with the launch counters reset before and read after."""
     import torch
@@ -556,7 +702,10 @@ def phase_paths(card: str):
     counts, frame_ms, first, kept = {}, {}, {}, {}
     for path, needed in PATHS.items():
         reset_counts()
-        ms, first[path], kept[path] = drive_path(path, card)
+        if path == "knobs":
+            ms, kept[path] = drive_knobs(card, first)
+        else:
+            ms, first[path], kept[path] = drive_path(path, card)
         counts[path] = read_counts()
         frame_ms.update(ms)
         missing = [k for k in needed if counts[path][k] == 0]
@@ -644,10 +793,39 @@ def anyhit_pairs(b: dict) -> int:
 
 def bound(name: str, a, kw) -> tuple[float, str]:
     """-> (bound ms, "bytes" or "operations") for one recorded call."""
+    ops, nbytes = work(name, a, kw)
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bounce_halves(a, kw):
+    """A recorded shade_bounce call's arguments as its two halves ->
+    ((shade_post args, kwargs), (shade_pre args, kwargs))."""
+    from rt_rs_tpu_torch.ops import shade_tile as st
+
+    b = bind(st.shade_bounce_reference, a, kw)
+    live, lights = b["live_sg2"], b["lights"]
+    post = [b[x] for x in ("rows", "payload", "t", "active_f", "sh_t", "sh_id_f", "caps")]
+    post_kw = {x: b[x] for x in ("first_bounce", "t_min", "t_max", "blocked_mode")}
+    pre = [b[x] for x in ("rows2", "payload2", "t2", "pid2_f")]
+    return (
+        ((*post, live[0], lights), post_kw),
+        ((*pre, live[1], lights), {"emit_next": b["emit_next"]}),
+    )
+
+
+def work(name: str, a, kw) -> tuple[int, int]:
+    """-> (f32 operations, bytes) one recorded call needs."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
+    if name == "shade_bounce":
+        # The union of shade_post's and shade_pre's work: nothing shared.
+        (post, post_kw), (pre, pre_kw) = bounce_halves(a, kw)
+        ops_post, bytes_post = work("shade_post", post, post_kw)
+        ops_pre, bytes_pre = work("shade_pre", pre, pre_kw)
+        return ops_post + ops_pre, bytes_post + bytes_pre
     if name == "refine_cull":
         b = bind(pt.refine_cull_reference, a, kw)
         payload, valid, bounds = b["payload"], b["valid"], b["bounds"]
@@ -660,7 +838,9 @@ def bound(name: str, a, kw) -> tuple[float, str]:
         b = bind(pt.mt_trace_reference, a, kw)
         comp, payload, counts = b["comp"], b["payload"], b["counts"]
         n_tiles, r = payload.shape[1], payload.shape[2]
-        entries = int(counts.sum())
+        # Early exit needs only the entries its tiles test (and their keys).
+        ed = b["ed"]
+        entries = int((counts if ed is None else pt.entries_tested(**b)).sum())
         if b["mode"] == "anyhit":
             ops = anyhit_pairs(b) * MT_OPS
         else:
@@ -669,6 +849,7 @@ def bound(name: str, a, kw) -> tuple[float, str]:
         nbytes = (
             _bytes(payload, comp, counts) + entries * 4 + n_tiles * r * out
             + (_bytes(b["attr"]) if b["mode"] == "rows" else 0)
+            + (entries * 4 if ed is not None else 0)
         )
     elif name == "mt_stream":
         b = bind(ps.mt_stream_reference, a, kw)
@@ -706,21 +887,97 @@ def bound(name: str, a, kw) -> tuple[float, str]:
         nbytes = reads + writes + _bytes(live_sg, lights)
     else:
         raise KeyError(name)
-    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return ops, nbytes
 
 
-def phase_kernel_times(recorded, card: str) -> dict[str, tuple[float, float, float, str]]:
+def without_early_exit(a, kw) -> dict:
+    """An early-exit mt_trace call's arguments as the default call over
+    the same lists: ascending ids, no keys."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    b = bind(pt.mt_trace_reference, a, kw)
+    ids, counts = b["ids"], b["counts"]
+    listed = torch.arange(ids.shape[1], device=ids.device)[None, :] < counts[:, None]
+    overlap = torch.zeros_like(listed).scatter(1, ids.long(), listed)
+    b["ids"], b["counts"] = pt.compact(overlap)
+    b["ed"] = None
+    return b
+
+
+def phase_ab(card: str) -> tuple[dict, dict]:
+    """The knob A/Bs: early exit on torus 1080p and on the segmented
+    canyon at 640x480, the fused bounce kernel on torus 384x288 (the
+    launch-bound frame); orbits with the knob off and on in interleaved
+    turns (AB_ORDER).  For early exit, one recorded frame's closest-hit
+    list entries against the entries its tiles tested.  -> (summary, the
+    recorded calls of the torus 1080p early-exit frame)."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    cases = {
+        "early_exit torus 1920x1080": (lambda on: renderer(1920, 1080, early_exit=on), 12),
+        "early_exit canyon segmented 640x480": (
+            lambda on: canyon(640, 480, "segmented", early_exit=on), 30,
+        ),
+        "fuse_bounce torus 384x288": (
+            lambda on: renderer(384, 288, knobs={"fuse_bounce": on}), 60,
+        ),
+    }
+    summary, recorded = {}, {}
+    for name, (make, frames) in cases.items():
+        rs = {on: make(on) for on in (False, True)}
+        for r in rs.values():
+            r.render_frame()  # warm-up
+        ms = {False: [], True: []}
+        for on in AB_ORDER:
+            ms[on].append(orbit_ms(f"A/B {name} {on}", rs[on], frames, card))
+        summary[name] = {"off_ms": ms[False], "on_ms": ms[True]}
+        line = (
+            f"[A/B] {name}: off {[round(x, 3) for x in ms[False]]} ms, on "
+            f"{[round(x, 3) for x in ms[True]]} ms per frame (orbits of {frames}, "
+            f"order {AB_ORDER})"
+        )
+        if name.startswith("early_exit"):
+            with Recorder() as rec:
+                rs[True].render_frame()
+            listed = tested = 0
+            for a, kw, _ in rec.calls["mt_trace"]:
+                b = bind(pt.mt_trace_reference, a, kw)
+                if b["ed"] is not None:
+                    listed += int(b["counts"].sum())
+                    tested += int(pt.entries_tested(**b).sum())
+            torch.cuda.synchronize()
+            summary[name].update(entries_listed=listed, entries_tested=tested)
+            line += (
+                f"; closest-hit entries per frame: {listed} listed, {tested} tested "
+                f"({tested / max(listed, 1):.3f})"
+            )
+            recorded[name] = rec.calls
+        say(f"{line}; {card}")
+    return summary, recorded["early_exit torus 1920x1080"]
+
+
+def phase_kernel_times(recorded, torus_1080_ee, card: str) -> dict[str, tuple[float, float, float, str]]:
     """Kernel vs twin vs bound: at the 384x288 torus frame's shapes (the
     primary rows call, bounce 0's shadow batch and its refine cull,
-    bounce 0's shading), and at the 640x480 canyon frame's (its
-    busiest segment call in closest-hit mode and its busiest streamed
-    call)."""
+    bounce 0's shading, the knobs frame's first fused shading call),
+    at the 640x480 canyon frame's (its busiest segment call in
+    closest-hit mode and its busiest streamed call, and the busiest
+    early-exit one), and at the torus 1080p early-exit frame's primary
+    call.  Each early-exit call is also timed as the default call over
+    the same lists, and the fused shading call as shade_post +
+    shade_pre on the same inputs."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
-    torus, seg, dma = (recorded[k] for k in ("torus", "canyon segmented", "canyon dma"))
+    torus, seg, dma, knobs, seg_ee = (
+        recorded[k]
+        for k in ("torus", "canyon segmented", "canyon dma", "torus knobs", "canyon early_exit")
+    )
     mt = torus["mt_trace"]
     entries = lambda c: int(c[0][3].sum())  # noqa: E731  (counts of an mt_trace call)
     picks = {
@@ -742,6 +999,16 @@ def phase_kernel_times(recorded, card: str) -> dict[str, tuple[float, float, flo
         ),
         "shade_pre": (st.shade_pre, st.shade_pre_reference, torus["shade_pre"][0], 5),
         "shade_post": (st.shade_post, st.shade_post_reference, torus["shade_post"][0], 5),
+        "mt_trace[closest,early_exit]": (
+            pt.mt_trace, pt.mt_trace_reference,
+            max((c for c in seg_ee["mt_trace"] if c[1]["mode"] == "closest"), key=entries), 2,
+        ),
+        "mt_trace[rows,early_exit]": (
+            pt.mt_trace, pt.mt_trace_reference, torus_1080_ee["mt_trace"][0], 1,
+        ),
+        "shade_bounce": (
+            st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
+        ),
     }
     times = {}
     for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
@@ -749,14 +1016,31 @@ def phase_kernel_times(recorded, card: str) -> dict[str, tuple[float, float, flo
         t_ms = time_ms(lambda: twin(*a, **kw), twin_reps)
         b_ms, by = bound(name, a, kw)
         times[name] = (k_ms, t_ms, b_ms, by)
-        work = ""
+        extra = ""
         if name.startswith("mt_trace"):
             # list entries: (tile, chunk) pairs, each tc x r ray-triangle tests
             n = entries((a, kw))
-            work = f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
+            extra = f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
+        if name.endswith("early_exit]"):
+            b0 = without_early_exit(a, kw)
+            n_t = int(pt.entries_tested(**bind(pt.mt_trace_reference, a, kw)).sum())
+            d_ms = time_ms(lambda: pt.mt_trace(**b0), 50)
+            db_ms, _ = bound(name, (), b0)
+            extra += (
+                f", {n_t} tested; the same call without early exit: kernel "
+                f"{d_ms:.4f} ms, bound {db_ms:.4f} ms"
+            )
+        if name == "shade_bounce":
+            (post, post_kw), (pre, pre_kw) = bounce_halves(a, kw)
+
+            def post_pre():
+                st.shade_post(*post, **post_kw)
+                st.shade_pre(*pre, **pre_kw)
+
+            extra = f"; shade_post + shade_pre on the same inputs {time_ms(post_pre, 50):.4f} ms"
         say(
             f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}){work}; {card}"
+            f"{b_ms:.4f} ms ({by}){extra}; {card}"
         )
     return times
 
@@ -768,6 +1052,7 @@ KINDS = (
     ("refine_cull_kernel", "refine_cull"),
     ("shade_pre_kernel", "shade_pre"),
     ("shade_post_kernel", "shade_post"),
+    ("shade_bounce_kernel", "shade_bounce"),
     ("sort", "sort (compaction)"),
     ("index", "gather / index"),
     ("gather", "gather / index"),
@@ -791,7 +1076,7 @@ def phase_profile(kept, card: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for path, size, frames in PROFILE:
+    for label, path, size, frames in PROFILE:
         r = kept[path][size]
         r.render_frame()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -814,7 +1099,7 @@ def phase_profile(kept, card: str) -> None:
             for k, _ in us.most_common()
         )
         say(
-            f"[profile] canyon {path} {size}: {wall_ms:.3f} ms/frame profiled wall, "
+            f"[profile] {label}: {wall_ms:.3f} ms/frame profiled wall, "
             f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; "
             f"per frame by kind (launches): {parts}; {card}"
         )
@@ -830,7 +1115,8 @@ def main(full: bool = True) -> None:
     if not full:
         return
     counts, frame_ms, kept = phase_paths(card)
-    times = phase_kernel_times(recorded, card)
+    ab, torus_1080_ee = phase_ab(card)
+    times = phase_kernel_times(recorded, torus_1080_ee, card)
     phase_profile(kept, card)
     kernels = [
         {
@@ -853,7 +1139,7 @@ def main(full: bool = True) -> None:
         }
         for name, (src, rep) in KERNELS.items()
     ]
-    say(json.dumps({"frame_ms": frame_ms, "card": card}))
+    say(json.dumps({"frame_ms": frame_ms, "ab": ab, "card": card}))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(

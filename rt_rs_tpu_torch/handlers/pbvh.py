@@ -15,8 +15,14 @@ into segments traced by
 blocks by :func:`rt_rs_tpu_torch.ops.packet_stream.stream_closest_hit`
 through the flat-ray adapter (128-ray tiles, gather branch only).
 
-The dual-granularity table (``tri_chunk_fine``) is not ported yet
-(ROADMAP module item 10): it raises ``NotImplementedError``.
+The JAX handler's knobs are taken with the same names and defaults
+(``early_exit``, ``cull_block``, ``refine``, ``ray_tile``,
+``tri_chunk``, ``data`` / ``path``); each changes the work, never the
+frame.  The dual-granularity table (``tri_chunk_fine``) is not ported
+yet (ROADMAP module item 10): it raises ``NotImplementedError``.
+``interpret`` and ``collapse`` are not taken: the first picks the
+Pallas interpreter, the second a Mosaic pipeline trick, and neither has
+a visible effect to port.
 """
 
 from __future__ import annotations
@@ -46,40 +52,68 @@ class PacketBvhIntrs(IntrsHandler):
         self,
         eps: float = 0.02,
         target_item_count: int = 2,
+        data: BvhData | None = None,
+        path: str | None = None,
+        cull_block: int | None = None,
+        ray_tile: int | None = None,
+        tri_chunk: int | None = None,
         tri_chunk_fine: int | None = None,
         streaming_mode: str = "segmented",
         chain: bool = True,
+        refine: str = "bounces",
+        early_exit: bool = False,
         seg_order: tuple[int, ...] | None = None,
     ):
         """``eps`` / ``target_item_count`` drive the BVH build
-        (handlers/bvh.rs:33, 82).  ``streaming_mode`` picks the table
-        beyond the resident cap; ``chain`` threads each segment's
-        result into the next segment's cull (exact either way);
-        ``seg_order`` fixes the segment visit order (None = scene order;
-        ``Renderer(seg_order="auto")`` sets it per frame)."""
+        (handlers/bvh.rs:33, 82); ``data`` (a :class:`BvhData`) or
+        ``path`` (its JSON checkpoint) replaces the build.
+        ``streaming_mode`` picks the table beyond the resident cap;
+        ``chain`` threads each segment's result into the next segment's
+        cull (exact either way); ``seg_order`` fixes the segment visit
+        order (None = scene order; ``Renderer(seg_order="auto")`` sets
+        it per frame).  ``ray_tile`` sets the rays per tile (None: 256,
+        or the streaming kernel's 128) and ``tri_chunk`` the triangles
+        per chunk (None: 64).  The cull knobs pass to every tiled call
+        (see ``packet_closest_hit_tiled``): ``refine`` ``"bounces"``
+        (default) lets bounce and shadow batches take the per-ray cull,
+        ``"all"`` every call, ``"off"`` none; ``cull_block`` (None: 1)
+        culls blocks of chunks; ``early_exit`` walks front-to-back
+        lists with the MT kernel's early-exit variant."""
         if tri_chunk_fine is not None:
             raise _not_ported("the dual-granularity table (tri_chunk_fine)")
         if streaming_mode not in ("segmented", "dma"):
             raise ValueError(f"unknown streaming_mode {streaming_mode!r}")
+        if refine not in ("off", "bounces", "all"):
+            raise ValueError(f"unknown refine mode {refine!r}")
         self.eps = eps
         self.target_item_count = target_item_count
+        self._data = BvhData.load(path) if path is not None else data
+        self.cull_block = cull_block
+        self.ray_tile = ray_tile
+        self.tri_chunk = tri_chunk
         self.streaming_mode = streaming_mode
         self.chain = chain
+        self.refine = refine
+        self.early_exit = early_exit
         self.seg_order = seg_order
-        self.bvh_data: BvhData | None = None
+        self.bvh_data: BvhData | None = self._data
 
     @property
     def block_lanes(self) -> int:
-        """Rays per tile, one pixel block each: 256 (16x16), or 128
-        (8x16) for the streaming kernel's fixed tile."""
+        """Rays per tile, one pixel block each: ``ray_tile`` (default
+        256, 16x16), or 128 (8x16) for the streaming kernel's fixed
+        tile."""
         if self.streaming_mode == "dma":
             return packet_stream.STREAM_LANES
-        return pt.TUNED_RAY_TILE
+        return pt.TUNED_RAY_TILE if self.ray_tile is None else self.ray_tile
 
     def build(self, scene: Scene, arrays: SceneArrays):
-        self.bvh_data = build_bvh(
-            scene, eps=self.eps, target_item_count=self.target_item_count
-        )
+        if self._data is None:
+            self.bvh_data = build_bvh(
+                scene, eps=self.eps, target_item_count=self.target_item_count
+            )
+        else:
+            self.bvh_data = self._data
         arrays = reorder_scene_arrays(arrays, self.bvh_data.indices)
         n_tris = arrays.pa.shape[0] - 1  # minus the null sentinel
         streaming = n_tris > pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
@@ -91,7 +125,7 @@ class PacketBvhIntrs(IntrsHandler):
             arrays.pb.cpu().numpy(),
             arrays.pc.cpu().numpy(),
             max_chunks=None,
-            tri_chunk=pt.TUNED_TRI_CHUNK,
+            tri_chunk=pt.TUNED_TRI_CHUNK if self.tri_chunk is None else self.tri_chunk,
             shade_rows=None if dma else arrays.shade_table.cpu().numpy(),
             device=arrays.device,
         )
@@ -123,10 +157,16 @@ class PacketBvhIntrs(IntrsHandler):
         )
 
     def _entry(self, accel, cfg: ComputeConfig, **mode):
-        """The tiled entry for ``accel`` in one mode, tagged so bounce
-        and shadow batches take the per-ray refine cull (the coherent
-        primaries keep the tile-interval cull)."""
-        kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, **mode)
+        """The tiled entry for ``accel`` in one mode with the cull
+        knobs, tagged with the ``refine`` policy (by default bounce and
+        shadow batches take the per-ray cull, the coherent primaries
+        the tile-interval cull)."""
+        kw = dict(
+            t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
+            early_exit=self.early_exit, **mode,
+        )
+        if self.cull_block is not None:
+            kw["cull_block"] = self.cull_block
         if self._segments(accel) is not None:
             fn = partial(
                 pt.packet_closest_hit_segmented_tiled, accel,
@@ -134,7 +174,7 @@ class PacketBvhIntrs(IntrsHandler):
             )
         else:
             fn = partial(pt.packet_closest_hit_tiled, accel, **kw)
-        return pt.tag_refine(fn, "bounces")
+        return pt.tag_refine(fn, self.refine)
 
     def intersect_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
         if self._streamed(accel):

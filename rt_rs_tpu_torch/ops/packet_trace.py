@@ -12,7 +12,12 @@ chunk list.  Two hand-written CUDA kernels do the rest:
   cull, replacing ``_refine_kernel``;
 * :func:`mt_trace` — kernel B (csrc/mt_trace.cu), the Möller–Trumbore
   trace in closest-hit, emit-rows and any-hit modes, replacing
-  ``_mt_kernel`` + ``mt_chunk_test``.
+  ``_mt_kernel`` + ``mt_chunk_test``, with an early-exit variant of the
+  first two over front-to-back lists (``early_exit``).
+
+The cull's knobs (``refine`` granularity, ``cull_block``,
+``early_exit``) are the JAX package's; each changes the work, never
+the result on valid rays.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain-PyTorch twin (``*_reference``, same module) only for CPU
@@ -57,6 +62,18 @@ CHUNK_ALIGN = 32
 MAX_VMEM_CHUNKS = 1536
 TILE_GROUP = 32  # tile counts are padded to a multiple of this
 MT_MODES = ("closest", "rows", "anyhit")
+# Chunks per cull block (> 1: the cull and the compaction run at
+# [T, Nc / CULL_BLOCK] and each listed block expands to its chunks).
+CULL_BLOCK = 1
+# early_exit: the tile's running worst best t is refreshed every this
+# many list entries (a stale bound only delays the exit).
+EXIT_CHECK = 8
+# refine=True's granularity: 1 = the exact per-ray slab cull (kernel A);
+# an integer n > 1 passed as ``refine`` runs the interval cull on n-ray
+# subgroups instead.
+REFINE_SUB = 1
+# Sort key of the chunks a tile does not list (early_exit).
+UNLISTED_KEY = 3.0e38
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,10 +243,15 @@ def chunk_overlap_mask_cm(
     t_min: float,
     t_max: float,
     t_cap: torch.Tensor | None = None,  # [T, r]
-) -> torch.Tensor:
+    want_near: bool = False,
+):
     """Conservative [T, Nc] mask: False only if NO valid ray of the tile
     can hit the chunk's AABB within the t-window (each tile's rays are
-    wrapped in one origin / inverse-direction interval box)."""
+    wrapped in one origin / inverse-direction interval box).
+
+    ``want_near`` also returns the per-(tile, chunk) entry-distance
+    lower bound ``max(near_lb, t_min)`` [T, Nc], valid for every ray of
+    the tile: early_exit's front-to-back sort key."""
     big = _f32(3.0e38, o3.device)
     v = ray_valid[None, :, :]
     o_lo = torch.where(v, o3, big).amin(dim=2).T  # [T, 3]
@@ -238,8 +260,39 @@ def chunk_overlap_mask_cm(
     i_hi = torch.where(v, inv3, -big).amax(dim=2).T
     return _overlap_from_bounds(
         o_lo, o_hi, i_lo, i_hi, ray_valid, bmin, bmax,
-        t_min=t_min, t_max=t_max, t_cap=t_cap,
+        t_min=t_min, t_max=t_max, t_cap=t_cap, want_near=want_near,
     )
+
+
+def chunk_overlap_mask_subgroup_cm(
+    o3: torch.Tensor,  # [3, T, r]
+    inv3: torch.Tensor,  # [3, T, r]
+    ray_valid: torch.Tensor,  # [T, r] bool
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    t_cap: torch.Tensor | None = None,  # [T, r]
+    sub: int = 8,
+) -> torch.Tensor:
+    """The interval cull on ``sub``-ray pseudo-tiles (consecutive rays:
+    adjacent pixels of a block), OR-reduced back to tiles -> [T, Nc].
+    Conservative for the same reason as :func:`chunk_overlap_mask_cm`,
+    whose cull it is on smaller tiles."""
+    t_tiles, r = ray_valid.shape
+    if r % sub:
+        raise ValueError(f"ray tile {r} not a multiple of refine subgroup {sub}")
+    g = r // sub
+    ov = chunk_overlap_mask_cm(
+        o3.reshape(3, t_tiles * g, sub),
+        inv3.reshape(3, t_tiles * g, sub),
+        ray_valid.reshape(t_tiles * g, sub),
+        bmin, bmax,
+        t_min=t_min, t_max=t_max,
+        t_cap=None if t_cap is None else t_cap.reshape(t_tiles * g, sub),
+    )  # [T * g, Nc]
+    return ov.reshape(t_tiles, g, -1).any(dim=1)
 
 
 def _wobble(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
@@ -254,7 +307,8 @@ def _overlap_from_bounds(
     t_min: float,
     t_max: float,
     t_cap: torch.Tensor | None,
-) -> torch.Tensor:
+    want_near: bool = False,
+):
     dev = bmin.device
     wob = _wobble(bmin, bmax)
     lo_b = bmin - wob
@@ -286,13 +340,17 @@ def _overlap_from_bounds(
         cap = torch.minimum(
             torch.where(ray_valid, t_cap, -torch.inf).amax(dim=1), t_max_t
         )[:, None]
-    return (
+    t_min_t = _f32(t_min, dev)
+    mask = (
         any_ray
         & nonempty
         & (near_lb <= far_ub)
-        & (far_ub >= _f32(t_min, dev))
+        & (far_ub >= t_min_t)
         & (near_lb <= cap)
     )
+    if want_near:
+        return mask, torch.maximum(near_lb, t_min_t)
+    return mask
 
 
 # ----------------------------------------------------------------------
@@ -463,24 +521,9 @@ def twin_slices(tiles: torch.Tensor, per_tile: int):
     return [tiles[s0 : s0 + step] for s0 in range(0, tiles.numel(), step)]
 
 
-def mt_trace_reference(
-    comp: torch.Tensor,  # [Nc, tc, 9]
-    payload: torch.Tensor,  # [8, T, r]
-    ids: torch.Tensor,  # [T, Nc] int32
-    counts: torch.Tensor,  # [T] int32
-    attr: torch.Tensor | None = None,  # [>= pid_base + Nc*tc + 1, 32]
-    *,
-    t_min: float,
-    t_max: float,
-    eps: float,
-    mode: str,
-    pid_base: int = 0,
-):
-    """Plain-PyTorch twin of kernel B, vectorised over the tiles whose
-    list reaches position ``k``, looping over ``k < max(counts)``.  Per
-    chunk, the best hit of each ray (min w, ties to the smallest
-    triangle) replaces the running best only when strictly nearer: the
-    same result as the kernel's ascending strict scan."""
+def _mt_twin(comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, pid_base=0):
+    """Kernel B's twin -> (its result, entries tested per tile [T]
+    int64).  See :func:`mt_trace_reference`."""
     dev = payload.device
     n_tiles, r = payload.shape[1], payload.shape[2]
     tc = comp.shape[1]
@@ -491,9 +534,19 @@ def mt_trace_reference(
     best_t = miss.expand(n_tiles, r).clone()
     best_id = torch.zeros((n_tiles, r), dtype=torch.int32, device=dev)
     blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
+    tested = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    walking = torch.ones(n_tiles, dtype=torch.bool, device=dev)
+    worst = miss.expand(n_tiles).clone()
     kmax = int(counts.max()) if n_tiles else 0
     for k in range(kmax):
-        for sel in twin_slices((counts > k).nonzero()[:, 0], tc * r):
+        reach = counts > k
+        if ed is not None:
+            # A tile stops at its first entry whose bound is not within
+            # its worst best t (NaN keys too, as `ed <= worst` is False).
+            walking &= ~(reach & ~(ed[:, k] <= worst))
+            reach &= walking
+        tested += reach
+        for sel in twin_slices(reach.nonzero()[:, 0], tc * r):
             ox, oy, oz, dx, dy, dz, excl, cap = (payload[i, sel][:, None, :] for i in range(8))
             c = ids[sel, k].to(torch.int64)
             tri = comp[c]  # [S, tc, 9]
@@ -509,15 +562,64 @@ def mt_trace_reference(
             wm = torch.where(ok, w, miss)
             cmin = wm.amin(dim=1)  # [S, r]
             s_first = torch.where(wm == cmin[:, None, :], sub, tc).amin(dim=1)
+            cid = pid0 + s_first
             better = cmin < best_t[sel]
+            if ed is not None:
+                # (t, pid)-lexicographic: the walk is no longer in
+                # ascending pid order.
+                better |= (cmin == best_t[sel]) & (cid < best_id[sel])
             best_t[sel] = torch.where(better, cmin, best_t[sel])
-            best_id[sel] = torch.where(better, pid0 + s_first, best_id[sel])
+            best_id[sel] = torch.where(better, cid, best_id[sel])
+        if ed is not None and k % EXIT_CHECK == EXIT_CHECK - 1:
+            # Every lane counts (invalid and padding rays too).
+            worst = torch.where(reach, best_t.amax(dim=1), worst)
     if mode == "anyhit":
-        return blocked
+        return blocked, tested
     if mode == "rows":
         rows = attr[best_id.to(torch.int64)].permute(2, 0, 1).contiguous()
-        return best_t, best_id, rows
-    return best_t, best_id
+        return (best_t, best_id, rows), tested
+    return (best_t, best_id), tested
+
+
+def mt_trace_reference(
+    comp: torch.Tensor,  # [Nc, tc, 9]
+    payload: torch.Tensor,  # [8, T, r]
+    ids: torch.Tensor,  # [T, Nc] int32
+    counts: torch.Tensor,  # [T] int32
+    attr: torch.Tensor | None = None,  # [>= pid_base + Nc*tc + 1, 32]
+    ed: torch.Tensor | None = None,  # [T, Nc] f32 sorted entry bounds
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str,
+    pid_base: int = 0,
+):
+    """Plain-PyTorch twin of kernel B, vectorised over the tiles whose
+    list reaches position ``k``, looping over ``k < max(counts)``.  Per
+    chunk, the best hit of each ray (min w, ties to the smallest
+    triangle) replaces the running best only when strictly nearer: the
+    same result as the kernel's ascending strict scan.
+
+    With ``ed`` (early exit; closest and rows modes) the lists are
+    front-to-back and a tile stops at the first entry ``k`` with
+    ``ed[t, k] > worst``, where ``worst`` is the largest best t over
+    the tile's rays, refreshed after every EXIT_CHECK-th entry; the
+    merge is (t, pid)-lexicographic.  Exact: ``ed`` ascends and
+    ``worst`` never rises, so every later entry's hits are farther
+    than every ray's best."""
+    out, _ = _mt_twin(
+        comp, payload, ids, counts, attr, ed,
+        t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base,
+    )
+    return out
+
+
+def entries_tested(comp, payload, ids, counts, attr=None, ed=None, **kw) -> torch.Tensor:
+    """[T] int64: the list entries each tile of an :func:`mt_trace` call
+    tests (all of ``counts`` without ``ed``; fewer where early exit
+    stops a tile).  Takes :func:`mt_trace_reference`'s arguments."""
+    return _mt_twin(comp, payload, ids, counts, attr, ed, **kw)[1]
 
 
 def mt_trace(
@@ -526,6 +628,7 @@ def mt_trace(
     ids: torch.Tensor,
     counts: torch.Tensor,
     attr: torch.Tensor | None = None,
+    ed: torch.Tensor | None = None,
     *,
     t_min: float,
     t_max: float,
@@ -537,15 +640,20 @@ def mt_trace(
     pid [T, r] int32); "rows" -> (t, pid, rows [32, T, r]); "anyhit" ->
     blocked [T, r] bool.  Prim ids are global: triangle ``s`` of chunk
     ``c`` is ``1 + pid_base + c * tc + s``, for the exclusion test, the
-    returned pid and the row read from ``attr``.  CPU tensors run
+    returned pid and the row read from ``attr``.  ``ed`` [T, Nc] f32
+    (the sorted entry bounds of front-to-back lists) selects the
+    early-exit variant of the closest and rows modes, counted as
+    ``mt_trace[<mode>,early_exit]``.  CPU tensors run
     :func:`mt_trace_reference`; CUDA tensors launch the kernel."""
     if mode not in MT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
     if mode == "rows" and attr is None:
         raise ValueError("rows mode needs the attr table")
+    if mode == "anyhit" and ed is not None:
+        raise ValueError("early exit (ed) has no any-hit variant")
     kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base)
     if not payload.is_cuda:
-        return mt_trace_reference(comp, payload, ids, counts, attr, **kw)
+        return mt_trace_reference(comp, payload, ids, counts, attr, ed, **kw)
     nc, tc = comp.shape[0], comp.shape[1]
     n_tiles, r = payload.shape[1], payload.shape[2]
     dev = payload.device
@@ -553,6 +661,8 @@ def mt_trace(
     cuda.check("payload", payload, torch.float32, (8, n_tiles, r), dev)
     cuda.check("ids", ids, torch.int32, (n_tiles, nc), dev)
     cuda.check("counts", counts, torch.int32, (n_tiles,), dev)
+    if ed is not None:
+        cuda.check("ed", ed, torch.float32, (n_tiles, nc), dev)
     if mode == "rows":
         need = pid_base + nc * tc + 1
         cuda.check("attr", attr, torch.float32, (attr.shape[0], 32), dev)
@@ -569,19 +679,39 @@ def mt_trace(
     if mode == "rows":
         out_rows = torch.empty((32, n_tiles, r), dtype=torch.float32, device=dev)
     cuda.call(
-        f"mt_trace[{mode}]", "rt_mt_trace",
+        mt_name(mode, ed is not None), "rt_mt_trace",
         payload.data_ptr(), comp.data_ptr(), ids.data_ptr(),
         counts.data_ptr(), cuda.ptr(attr if mode == "rows" else None),
-        cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
+        cuda.ptr(ed), cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
         cuda.ptr(out_blocked), n_tiles, r, nc, tc, int(pid_base), float(t_min),
         float(t_max), float(eps), float(np.float32(t_max + 1.0)),
-        MT_MODES.index(mode),
+        MT_MODES.index(mode), EXIT_CHECK,
     )
     if mode == "anyhit":
         return out_blocked
     if mode == "rows":
         return out_t, out_pid, out_rows
     return out_t, out_pid
+
+
+def mt_name(mode: str, early_exit: bool) -> str:
+    """Kernel B's launch-counter name for one mode and variant."""
+    return f"mt_trace[{mode},early_exit]" if early_exit else f"mt_trace[{mode}]"
+
+
+def early_exit_lists(
+    overlap: torch.Tensor,  # [T, Nc] the call's cull (any formulation)
+    near: torch.Tensor,  # [T, Nc] the interval cull's entry bounds
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (ids [T, Nc] int32, counts [T] int32, ed [T, Nc] f32): each
+    tile's listed chunks front to back by their entry bound, unlisted
+    chunks after them (key UNLISTED_KEY), ties in ascending chunk id (a
+    stable sort; NaN keys sort last, as in NumPy and JAX), and the
+    sorted keys."""
+    key = torch.where(overlap, near, _f32(UNLISTED_KEY, near.device))
+    ed, order = torch.sort(key, dim=1, stable=True)
+    counts = overlap.sum(dim=1, dtype=torch.int32)
+    return order.to(torch.int32).contiguous(), counts, ed.contiguous()
 
 
 def packet_closest_hit_tiled(
@@ -593,10 +723,12 @@ def packet_closest_hit_tiled(
     t_min: float,
     t_max: float,
     eps: float,
+    cull_block: int = CULL_BLOCK,
     pid_base: int = 0,
     emit_rows: bool = False,
     any_hit: bool = False,
-    refine: bool = False,
+    refine: bool | int = False,
+    early_exit: bool = False,
 ):
     """Closest hit over component-major ray tiles -> (t [T, r], pid
     [T, r] int32), plus the winners' shade rows [32, T, r] with
@@ -604,13 +736,28 @@ def packet_closest_hit_tiled(
     other than the ray's exclusion lies in (t_min, payload row 7).
 
     Outputs are specified for valid rays only.  ``t_cap`` only tightens
-    culling.  ``refine`` takes the per-ray slab cull (kernel A) instead
-    of the tile-interval cull; both are conservative, so the results do
-    not depend on it.  ``pid_base`` shifts the table's prim ids into a
-    global id space (a segment of a larger table): the exclusion test,
-    the returned ids and the rows read from ``chunks.attr`` are global;
-    misses stay 0."""
+    culling.  ``pid_base`` shifts the table's prim ids into a global id
+    space (a segment of a larger table): the exclusion test, the
+    returned ids and the rows read from ``chunks.attr`` are global;
+    misses stay 0.  The knobs below change the work, never the result
+    on valid rays:
+
+    * ``refine``: False / 0 takes the tile-interval cull; True or 1 the
+      per-ray slab cull (kernel A); an integer n > 1 the interval cull
+      on n-ray subgroups (:func:`chunk_overlap_mask_subgroup_cm`).
+    * ``cull_block``: the cull and the compaction run over blocks of
+      this many consecutive chunks, each listed block expanding to its
+      chunks in the kernel's list.
+    * ``early_exit`` (closest and rows modes; ignored for any-hit;
+      needs ``cull_block == 1``): lists sorted front to back by the
+      interval cull's entry bound, and the kernel's early-exit variant
+      stops a tile at the first entry beyond its worst best t."""
     nc = chunks.num_chunks
+    if cull_block < 1 or nc % cull_block:
+        raise ValueError(
+            f"chunk count {nc} not divisible by cull_block {cull_block} "
+            f"(builders pad to CHUNK_ALIGN={CHUNK_ALIGN})"
+        )
     # The JAX package carries prim ids as f32 and refuses ids at or
     # above 2^24; the port keeps the same bound (and exclusion ids are
     # still f32 in the payload).
@@ -626,25 +773,52 @@ def packet_closest_hit_tiled(
         raise ValueError("emit_rows and any_hit are mutually exclusive")
     if emit_rows and chunks.attr is None:
         raise ValueError("emit_rows requires a chunk table built with shade_rows")
-    if refine not in (False, True, 0, 1):
-        raise NotImplementedError(
-            "subgroup refine (refine > 1) is not ported yet (ROADMAP module "
-            "item 15)"
-        )
+    early_exit = early_exit and not any_hit
+    if early_exit and cull_block != 1:
+        raise ValueError("early_exit requires cull_block == 1")
+    if cull_block > 1:
+        nb = nc // cull_block
+        blk_min = chunks.bmin.reshape(nb, cull_block, 3).amin(dim=1)
+        blk_max = chunks.bmax.reshape(nb, cull_block, 3).amax(dim=1)
+    else:
+        blk_min, blk_max = chunks.bmin, chunks.bmax
+    win = dict(t_min=t_min, t_max=t_max, t_cap=t_cap)
+    inv3 = 1.0 / payload[3:6]
+    near = None
     if refine:
-        overlap = chunk_overlap_mask_perray(
-            payload, valid, chunks.bmin, chunks.bmax,
-            t_min=t_min, t_max=t_max, t_cap=t_cap,
+        n_sub = REFINE_SUB if refine is True else int(refine)
+        if n_sub == 1:
+            overlap = chunk_overlap_mask_perray(payload, valid, blk_min, blk_max, **win)
+        else:
+            overlap = chunk_overlap_mask_subgroup_cm(
+                payload[0:3], inv3, valid, blk_min, blk_max, sub=n_sub, **win
+            )
+        if early_exit:
+            # The interval formulation's bound holds for every ray of
+            # the tile, so it orders the refined list too.
+            _, near = chunk_overlap_mask_cm(
+                payload[0:3], inv3, valid, blk_min, blk_max, want_near=True, **win
+            )
+    elif early_exit:
+        overlap, near = chunk_overlap_mask_cm(
+            payload[0:3], inv3, valid, blk_min, blk_max, want_near=True, **win
         )
     else:
-        overlap = chunk_overlap_mask_cm(
-            payload[0:3], 1.0 / payload[3:6], valid, chunks.bmin, chunks.bmax,
-            t_min=t_min, t_max=t_max, t_cap=t_cap,
-        )
-    ids, counts = compact(overlap)
+        overlap = chunk_overlap_mask_cm(payload[0:3], inv3, valid, blk_min, blk_max, **win)
+    ed = None
+    if early_exit:
+        ids, counts, ed = early_exit_lists(overlap, near)
+    else:
+        ids, counts = compact(overlap)
+    if cull_block > 1:
+        ids = (
+            ids[:, :, None] * cull_block
+            + torch.arange(cull_block, dtype=torch.int32, device=ids.device)
+        ).reshape(t_tiles, nc)
+        counts = counts * cull_block
     mode = "anyhit" if any_hit else ("rows" if emit_rows else "closest")
     return mt_trace(
-        chunks.comp, payload, ids, counts, chunks.attr if emit_rows else None,
+        chunks.comp, payload, ids, counts, chunks.attr if emit_rows else None, ed,
         t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base,
     )
 
@@ -774,7 +948,9 @@ def packet_closest_hit_segmented_tiled(
     emit_rows: bool = False,
     any_hit: bool = False,
     chain: bool = True,
-    refine: bool = False,
+    refine: bool | int = False,
+    cull_block: int = CULL_BLOCK,
+    early_exit: bool = False,
     seg_order: tuple[int, ...] | None = None,
 ):
     """:func:`packet_closest_hit_tiled` over a segmented table: one call
@@ -790,7 +966,9 @@ def packet_closest_hit_segmented_tiled(
     the next call's cull: closest hit caps the next segment at
     ``min(t_cap, best so far)``, any-hit drops rays already blocked.
     Both are exact: a chunk culled by the cap could only lose the merge,
-    and a blocked ray's verdict is final."""
+    and a blocked ray's verdict is final.  ``refine``, ``cull_block``
+    and ``early_exit`` pass to every segment's call (early exit to the
+    closest-hit calls only)."""
     if emit_rows and any_hit:
         raise ValueError("emit_rows and any_hit are mutually exclusive")
     _check_total_prims_f32(seg)
@@ -801,7 +979,7 @@ def packet_closest_hit_segmented_tiled(
         raise ValueError(
             f"seg_order {seg_order!r} is not a permutation of range({n_seg})"
         )
-    kw = dict(t_min=t_min, t_max=t_max, eps=eps, refine=refine)
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, refine=refine, cull_block=cull_block)
     visit = [(seg.prim_base[s], seg.segments[s]) for s in seg_order]
     if any_hit:
         blocked = None
@@ -821,7 +999,8 @@ def packet_closest_hit_segmented_tiled(
         if chain and best is not None:
             cap_s = best[0] if cap_s is None else torch.minimum(cap_s, best[0])
         out = packet_closest_hit_tiled(
-            part, payload, valid, cap_s, pid_base=base, emit_rows=emit_rows, **kw
+            part, payload, valid, cap_s, pid_base=base, emit_rows=emit_rows,
+            early_exit=early_exit, **kw,
         )
         if best is None:
             best = out

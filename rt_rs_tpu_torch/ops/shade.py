@@ -11,8 +11,9 @@ first, then the scene lights).
 
 ``trace_tiled``'s emit-rows branch (resident tables) and gather branch
 (segmented and streamed tables, and resident tables too large for the
-rows table) are ported; retiling, the fused bounce kernel and narrowed
-tiles raise ``NotImplementedError`` naming their ROADMAP item.
+rows table) are ported, with all of its knobs: the fused bounce kernel
+(``fuse_bounce``), the zero-contribution shadow cull (``shadow_cull``),
+live-tile compaction (``retile``) and split tiles (``narrow``).
 """
 
 from __future__ import annotations
@@ -156,11 +157,44 @@ def camera_ray_tiles(
     return payload, valid, n_pixels
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to rt_rs_tpu_torch yet (ROADMAP module "
-        f"item {item})"
-    )
+def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
+    """Inverse of a permutation [T] via one scatter."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def _narrowed(fn: TiledIntersectFn | None, r: int, narrow: int | None):
+    """``fn`` on laneways-split tiles (``narrow``): inputs [.., T', r]
+    become [.., T' * m, narrow] (tile t -> m consecutive sub-tiles; ray
+    order unchanged) and outputs reshape back.  Only the per-tile culls
+    see the narrower tiles, so the results are the same."""
+    if fn is None or narrow is None or r <= narrow:
+        return fn
+    if r % narrow:
+        raise ValueError(f"narrow={narrow} must divide ray_tile={r}")
+    m = r // narrow
+
+    def split(x):
+        if x is None:
+            return None
+        if x.dim() == 2:
+            return x.reshape(x.shape[0] * m, narrow)
+        return x.reshape(x.shape[0], x.shape[1] * m, narrow)
+
+    def unsplit(x):
+        if x.dim() == 2:
+            return x.reshape(x.shape[0] // m, r)
+        return x.reshape(x.shape[0], x.shape[1] // m, r)
+
+    def fn2(payload, valid, t_cap=None, **kw):
+        out = fn(split(payload), split(valid), t_cap=split(t_cap), **kw)
+        if isinstance(out, tuple):
+            return tuple(unsplit(o) for o in out)
+        return unsplit(out)
+
+    fn2.supports_refine = getattr(fn, "supports_refine", False)
+    return fn2
 
 
 def trace_tiled(
@@ -173,6 +207,7 @@ def trace_tiled(
     intersect_rows_fn: TiledIntersectFn | None = None,
     intersect_anyhit_fn: TiledIntersectFn | None = None,
     fuse_bounce: bool = False,
+    shadow_cull: bool = True,
     retile: bool = False,
     narrow: int | None = None,
 ) -> torch.Tensor:
@@ -186,18 +221,37 @@ def trace_tiled(
     gather branch) each bounce makes one closest-hit call over the
     light-major shadow rays with the next bounce's rays appended (caps
     ``t_max``), and gathers the hits' rows from the scene's shade
-    table.  Either way shadow rays whose light cannot change the colour
-    whatever the verdict are dropped from the batch (shade_pre's mask;
-    output-exact), and bounce and shadow batches opt into the per-ray
-    cull when the entry advertises ``supports_refine``."""
-    if fuse_bounce:
-        raise _not_ported("trace_tiled(fuse_bounce=True)", 15)
-    if retile:
-        raise _not_ported("trace_tiled(retile=True)", 15)
-    if narrow is not None:
-        raise _not_ported("trace_tiled(narrow=...)", 15)
+    table.  Bounce and shadow batches opt into the per-ray cull when
+    the entry advertises ``supports_refine``.
+
+    The knobs are the JAX package's; each is output-exact (the frame is
+    the default frame bit for bit), and all default off:
+
+    * ``fuse_bounce``: shade_post of bounce b and shade_pre of bounce
+      b + 1 run as one kernel (``shade_tile.shade_bounce``); bounce 0's
+      shade_pre and the last bounce's shade_post stay standalone.
+    * ``shadow_cull`` (default on): shadow rays whose light cannot
+      change the colour whatever the verdict (shade_pre's mask) are
+      dropped from the batch.
+    * ``retile``: after each bounce's liveness update, whole tiles are
+      permuted so tiles with a live ray come first (a stable argsort);
+      tile membership is unchanged, so every cull is too, and each
+      bounce's colour is gathered back through the composed permutation.
+      Incompatible with ``fuse_bounce`` (the fused kernel spans the
+      permutation).
+    * ``narrow`` (a lane count dividing the tile, e.g. 128): bounce and
+      shadow calls run on tiles split into ``r / narrow`` sub-tiles
+      (primaries never)."""
+    if retile and fuse_bounce:
+        raise ValueError(
+            "retile is incompatible with fuse_bounce (the fused kernel "
+            "spans the compaction point)"
+        )
     if not scene.no_negative_materials:
-        raise _not_ported("the XLA trace() path for negative materials", 9)
+        raise NotImplementedError(
+            "the XLA trace() path for negative materials is not ported to "
+            "rt_rs_tpu_torch yet (ROADMAP module item 9)"
+        )
     dev = payload.device
     t_tiles, r = valid.shape
     light_rows = []
@@ -223,30 +277,58 @@ def trace_tiled(
     sub = shade_tile.SUBGROUP
     emit = intersect_rows_fn is not None
     table = scene.shade_table
+    # Bounce and shadow calls may run on split tiles; primaries never.
+    n_intersect_fn = _narrowed(intersect_fn, r, narrow)
+    n_rows_fn = _narrowed(intersect_rows_fn, r, narrow)
+    n_anyhit_fn = _narrowed(intersect_anyhit_fn, r, narrow)
 
     def refine_kw(fn):
         # Secondary and shadow batches take the per-ray cull (their
         # rays diverge within a tile); primaries keep the interval cull.
         return {"refine": True} if getattr(fn, "supports_refine", False) else {}
 
-    def liveness(t, pid, active, rows):
-        """Validity update and, in the gather branch, the hits' rows
-        (row 0, zeros, for dead rays; the emit branch's rows of dead
-        rays hold their hit's row instead: every consumer masks them)."""
+    def liveness(t, pid, active, rows, pay, o2c):
+        """Validity update, the ``retile`` permutation (before the row
+        gather, so only the per-ray state moves) and, in the gather
+        branch, the hits' rows (row 0, zeros, for dead rays; the emit
+        branch's rows of dead rays hold their hit's row instead: every
+        consumer masks them)."""
         pid = torch.where(active, pid, 0)
         valid_b = (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
         active = active & valid_b
+        if retile:
+            perm = torch.argsort((~active.any(dim=1)).to(torch.int32), stable=True)
+            inv = _invert_perm(perm)
+            o2c = inv if o2c is None else inv[o2c]
+            t, pid, active, pay = t[perm], pid[perm], active[perm], pay[:, perm]
+            if rows is not None:
+                rows = rows[:, perm]
         if rows is None:
             rows = table[pid.reshape(-1).to(torch.int64)].T.reshape(32, t_tiles, r)
-            rows = rows.contiguous()
         live_sg = active.reshape(t_tiles // sub, sub * r).any(dim=1).to(torch.int32)
-        return pid, rows, active, live_sg
+        return t.contiguous(), pid, rows.contiguous(), active, live_sg, pay, o2c
+
+    def add_color(color, contrib, o2c):
+        """A bounce's contribution, in its own tile order, added to the
+        image in the original order (a retiled bounce's tile j of the
+        original order sits at o2c[j])."""
+        return color + (contrib if o2c is None else contrib[:, o2c])
+
+    def shadow_valid(active, cmasks):
+        """Per-light shadow-ray validity [k * T, r]: live and, with
+        ``shadow_cull``, the light can contribute."""
+        sh = active[None].expand(k, t_tiles, r)
+        if shadow_cull:
+            sh = sh & (cmasks > 0.0)
+        return sh.reshape(k * t_tiles, r)
 
     if emit:
         t, pid, rows = intersect_rows_fn(payload, valid)
     else:
         (t, pid), rows = intersect_fn(payload, valid), None
-    pid, rows, active, live_sg = liveness(t, pid, valid, rows)
+    t, pid, rows, active, live_sg, payload, o2c = liveness(
+        t, pid, valid, rows, payload, None
+    )
     sh_pay, caps, cmasks, nxt = shade_tile.shade_pre(
         rows, payload, t, pid.to(torch.float32), live_sg, lights,
         emit_next=cfg.bounces > 1,
@@ -254,19 +336,18 @@ def trace_tiled(
 
     for bounce in range(cfg.bounces):
         last = bounce + 1 >= cfg.bounces
-        # Shadow validity: live, and the light can contribute.
-        sh_valid = (active[None] & (cmasks > 0.0)).reshape(k * t_tiles, r)
+        sh_valid = shadow_valid(active, cmasks)
         sh_caps = caps.reshape(k * t_tiles, r)
         blocked_mode = emit and intersect_anyhit_fn is not None
         rows2 = None
         if blocked_mode:
-            blocked = intersect_anyhit_fn(
-                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_anyhit_fn)
+            blocked = n_anyhit_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(n_anyhit_fn)
             )
             sh_t = sh_id = blocked.reshape(k, t_tiles, r).to(torch.float32)
         elif emit:
-            st, sid = intersect_fn(
-                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_fn)
+            st, sid = n_intersect_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(n_intersect_fn)
             )
             sh_t, sh_id = st.reshape(k, t_tiles, r), sid.reshape(k, t_tiles, r)
         else:
@@ -275,8 +356,8 @@ def trace_tiled(
                 sh_pay = torch.cat([sh_pay, nxt], dim=1)
                 sh_valid = torch.cat([sh_valid, active])
                 sh_caps = torch.cat([sh_caps, torch.full_like(t, cfg.t_max)])
-            st, sid = intersect_fn(
-                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(intersect_fn)
+            st, sid = n_intersect_fn(
+                sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(n_intersect_fn)
             )
             n_sh = k * t_tiles
             sh_t = st[:n_sh].reshape(k, t_tiles, r)
@@ -284,24 +365,43 @@ def trace_tiled(
             if not last:
                 t2, pid2 = st[n_sh:], sid[n_sh:]
         if emit and not last:
-            t2, pid2, rows2 = intersect_rows_fn(
-                nxt, active, **refine_kw(intersect_rows_fn)
-            )
-        color = color + shade_tile.shade_post(
+            t2, pid2, rows2 = n_rows_fn(nxt, active, **refine_kw(n_rows_fn))
+        post = (
             rows, payload, t, active.to(torch.float32), sh_t.contiguous(),
-            sh_id.to(torch.float32).contiguous(), caps, live_sg, lights,
+            sh_id.to(torch.float32).contiguous(), caps,
+        )
+        post_kw = dict(
             first_bounce=bounce == 0, t_min=cfg.t_min, t_max=cfg.t_max,
             blocked_mode=blocked_mode,
         )
         if last:
+            color = add_color(
+                color, shade_tile.shade_post(*post, live_sg, lights, **post_kw), o2c
+            )
             break
-        pid2, rows2, active2, live_sg2 = liveness(t2, pid2, active, rows2)
-        sh_pay, caps, cmasks, nxt2 = shade_tile.shade_pre(
-            rows2, nxt, t2.contiguous(), pid2.to(torch.float32), live_sg2, lights,
-            emit_next=bounce + 2 < cfg.bounces,
+        # liveness may retile the next bounce's state; this bounce's
+        # shade_post still runs in the current order (o2c), the new
+        # order (o2c2) takes over after it.
+        t2, pid2, rows2, active2, live_sg2, nxt, o2c2 = liveness(
+            t2, pid2, active, rows2, nxt, o2c
         )
-        rows, payload, t, pid = rows2, nxt, t2.contiguous(), pid2
-        active, live_sg, nxt = active2, live_sg2, nxt2
+        pre = (rows2, nxt, t2, pid2.to(torch.float32))
+        emit_next = bounce + 2 < cfg.bounces
+        if fuse_bounce:
+            contrib, sh_pay, caps, cmasks, nxt2 = shade_tile.shade_bounce(
+                *post, *pre, torch.stack([live_sg, live_sg2]), lights,
+                emit_next=emit_next, **post_kw,
+            )
+            color = color + contrib
+        else:
+            color = add_color(
+                color, shade_tile.shade_post(*post, live_sg, lights, **post_kw), o2c
+            )
+            sh_pay, caps, cmasks, nxt2 = shade_tile.shade_pre(
+                *pre, live_sg2, lights, emit_next=emit_next
+            )
+        rows, payload, t, pid = rows2, nxt, t2, pid2
+        active, live_sg, nxt, o2c = active2, live_sg2, nxt2, o2c2
 
     return color
 
@@ -319,10 +419,12 @@ def render_tiled(
     intersect_rows_fn: TiledIntersectFn | None = None,
     intersect_anyhit_fn: TiledIntersectFn | None = None,
     fuse_bounce: bool = False,
+    shadow_cull: bool = True,
     retile: bool = False,
     narrow: int | None = None,
 ) -> torch.Tensor:
-    """Full frame via the tiled path -> color [H, W, 3] float32."""
+    """Full frame via the tiled path -> color [H, W, 3] float32.  The
+    knobs are :func:`trace_tiled`'s."""
     payload, valid, n_pixels = camera_ray_tiles(
         camera_pos, camera_at, width, height, ray_tile, block=block
     )
@@ -330,7 +432,8 @@ def render_tiled(
         scene, intersect_fn, cfg, payload, valid, camera_pos,
         intersect_rows_fn=intersect_rows_fn,
         intersect_anyhit_fn=intersect_anyhit_fn,
-        fuse_bounce=fuse_bounce, retile=retile, narrow=narrow,
+        fuse_bounce=fuse_bounce, shadow_cull=shadow_cull, retile=retile,
+        narrow=narrow,
     )
     flat = color.reshape(3, -1)[:, :n_pixels].T  # [n_pixels, 3]
     if block is not None:

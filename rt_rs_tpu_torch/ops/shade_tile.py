@@ -8,9 +8,13 @@ shading runs as two kernels split at the intersect calls:
   contribution mask per light, and the reflected continuation ray;
 * :func:`shade_post` — kernel D (csrc/shade_post.cu), replacing
   ``_shade_post_kernel``: shadow verdicts and the Blinn/Phong colour
-  contribution.
+  contribution;
+* :func:`shade_bounce` — kernel F (csrc/shade_bounce.cu), replacing
+  ``_shade_bounce_kernel``: shade_post of bounce b and shade_pre of
+  bounce b + 1 in one launch (``trace_tiled(fuse_bounce=True)``).  The
+  three kernels share their per-ray bodies (csrc/shade_body.cuh).
 
-Both follow the TPU kernels' subgroup rule: a subgroup of 8 tiles with
+All follow the TPU kernels' subgroup rule: a subgroup of 8 tiles with
 no live ray writes zeros; a live subgroup computes every lane.  The
 plain-PyTorch twins (``*_reference``) compute the same f32 operations
 in the same order; CPU tensors run the twin, CUDA tensors the kernel.
@@ -257,3 +261,81 @@ def shade_post(
         out.data_ptr(),
     )
     return out
+
+
+def shade_bounce_reference(
+    rows, payload, t, active_f, sh_t, sh_id_f, caps,
+    rows2, payload2, t2, pid2_f, live_sg2, lights, *,
+    first_bounce: bool, t_min: float, t_max: float, emit_next: bool,
+    blocked_mode: bool = False,
+):
+    """Plain-PyTorch twin of kernel F: :func:`shade_post_reference` of
+    bounce b, then :func:`shade_pre_reference` of bounce b + 1."""
+    color = shade_post_reference(
+        rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg2[0], lights,
+        first_bounce=first_bounce, t_min=t_min, t_max=t_max,
+        blocked_mode=blocked_mode,
+    )
+    return (color, *shade_pre_reference(rows2, payload2, t2, pid2_f, live_sg2[1], lights, emit_next))
+
+
+def shade_bounce(
+    rows, payload, t, active_f, sh_t, sh_id_f, caps,
+    rows2, payload2, t2, pid2_f, live_sg2, lights, *,
+    first_bounce: bool, t_min: float, t_max: float, emit_next: bool,
+    blocked_mode: bool = False,
+):
+    """Kernel F (csrc/shade_bounce.cu): :func:`shade_post` of bounce b
+    and :func:`shade_pre` of bounce b + 1 in one launch -> (color [3,
+    T, r], sh_pay [8, k * T, r], caps [k, T, r], masks [k, T, r], next
+    [8, T, r] or None).
+
+    The first seven arguments are shade_post's for bounce b, ``rows2``
+    [32, T, r], ``payload2`` [8, T, r], ``t2`` / ``pid2_f`` [T, r]
+    shade_pre's for bounce b + 1; ``live_sg2`` [2, T / 8] int32 holds
+    the two bounces' subgroup flags (row 0: b, row 1: b + 1)."""
+    kw = dict(
+        first_bounce=first_bounce, t_min=t_min, t_max=t_max,
+        emit_next=emit_next, blocked_mode=blocked_mode,
+    )
+    args = (rows, payload, t, active_f, sh_t, sh_id_f, caps, rows2, payload2, t2, pid2_f)
+    if not t.is_cuda:
+        return shade_bounce_reference(*args, live_sg2, lights, **kw)
+    n_tiles, r = t.shape
+    k = lights.shape[0]
+    dev = t.device
+    for name, x, shape in (
+        ("rows", rows, (32, n_tiles, r)),
+        ("payload", payload, (8, n_tiles, r)),
+        ("t", t, (n_tiles, r)),
+        ("active_f", active_f, (n_tiles, r)),
+        ("sh_t", sh_t, (k, n_tiles, r)),
+        ("sh_id_f", sh_id_f, (k, n_tiles, r)),
+        ("caps", caps, (k, n_tiles, r)),
+        ("rows2", rows2, (32, n_tiles, r)),
+        ("payload2", payload2, (8, n_tiles, r)),
+        ("t2", t2, (n_tiles, r)),
+        ("pid2_f", pid2_f, (n_tiles, r)),
+        ("lights", lights, (k, 4)),
+    ):
+        cuda.check(name, x, torch.float32, shape, dev)
+    cuda.check("live_sg2", live_sg2, torch.int32, (2, n_tiles // SUBGROUP), dev)
+    if n_tiles % SUBGROUP:
+        raise ValueError(f"tile count {n_tiles} not a multiple of {SUBGROUP}")
+    color = torch.empty((3, n_tiles, r), dtype=torch.float32, device=dev)
+    sh_pay = torch.empty((8, k * n_tiles, r), dtype=torch.float32, device=dev)
+    caps_out = torch.empty((k, n_tiles, r), dtype=torch.float32, device=dev)
+    masks = torch.empty((k, n_tiles, r), dtype=torch.float32, device=dev)
+    nxt = (
+        torch.empty((8, n_tiles, r), dtype=torch.float32, device=dev)
+        if emit_next
+        else None
+    )
+    cuda.call(
+        "shade_bounce", "rt_shade_bounce",
+        *(x.data_ptr() for x in args), live_sg2.data_ptr(), lights.data_ptr(),
+        k, n_tiles, r, int(first_bounce), int(blocked_mode), int(emit_next),
+        float(t_min), float(t_max), color.data_ptr(), sh_pay.data_ptr(),
+        caps_out.data_ptr(), masks.data_ptr(), cuda.ptr(nxt),
+    )
+    return color, sh_pay, caps_out, masks, nxt

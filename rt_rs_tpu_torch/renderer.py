@@ -51,6 +51,13 @@ _SNAP_DIRS = np.array(
 _SNAP_DIRS /= np.linalg.norm(_SNAP_DIRS, axis=1, keepdims=True)
 
 
+def retile_default(n_pixels: int) -> bool:
+    """``Renderer(retile=None)``'s choice of the between-bounce live-tile
+    compaction (``shade.trace_tiled(retile=)``): off at every size, as
+    in the JAX package, until the card measures otherwise."""
+    return False
+
+
 def device_sync(x: torch.Tensor) -> None:
     """Wait until the device has finished ``x`` (a no-op on the CPU)."""
     if x.is_cuda:
@@ -68,15 +75,27 @@ class Renderer:
         handler_kwargs: dict[str, Any] | None = None,
         size: tuple[int, int] | None = None,
         device: str | torch.device = "cuda",
+        block: tuple[int, int] | None | str = "auto",
         force_rows: bool | None = None,
+        fuse_bounce: bool = False,
+        shadow_cull: bool = True,
+        retile: bool | None = None,
+        narrow: int | None = None,
         seg_order: str | tuple[int, ...] | None = "auto",
     ):
         """``device`` is where every tensor lives and every kernel runs
         (default ``"cuda"``; there is no fallback to the CPU: pass
         ``device="cpu"`` to run the plain-PyTorch twins).  Rays are
         generated in pixel blocks of one ray tile each, shaped by the
-        config's workgroup hint (16x16 for pbvh's 256-ray tiles, 8x16
-        for the streaming kernel's 128).
+        config's workgroup hint (``block="auto"``: 16x16 for pbvh's
+        256-ray tiles, 8x16 for the streaming kernel's 128); a tuple
+        fixes the block shape, None keeps raster order.
+
+        ``fuse_bounce``, ``shadow_cull``, ``retile`` (None:
+        :func:`retile_default`) and ``narrow`` pass to
+        :func:`rt_rs_tpu_torch.ops.shade.trace_tiled`; like ``block``
+        they change the work, never the frame, and default as in the
+        JAX package.
 
         ``force_rows`` overrides the handler's ``rows_default`` (None:
         the kernel-emitted-rows branch for resident tables, the gather
@@ -91,12 +110,19 @@ class Renderer:
         self.scene = scene
         self.device = torch.device(device)
         self.force_rows = force_rows
+        self.fuse_bounce = fuse_bounce
+        self.shadow_cull = shadow_cull
+        self.retile = retile
+        self.narrow = narrow
         self.config = config or Config()
         if isinstance(handler, IntrsHandler):
             self.handler = handler
         else:
             self.handler = get_handler(handler, **(handler_kwargs or {}))
-        self.block = self.config.resolution.block(self.handler.block_lanes)
+        if block == "auto":
+            self.block = self.config.resolution.block(self.handler.block_lanes)
+        else:
+            self.block = block
         self.width, self.height = (
             size if size is not None else self.config.resolution.size()
         )
@@ -215,6 +241,14 @@ class Renderer:
             block=self.block,
             intersect_rows_fn=rows_fn,
             intersect_anyhit_fn=anyhit_fn,
+            fuse_bounce=self.fuse_bounce,
+            shadow_cull=self.shadow_cull,
+            retile=(
+                retile_default(self.width * self.height)
+                if self.retile is None
+                else self.retile
+            ),
+            narrow=self.narrow,
         )
         if block:
             device_sync(out)

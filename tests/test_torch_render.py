@@ -135,16 +135,14 @@ def test_unported_paths_raise():
     neg.prim_material[0] = -1
     with pytest.raises(NotImplementedError, match="item 9"):
         Renderer(neg, config=_config(16, 16), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        shade.trace_tiled(
+            neg.pack(device="cpu"), None, ComputeConfig(), torch.zeros(8, 32, 256),
+            torch.zeros(32, 256, dtype=torch.bool), torch.zeros(3),
+        )
     r = Renderer(random_soup(2, 10), config=_config(16, 16), device="cpu")
-    intersect_fn, rows_fn, anyhit_fn = r._bound(r.handler)
-    for knob in ({"fuse_bounce": True}, {"retile": True}, {"narrow": 128}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            shade.render_tiled(
-                r.arrays, intersect_fn, r.config.compute,
-                torch.tensor([0.0, 2.0, -20.0]), torch.zeros(3), 16, 16, 256,
-                block=r.block, intersect_rows_fn=rows_fn,
-                intersect_anyhit_fn=anyhit_fn, **knob,
-            )
+    with pytest.raises(NotImplementedError, match="item 12"):
+        r.animate(2, chain=2)
 
 
 def test_camera_at_pos_warns():
