@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Four frame paths are driven, each through ``Renderer(...,
-handler="pbvh", device="cuda")``:
+Six paths are driven, the frame paths through ``Renderer(...,
+device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
   kernel-emitted rows and any-hit shadows;
@@ -20,7 +20,17 @@ handler="pbvh", device="cuda")``:
   (``fuse_bounce=True``) and early exit (``handler_kwargs={"early_exit":
   True}``) on ``torus_scene`` and ``torus_row(2)``, early exit on the
   segmented canyon, and the glue-only knobs (``retile``, ``narrow``,
-  ``shadow_cull=False``, ``cull_block``, ``refine="all"``).
+  ``shadow_cull=False``, ``cull_block``, ``refine="all"``);
+* ``flat``: the XLA reference path (``shade.render`` through pbvh's flat
+  entry, shading in torch) that scenes with a real ``material = -1``
+  prim take: ``torus_ghost()`` (6,326 triangles) and ``ghost_scene``;
+  the ``blank`` handler (every ray misses) and the ``naive`` one (brute
+  force) on ``torus_scene``;
+* ``probes``: the JAX package's kernel probes (experiments/roofline.py,
+  mxu_mt.py, tpose_table.py) as ``rt_rs_tpu_torch.experiments``: the
+  practical f32 rate, the matrix-product and transposed-table closest
+  hits on ``torus_scene``'s 1080p primaries, and the canyon rendered
+  through the transposed table.
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -34,13 +44,19 @@ exits nonzero without printing a result):
    plain-PyTorch twin: the ``torus_scene`` frame at 384x288, default
    and with the knobs path's knobs, and the ``torus_canyon()`` frame at
    640x480 with segmented tables, with ``"dma"`` and segmented with
-   early exit.  Intersection and refine outputs (t, pid, rows, blocked,
+   early exit, the flat path's ``torus_ghost()`` frames at 384x288 and
+   1920x1080, and the canyon through the transposed table at 640x480
+   (every mt_tpose call).  Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal; shading
    outputs within 4 ULP (the twins use torch's rsqrt / pow, whose CUDA
    builds may round differently from the kernels' rsqrtf / powf).  Each
    segmented call's (t, pid) must equal one flat call on
    ``flatten_segments`` of its table, and each streamed call's the flat
-   closest hit under the same cull, on valid rays.
+   closest hit under the same cull, on valid rays.  The probes' kernels
+   at the JAX mains' sizes: fma_peak (separate bit-equal, fused within
+   rtol 1e-6), mt_tpose (tc 64 and 128) bit-equal to its twin and to
+   mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to its
+   twin, [high] and [default] within ``mxu_mt.TF32_BOUNDS`` of highest.
 4. Paths.  Launch counters are reset right before each path and read
    right after it; every kernel of the path must have launched.
    torus: the 96x72 frame against the JAX package's stored frame
@@ -59,7 +75,19 @@ exits nonzero without printing a result):
    frames; every other knob frame bit-equal to the default path's frame
    of the same scene and size (torus 384x288 and 1080p, then orbits of
    60 and 12 frames; the canyon at 640x480; a camera with pos == at);
-   early exit's sort of NaN keys equal on the card and the CPU.
+   early exit's sort of NaN keys equal on the card and the CPU.  flat:
+   the glue's rsqrt bit-equal to IEEE ``1 / sqrt``; ``torus_ghost()`` at 96x72 and ``ghost_scene(-1)`` / ``(1)`` at
+   64x48 against the JAX package's stored frames
+   (tests/data/torch_port_torus_ghost_96x72.npz,
+   torch_port_ghost_64x48.npz; atol 2e-5), ``torus_ghost()`` orbits
+   (384x288, 1080p), a black ``blank`` orbit at 384x288, one timed
+   ``naive`` frame at 384x288 with its distance from the pbvh frame.
+   probes: ``practical_peak`` fused and separate; the mxu (three
+   precisions) and tpose (tc 64, 128; bit-equal to it) closest hits
+   against ``packet_closest_hit`` on the same rays, 20 calls each; the
+   canyon at 640x480 through ``shade.render`` with the tc = 64
+   transposed table, an orbit, and its first frame within atol 2e-5 of
+   the segmented Renderer's on all but TPOSE_FAR_SHARE of the values.
 5. The knob A/Bs (experiments/early_exit_ab.py's protocol: the knob
    off and on in interleaved turns): early exit on torus 1080p and
    canyon segmented 640x480 orbits, with the closest-hit list entries of
@@ -70,10 +98,13 @@ exits nonzero without printing a result):
    384x288 torus frame's shapes, the 640x480 canyon frame's and the
    torus 1080p early-exit frame's primary call; early-exit calls also
    as the default call over the same lists, the fused shading call also
-   as shade_post + shade_pre.
+   as shade_post + shade_pre; the probes' kernels at the compare
+   phase's calls.  Each f32 kernel's bound also at the measured
+   separate-FMA rate.
 7. Where the time goes: torch.profiler over canyon frames (default and
    early exit) and torus 1080p frames (default and knobs), device time
-   by kernel kind and the device's idle share.
+   by kernel kind and the device's idle share, and over flat
+   ``torus_ghost()`` 1080p frames.
 
 The second-to-last lines are JSON objects of frame times (with the
 A/B) and of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
@@ -98,6 +129,8 @@ DEVICE = "cuda"
 TORUS_FRAME = ROOT / "tests" / "data" / "torch_port_torus_96x72.npz"
 ROW2_FRAME = ROOT / "tests" / "data" / "torch_port_torus_row2_96x72.npz"
 BAND_FRAME = ROOT / "tests" / "data" / "torch_port_gather_band_32x16.npz"
+GHOST_FRAMES = ROOT / "tests" / "data" / "torch_port_ghost_64x48.npz"
+TORUS_GHOST_FRAME = ROOT / "tests" / "data" / "torch_port_torus_ghost_96x72.npz"
 # The bound the JAX package holds between its own two frame paths
 # (tests/test_shade_tiled.py).  The stored frames were rendered with
 # XLA:CPU held to SSE4.2, so no FMA contraction (see
@@ -111,7 +144,15 @@ SIZES = {
     "torus": {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)},
     "segmented": {"640x480": (640, 480, 30), "1920x1080": (1920, 1080, 12)},
     "dma": {"640x480": (640, 480, 30)},
+    "flat": {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)},
 }
+# the probes' rays: torus_scene's primaries at this size (the JAX mains')
+PROBE_SIZE = (1920, 1080)
+# the transposed-table frame: torus_canyon() through shade.render
+TPOSE_FRAME = (640, 480, 20)
+# share of its values allowed beyond REF_ATOL from the segmented
+# Renderer's frame (one flipped hit in 640x480 is 3 of 921,600 values)
+TPOSE_FAR_SHARE = 1e-4
 # (label, path, kept renderer, orbit steps) profiled in phase 7
 PROFILE = (
     ("canyon segmented 640x480", "segmented", "640x480", 3),
@@ -120,6 +161,7 @@ PROFILE = (
     ("canyon segmented early_exit 640x480", "knobs", "canyon 640x480", 3),
     ("torus 1920x1080", "torus", "1920x1080", 3),
     ("knobs torus 1920x1080", "knobs", "1920x1080", 3),
+    ("torus_ghost flat 1920x1080", "flat", "1920x1080", 3),
 )
 
 # name -> (source, the TPU kernel it replaces)
@@ -164,7 +206,14 @@ KERNELS = {
         "rt_rs_tpu_torch/csrc/shade_bounce.cu",
         "rt_rs_tpu/ops/pallas/shade_tile.py:352",
     ),
+    "fma_peak[fused]": ("rt_rs_tpu_torch/csrc/fma_peak.cu", "experiments/roofline.py:66"),
+    "fma_peak[separate]": ("rt_rs_tpu_torch/csrc/fma_peak.cu", "experiments/roofline.py:66"),
+    "mt_tpose": ("rt_rs_tpu_torch/csrc/mt_tpose.cu", "experiments/tpose_table.py:54"),
+    "mt_mxu[highest]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
+    "mt_mxu[high]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
+    "mt_mxu[default]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
 }
+PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith(("fma_peak", "mt_tpose", "mt_mxu")))
 # path -> the kernels it must launch
 PATHS = {
     "torus": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
@@ -174,6 +223,9 @@ PATHS = {
         "refine_cull", "mt_trace[rows,early_exit]", "mt_trace[anyhit]",
         "mt_trace[closest,early_exit]", "shade_bounce",
     ),
+    # shade.render through pbvh's flat entry: shading is torch glue
+    "flat": ("mt_trace[closest]",),
+    "probes": PROBE_KERNELS,
 }
 # The knobs path's torus and segmented frames: the fused bounce kernel
 # and early exit (Renderer kwargs, handler kwargs).
@@ -192,8 +244,10 @@ GLUE_KNOBS = {
 AB_ORDER = (False, True, True, False, False, True)
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
-# f32 outside the tensor cores, and HBM3 bandwidth.
+# f32 outside the tensor cores, dense TF32 on the tensor cores, and HBM3
+# bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -325,6 +379,7 @@ class Recorder:
     (the frame path calls them through these module attributes)."""
 
     def __init__(self):
+        from rt_rs_tpu_torch.experiments import tpose_table
         from rt_rs_tpu_torch.ops import packet_stream, packet_trace, shade_tile
 
         self.targets = [
@@ -336,6 +391,7 @@ class Recorder:
             (shade_tile, "shade_pre"),
             (shade_tile, "shade_post"),
             (shade_tile, "shade_bounce"),
+            (tpose_table, "mt_tpose"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -358,16 +414,19 @@ class Recorder:
             setattr(mod, name, fn)
 
 
-def renderer(width: int, height: int, scene=None, knobs=None, **handler_kwargs):
-    """A pbvh Renderer of ``scene`` (default ``torus_scene()``) with the
-    Renderer kwargs ``knobs`` and the handler kwargs given."""
+def renderer(
+    width: int, height: int, scene=None, knobs=None, handler="pbvh", **handler_kwargs
+):
+    """A Renderer of ``scene`` (default ``torus_scene()``) through
+    ``handler`` with the Renderer kwargs ``knobs`` and the handler kwargs
+    given."""
     from rt_rs_tpu_torch import Config, Renderer, Resolution
     from rt_rs_tpu_torch.scene.presets import torus_scene
 
     return Renderer(
         torus_scene() if scene is None else scene,
         config=Config(resolution=Resolution.sized(width, height)),
-        handler="pbvh",
+        handler=handler,
         handler_kwargs=handler_kwargs or None,
         device=DEVICE,
         **(knobs or {}),
@@ -380,8 +439,45 @@ def canyon(width: int, height: int, mode: str, **handler_kwargs):
     return renderer(width, height, torus_canyon(), streaming_mode=mode, **handler_kwargs)
 
 
+class TposeCanyon:
+    """tpose_table.py's 50K-triangle frame: ``torus_canyon()``'s
+    leaf-ordered arrays in one transposed tc = 64 table, rendered through
+    ``shade.render`` with ``packet_closest_hit_t``; ``render_frame`` and
+    ``orbit`` as a Renderer's.  ``seg`` is the segmented Renderer of the
+    same scene and camera."""
+
+    def __init__(self, width: int, height: int):
+        from functools import partial
+
+        from rt_rs_tpu_torch.experiments import tpose_table
+
+        self.seg = r = canyon(width, height, "segmented")
+        self.width, self.height, self.camera = width, height, r.camera
+        self.tables = tpose_table.build_tri_chunks_t(
+            r.arrays.pa, r.arrays.pb, r.arrays.pc, tri_chunk=64, device=DEVICE
+        )
+        cfg = r.config.compute
+        self.fn = partial(
+            tpose_table.packet_closest_hit_t, self.tables, t_min=cfg.t_min, t_max=cfg.t_max,
+            eps=cfg.eps,
+        )
+
+    def render_frame(self, block: bool = True):
+        from rt_rs_tpu_torch.ops import shade
+
+        r, c = self.seg, self.camera
+        return shade.render(
+            r.arrays, self.fn, r.config.compute, r._camera_tensor(c.pos), r._camera_tensor(c.at),
+            self.width, self.height, block=(16, 16),
+        )
+
+    def orbit(self, mult: float) -> None:
+        self.camera = self.camera.orbited(mult)
+
+
 def replay(label: str, calls, errs: dict, ulps: dict) -> None:
     """Every recorded kernel call through kernel and twin."""
+    from rt_rs_tpu_torch.experiments import tpose_table as tp
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -396,6 +492,9 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         name = pt.mt_name(kw["mode"], bind(pt.mt_trace_reference, a, kw)["ed"] is not None)
         kern, twin = pt.mt_trace(*a, **kw), pt.mt_trace_reference(*a, **kw)
         errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
+    for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
+        kern, twin = tp.mt_tpose(*a, **kw), tp.mt_tpose_reference(*a, **kw)
+        errs["mt_tpose"] = max(errs["mt_tpose"], check_equal(f"{label} mt_tpose#{i}", kern, twin))
     for i, (a, kw, _) in enumerate(calls["mt_stream"]):
         kern, twin = ps.mt_stream(*a, **kw), ps.mt_stream_reference(*a, **kw)
         errs["mt_stream"] = max(
@@ -457,12 +556,14 @@ def check_against_flat(label: str, calls) -> tuple[int, int]:
 
 def phase_compare():
     """Every kernel call of one torus frame (384x288), default and with
-    the knobs path's fused bounce kernel and early exit, and of one
-    canyon frame (640x480) per canyon mode and with early exit, kernel vs
-    twin."""
+    the knobs path's fused bounce kernel and early exit, of one canyon
+    frame (640x480) per canyon mode and with early exit, of the flat
+    path's ``torus_ghost()`` frames (384x288, 1080p) and of the
+    transposed-table canyon frame (640x480), kernel vs twin."""
     import torch
 
     from rt_rs_tpu_torch.ops import packet_trace as pt
+    from rt_rs_tpu_torch.scene.presets import torus_ghost
 
     errs = {name: 0.0 for name in KERNELS}
     ulps: dict[str, int] = {}
@@ -473,6 +574,9 @@ def phase_compare():
         "canyon dma": lambda: canyon(*CANYON_REPLAY, "dma"),
         "torus knobs": lambda: renderer(*TORUS_REPLAY, knobs=KNOBS[0], **KNOBS[1]),
         "canyon early_exit": lambda: canyon(*CANYON_REPLAY, "segmented", early_exit=True),
+        "flat torus_ghost": lambda: renderer(*TORUS_REPLAY, torus_ghost()),
+        "flat torus_ghost 1080p": lambda: renderer(*PROBE_SIZE, torus_ghost()),
+        "tpose canyon": lambda: TposeCanyon(*TPOSE_FRAME[:2]),
     }
     for label, make in cases.items():
         r = make()
@@ -500,12 +604,104 @@ def phase_compare():
         )
         say(
             f"[compare] {label} {r.width}x{r.height} frame calls {n}, mt modes "
-            f"{modes}: intersection + refine bit-equal, shading max ULP {ulps}; "
+            f"{modes}: intersection, refine and mt_tpose bit-equal, shading max ULP {ulps}; "
             f"{n_seg} segmented and {n_stream} streamed calls equal the flat "
             f"call; replay {time.perf_counter() - t0:.1f} s"
         )
         recorded[label] = calls
+    recorded["probes"] = compare_probes(errs)
     return errs, recorded
+
+
+def compare_probes(errs: dict) -> dict:
+    """The probes' kernels against their twins on the card, at the JAX
+    mains' sizes: fma_peak (iters 4096, grid 256; separate bit-equal,
+    fused within rtol 1e-6), mt_tpose on the chunk lists of torus_scene's
+    1080p primaries at tc 64 and 128 (bit-equal to its twin and to
+    mt_trace[closest] on the same lists and tc), mt_mxu[highest]
+    (bit-equal to its twin) and mt_mxu[high] / [default] (against
+    highest: pid agreement and t error within mxu_mt.TF32_BOUNDS).  ->
+    name -> (kernel, twin, args, kwargs) of one call each, for the
+    kernel times."""
+    import torch
+
+    from rt_rs_tpu_torch.experiments import mxu_mt, roofline, tpose_table
+    from rt_rs_tpu_torch.experiments.probe_rays import probe_rays
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    calls = {}
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(
+        (roofline.GRID * roofline.CHAINS * roofline.ROWS, roofline.COLS), generator=g
+    ).add_(0.5).to(DEVICE)
+    for fused in (True, False):
+        name = "fma_peak[fused]" if fused else "fma_peak[separate]"
+        kern = roofline.fma_chains(x, roofline.ITERS, fused)
+        twin = roofline.fma_chains_reference(x, roofline.ITERS, fused)
+        if fused:
+            rel = float(((kern - twin).abs() / twin.abs()).max())
+            if not rel <= 1e-6:
+                raise AssertionError(f"{name}: kernel vs twin rtol {rel}")
+            errs[name] = max_abs(kern, twin)
+            extra = f"within rtol {rel:.3g}"
+        else:
+            errs[name] = check_equal(name, kern, twin)
+            extra = "bit-equal"
+        calls[name] = (roofline.fma_chains, roofline.fma_chains_reference, (x, roofline.ITERS, fused), {})
+        say(f"[compare] {name} at iters {roofline.ITERS}, grid {roofline.GRID}: {extra}")
+
+    p = probe_inputs()
+    win, eps = p["win"], p["eps"]
+    kw = dict(eps=eps, **win)
+    o, d, excl = p["rays"][(16, 16)]
+    for tc in (64, 128):
+        tables = tpose_table.build_tri_chunks_t(*p["corners"], tri_chunk=tc, device=DEVICE)
+        s = probe_rays(o, d, excl, None, None, tables.bmin, tables.bmax, ray_tile=256, **win)
+        args = (tables.comp, s.rays, s.ids, s.counts)
+        kern = tpose_table.mt_tpose(*args, **kw)
+        errs["mt_tpose"] = max(
+            errs["mt_tpose"],
+            check_equal(f"mt_tpose tc={tc}", kern, tpose_table.mt_tpose_reference(*args, **kw)),
+        )
+        payload = s.rays.permute(1, 0, 2).contiguous()
+        b = pt.mt_trace(p["chunks"][tc].comp, payload, s.ids, s.counts, mode="closest", **kw)
+        check_equal(f"mt_tpose tc={tc} vs mt_trace[closest]", kern, b)
+        if tc == 64:
+            calls["mt_tpose"] = (tpose_table.mt_tpose, tpose_table.mt_tpose_reference, args, kw)
+        say(
+            f"[compare] mt_tpose tc={tc} on the 1080p primaries' lists "
+            f"({int(s.counts.sum())} entries): bit-equal to its twin and to mt_trace[closest]"
+        )
+    o, d, excl = p["rays"][(8, 16)]
+    chunks = p["chunks"][64]
+    table = mxu_mt.build_mxu_table(chunks)
+    s = probe_rays(o, d, excl, None, None, chunks.bmin, chunks.bmax, ray_tile=mxu_mt.TC_RAYS, **win)
+    args = (table, s.rays, s.ids, s.counts)
+    n = s.n
+    best = mxu_mt.mt_mxu(*args, precision="highest", **kw)
+    errs["mt_mxu[highest]"] = check_equal(
+        "mt_mxu[highest]", best, mxu_mt.mt_mxu_reference(*args, precision="highest", **kw)
+    )
+    t_ref, pid_ref = (x.reshape(-1)[:n] for x in best)
+    line = f"[compare] mt_mxu on the 1080p primaries' lists ({int(s.counts.sum())} entries): highest bit-equal to its twin"
+    for precision in mxu_mt.PRECISIONS:
+        name = f"mt_mxu[{precision}]"
+        calls[name] = (mxu_mt.mt_mxu, mxu_mt.mt_mxu_reference, args, dict(precision=precision, **kw))
+        if precision == "highest":
+            continue
+        t, pid = (x.reshape(-1)[:n] for x in mxu_mt.mt_mxu(*args, precision=precision, **kw))
+        match, rel = mxu_mt.tf32_agreement(t, pid, t_ref, pid_ref)
+        least, most = mxu_mt.TF32_BOUNDS[precision]
+        if not (match >= least and rel <= most):
+            raise AssertionError(f"{name} vs highest: pid agreement {match}, t rel err {rel}")
+        same = pid == pid_ref
+        errs[name] = max_abs(t[same], t_ref[same])
+        line += (
+            f"; {precision}: pid agreement {match:.6f} (least {least}), t rel err max "
+            f"{rel:.3e} (most {most})"
+        )
+    say(line)
+    return calls
 
 
 def reset_counts() -> None:
@@ -520,7 +716,9 @@ def read_counts() -> dict[str, int]:
     return {name: cuda.LAUNCHES[name] for name in KERNELS}
 
 
-def check_frame(name: str, frame, width: int, height: int) -> None:
+def check_frame(name: str, frame, width: int, height: int, black: bool = False) -> None:
+    """Finite, of the frame's shape, and lit (``black``: every value 0,
+    the blank handler's frame)."""
     import torch
 
     if tuple(frame.shape) != (height, width, 3):
@@ -528,15 +726,17 @@ def check_frame(name: str, frame, width: int, height: int) -> None:
     if not bool(torch.isfinite(frame).all()):
         raise AssertionError(f"{name}: non-finite values")
     mean = float(frame.mean())
-    if not mean > 0.01:
+    if black and bool(frame.any()):
+        raise AssertionError(f"{name}: not black (mean {mean})")
+    if not black and not mean > 0.01:
         raise AssertionError(f"{name}: black frame (mean {mean})")
     say(f"[frame] {name}: finite, mean {mean:.6f}, max {float(frame.max()):.6f}")
 
 
-def check_stored(name: str, r, path: pathlib.Path) -> None:
+def check_stored(name: str, r, path: pathlib.Path, key: str = "frame") -> None:
     import numpy as np
 
-    ref = np.load(path)["frame"]
+    ref = np.load(path)[key]
     frame = r.render_frame().cpu().numpy()
     err = float(np.abs(frame - ref).max())
     if not err <= REF_ATOL:
@@ -548,9 +748,9 @@ def gather_band() -> None:
     """The gather branch on one table: ``gather_band_torus()`` at 32x16,
     finite and not black.  Its distance from the JAX package's stored
     frame and from the port's own CPU frame is printed, not held: one
-    pixel of this frame flips under last-place changes of the glue's
-    rounding (see PERF.md); the gather branch is held to a stored frame
-    by ``torus_row(2)`` above."""
+    pixel flips on the card from shade_pre's ``rsqrtf`` (ROADMAP §3,
+    localised by ``python3 -m rt_rs_tpu_torch.experiments.band_divergence``);
+    the gather branch is held to a stored frame by ``torus_row(2)``."""
     import numpy as np
 
     global DEVICE
@@ -577,7 +777,7 @@ def gather_band() -> None:
         )
 
 
-def orbit_ms(name: str, r, frames: int, card: str) -> float:
+def orbit_ms(name: str, r, frames: int, card: str, black: bool = False) -> float:
     """A full orbit in ``frames`` steps -> ms/frame (CUDA events)."""
     import torch
 
@@ -592,7 +792,7 @@ def orbit_ms(name: str, r, frames: int, card: str) -> float:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / frames * 1e3
     ms = start.elapsed_time(end) / frames
-    check_frame(f"{name} orbit end", out, r.width, r.height)
+    check_frame(f"{name} orbit end", out, r.width, r.height, black)
     say(
         f"[orbit] {name}: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms "
         f"host, {frames} frames; {card}"
@@ -695,6 +895,183 @@ def check_nan_sort() -> None:
     say(f"[compare] early-exit sort with NaN keys: card = CPU = NumPy {ref[0].tolist()}")
 
 
+def drive_flat(card: str, first: dict) -> tuple[dict, dict]:
+    """The flat path: the glue's rsqrt bit-equal to IEEE ``1 / sqrt``;
+    ``shade.render`` through pbvh's flat entry on the negative-material
+    scenes (``torus_ghost()`` at 96x72 and both
+    ``ghost_scene`` frames at 64x48 against the JAX package's stored
+    frames; ``torus_ghost()`` orbits at 384x288 and 1080p), a ``blank``
+    orbit of ``torus_scene`` at 384x288 (every ray misses: the frame
+    pipeline alone), and one timed ``naive`` (brute force) frame of
+    ``torus_scene`` at 384x288, with its distance from the torus path's
+    pbvh frame of the same camera."""
+    import numpy as np
+    import torch
+
+    from rt_rs_tpu_torch.ops import shade
+    from rt_rs_tpu_torch.scene.presets import ghost_scene, torus_ghost
+
+    # The glue's rsqrt: 1 / sqrt with each op correctly rounded, as on
+    # the CPU (tests/test_torch_flat.py), so its rays are the CPU's bits.
+    x = (np.random.default_rng(0).random(1 << 22) * 100.0 + 1e-3).astype(np.float32)
+    got = shade._rsqrt(torch.from_numpy(x).to(DEVICE)).cpu().numpy()
+    n = int((got != np.float32(1.0) / np.sqrt(x)).sum())
+    if n:
+        raise AssertionError(f"shade._rsqrt on the card: {n} values != IEEE 1 / sqrt")
+    say(f"[compare] the flat glue's rsqrt on the card: IEEE 1 / sqrt bit for bit on {x.size} values")
+    check_stored("torus_ghost 96x72", renderer(96, 72, torus_ghost()), TORUS_GHOST_FRAME)
+    for m in (-1, 1):
+        check_stored(
+            f"ghost_scene({m}) 64x48", renderer(64, 48, ghost_scene(m)), GHOST_FRAMES,
+            key=f"material_{m}",
+        )
+    frame_ms, kept = {}, {}
+    for size, (w, h, frames) in SIZES["flat"].items():
+        r = renderer(w, h, torus_ghost())
+        name = f"torus_ghost {size}"
+        check_frame(name, r.render_frame(), w, h)
+        frame_ms[name] = orbit_ms(name, r, frames, card)
+        kept[size] = r
+    size = "384x288"
+    w, h, frames = SIZES["torus"][size]
+    r = renderer(w, h, handler="blank")
+    check_frame(f"blank torus {w}x{h}", r.render_frame(), w, h, black=True)
+    frame_ms[f"blank torus {w}x{h}"] = orbit_ms(f"blank torus {w}x{h}", r, frames, card, black=True)
+    r = renderer(w, h, handler="naive")
+    r.render_frame()  # warm-up
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    f = r.render_frame(block=False)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    frame_ms[f"naive torus {w}x{h}"] = ms
+    check_frame(f"naive torus {w}x{h}", f, w, h)
+    d = (f - first["torus"][size]).abs().cpu().numpy()
+    say(
+        f"[frame] naive torus {w}x{h}: {ms:.3f} ms (one frame, CUDA events); vs the "
+        f"pbvh frame: max abs {d.max():.3g}, {int((d > REF_ATOL).sum())} of {d.size} "
+        f"values beyond {REF_ATOL}; {card}"
+    )
+    return frame_ms, kept
+
+
+def probe_inputs():
+    """torus_scene's 1080p primaries (the probes' JAX mains' rays, in
+    8x16 and 16x16 pixel blocks: (o, d, excl) each) and its pbvh tables:
+    the leaf-ordered arrays, the 64-triangle chunk table and a
+    128-triangle one."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+    from rt_rs_tpu_torch.ops import shade
+
+    r = renderer(*PROBE_SIZE)
+    pos, at = r._camera_tensor(r.camera.pos), r._camera_tensor(r.camera.at)
+    arrays = r.arrays
+    corners = [x.cpu().numpy() for x in (arrays.pa, arrays.pb, arrays.pc)]
+    rays = {}
+    for blk in ((8, 16), (16, 16)):
+        o, d = shade.camera_rays(pos, at, *PROBE_SIZE, block=blk)
+        rays[blk] = (o, d, torch.zeros((o.shape[0],), dtype=torch.int32, device=DEVICE))
+    return dict(
+        r=r, arrays=arrays, corners=corners, rays=rays,
+        chunks={
+            64: r.accel,
+            128: pt.build_tri_chunks(*corners, max_chunks=None, tri_chunk=128, device=DEVICE),
+        },
+        win=dict(t_min=r.config.compute.t_min, t_max=r.config.compute.t_max),
+        eps=r.config.compute.eps,
+    )
+
+
+def drive_probes(card: str, first: dict) -> tuple[dict, dict]:
+    """The probes' path (the JAX mains of experiments/roofline.py,
+    mxu_mt.py and tpose_table.py): the practical f32 rate, fused and
+    separate; ``packet_closest_hit_mxu`` at the three precisions and
+    ``packet_closest_hit_t`` (tc 64 and 128) on torus_scene's 1080p
+    primaries, each timed against ``packet_closest_hit`` on the same
+    rays (20 calls, CUDA events); the canyon (``torus_canyon()``, one
+    transposed tc = 64 table) rendered at 640x480 through
+    ``shade.render`` with ``packet_closest_hit_t`` over an orbit, and
+    held against the segmented Renderer's frame of the same camera."""
+    from functools import partial
+
+    import torch
+
+    from rt_rs_tpu_torch.experiments import mxu_mt, roofline, tpose_table
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+    from rt_rs_tpu_torch.ops import shade
+
+    rates = {}
+    for fused in (True, False):
+        kind = "fused" if fused else "separate"
+        rates[kind] = roofline.practical_peak(DEVICE, fused=fused)
+        say(
+            f"[peak] practical f32 rate, {kind} ({roofline.CHAINS} FMA chains per element, "
+            f"iters {roofline.ITERS}, grid {roofline.GRID}): {rates[kind] / 1e12:.3f} TFLOP/s; {card}"
+        )
+    p = probe_inputs()
+    win, eps = p["win"], p["eps"]
+    call_ms = {}
+    o, d, excl = p["rays"][(8, 16)]
+    vpu = partial(pt.packet_closest_hit, p["chunks"][64], eps=eps, **win)
+    t0, id0 = vpu(o, d, excl)
+    call_ms["packet_closest_hit r128"] = time_ms(lambda: vpu(o, d, excl), 20)
+    table = mxu_mt.build_mxu_table(p["chunks"][64])
+    for precision in mxu_mt.PRECISIONS:
+        mxu = partial(
+            mxu_mt.packet_closest_hit_mxu, p["chunks"][64], table, eps=eps, precision=precision, **win
+        )
+        t1, id1 = mxu(o, d, excl)
+        match, rel = mxu_mt.tf32_agreement(t1, id1, t0, id0)
+        call_ms[f"mxu[{precision}]"] = time_ms(lambda: mxu(o, d, excl), 20)
+        say(
+            f"[probe] mxu[{precision}] 1080p primaries: {call_ms[f'mxu[{precision}]']:.3f} ms "
+            f"against packet_closest_hit {call_ms['packet_closest_hit r128']:.3f} ms (20 calls); "
+            f"pid match {match:.6f}, t rel err max {rel:.3e}; {card}"
+        )
+    o, d, excl = p["rays"][(16, 16)]
+    cur = partial(pt.packet_closest_hit, p["chunks"][64], eps=eps, ray_tile=256, **win)
+    t0, id0 = cur(o, d, excl)
+    call_ms["packet_closest_hit r256"] = time_ms(lambda: cur(o, d, excl), 20)
+    for tc in (64, 128):
+        tables = tpose_table.build_tri_chunks_t(*p["corners"], tri_chunk=tc, device=DEVICE)
+        new = partial(tpose_table.packet_closest_hit_t, tables, eps=eps, ray_tile=256, **win)
+        t1, id1 = new(o, d, excl)
+        if not (torch.equal(t0, t1) and torch.equal(id0, id1)):
+            raise AssertionError(f"tpose tc={tc}: != packet_closest_hit on the 1080p primaries")
+        call_ms[f"tpose[tc{tc}]"] = time_ms(lambda: new(o, d, excl), 20)
+        say(
+            f"[probe] tpose tc={tc} 1080p primaries: {call_ms[f'tpose[tc{tc}]']:.3f} ms against "
+            f"packet_closest_hit {call_ms['packet_closest_hit r256']:.3f} ms (20 calls); t and "
+            f"pid bit-equal; {card}"
+        )
+    frame_ms = {"probe calls": call_ms, "practical_peak_tflops": {k: v / 1e12 for k, v in rates.items()}}
+    frame_ms["tpose canyon 640x480"] = tpose_frame(card)
+    return frame_ms, {"rates": rates, "inputs": p}
+
+
+def tpose_frame(card: str) -> float:
+    """The transposed-table canyon (:class:`TposeCanyon`) at TPOSE_FRAME
+    -> ms/frame over its orbit; its first frame against the segmented
+    Renderer's frame of the same camera."""
+    w, h, frames = TPOSE_FRAME
+    r = TposeCanyon(w, h)
+    seg, mine = r.seg.render_frame(), r.render_frame()
+    check_frame(f"tpose canyon {w}x{h}", mine, w, h)
+    d = (mine - seg).abs()
+    far = int((d > REF_ATOL).sum())
+    say(
+        f"[frame] tpose canyon {w}x{h} ({r.tables.comp.numel() * 4 / 1e6:.2f} MB table) vs the "
+        f"segmented Renderer's frame: max abs {float(d.max()):.3g}, {far} of {d.numel()} values "
+        f"beyond {REF_ATOL}"
+    )
+    if far > TPOSE_FAR_SHARE * d.numel():
+        raise AssertionError(f"tpose canyon frame: {far} values beyond {REF_ATOL}")
+    return orbit_ms(f"tpose canyon {w}x{h}", r, frames, card)
+
+
 def phase_paths(card: str):
     """Each path with the launch counters reset before and read after."""
     import torch
@@ -704,6 +1081,10 @@ def phase_paths(card: str):
         reset_counts()
         if path == "knobs":
             ms, kept[path] = drive_knobs(card, first)
+        elif path == "flat":
+            ms, kept[path] = drive_flat(card, first)
+        elif path == "probes":
+            ms, kept[path] = drive_probes(card, first)
         else:
             ms, first[path], kept[path] = drive_path(path, card)
         counts[path] = read_counts()
@@ -753,6 +1134,17 @@ SLAB_OPS = 12
 HIT_NORMAL_OPS = 77
 PRE_LIGHT_OPS, PRE_NEXT_OPS = 43, 34
 POST_LIGHT_OPS, POST_TAIL_OPS = 41, 9
+# mt_mxu per (ray, triangle): the product, one multiply and one add per
+# feature for each of det, u, v and wnum, and the epilogue's sign fold 2
+# and su + sv 1.  On the CUDA cores ("highest") the product needs only
+# the features the table can make non-zero (d, o, o x d, one: 10 of 16);
+# the tensor cores' k8 steps take all 16 (3xTF32: three products).
+MXU_FEATURES = {"highest": 10, "high": 16, "default": 16}
+MXU_EPILOGUE_OPS = 3
+
+
+def mxu_product_ops(precision: str) -> int:
+    return 2 * MXU_FEATURES[precision] * 4
 
 
 def _bytes(*tensors) -> int:
@@ -792,10 +1184,31 @@ def anyhit_pairs(b: dict) -> int:
 
 
 def bound(name: str, a, kw) -> tuple[float, str]:
-    """-> (bound ms, "bytes" or "operations") for one recorded call."""
+    """-> (bound ms, "bytes" or "operations") for one recorded call.
+    fma_peak[separate] executes a multiply and an add for each
+    multiply-add, so its f32 operations run at half the FFMA peak;
+    mt_mxu[high] / [default] add their tensor-core products at the TF32
+    peak."""
     ops, nbytes = work(name, a, kw)
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    if name == "fma_peak[separate]":
+        t_ops *= 2.0
+    if name in ("mt_mxu[high]", "mt_mxu[default]"):
+        t_ops += tf32_ops(name, a, kw) / PEAK_TF32_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mxu_pairs(a) -> int:
+    """(ray, triangle) pairs of an mt_mxu call: its list entries x tc x r."""
+    table, rays, _, counts = a
+    return int(counts.sum()) * (table.shape[2] // 4) * rays.shape[2]
+
+
+def tf32_ops(name: str, a, kw) -> int:
+    """The tensor-core product's operations of an mt_mxu[high] /
+    [default] call (3xTF32: three products)."""
+    precision = kw["precision"]
+    return mxu_pairs(a) * mxu_product_ops(precision) * (3 if precision == "high" else 1)
 
 
 def bounce_halves(a, kw):
@@ -820,6 +1233,26 @@ def work(name: str, a, kw) -> tuple[int, int]:
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
+    if name.startswith("fma_peak"):
+        from rt_rs_tpu_torch.experiments import roofline
+
+        x, iters = a[0], a[1]
+        grid = x.shape[0] // (roofline.CHAINS * roofline.ROWS)
+        return int(roofline.peak_flops(iters, grid)), _bytes(x) + x.numel() // roofline.CHAINS * 4
+    if name.startswith(("mt_tpose", "mt_mxu")):
+        # f32 operations; the tables are read as far as their used rows
+        table, rays, _, counts = a
+        entries = int(counts.sum())
+        n_tiles, r = rays.shape[0], rays.shape[2]
+        if name == "mt_tpose":
+            ops = entries * table.shape[2] * r * MT_OPS
+            used = table.numel() * 9 // 16
+        else:
+            ops = mxu_pairs(a) * MXU_EPILOGUE_OPS
+            if kw["precision"] == "highest":
+                ops += mxu_pairs(a) * mxu_product_ops("highest")
+            used = table.numel() * 10 // 16
+        return ops, _bytes(rays, counts) + used * 4 + entries * 4 + n_tiles * r * 8
     if name == "shade_bounce":
         # The union of shade_post's and shade_pre's work: nothing shared.
         (post, post_kw), (pre, pre_kw) = bounce_halves(a, kw)
@@ -960,7 +1393,7 @@ def phase_ab(card: str) -> tuple[dict, dict]:
     return summary, recorded["early_exit torus 1920x1080"]
 
 
-def phase_kernel_times(recorded, torus_1080_ee, card: str) -> dict[str, tuple[float, float, float, str]]:
+def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> dict[str, tuple]:
     """Kernel vs twin vs bound: at the 384x288 torus frame's shapes (the
     primary rows call, bounce 0's shadow batch and its refine cull,
     bounce 0's shading, the knobs frame's first fused shading call),
@@ -969,7 +1402,11 @@ def phase_kernel_times(recorded, torus_1080_ee, card: str) -> dict[str, tuple[fl
     early-exit one), and at the torus 1080p early-exit frame's primary
     call.  Each early-exit call is also timed as the default call over
     the same lists, and the fused shading call as shade_post +
-    shade_pre on the same inputs."""
+    shade_pre on the same inputs.  The probes' kernels at the compare
+    phase's calls (fma_peak at the JAX sizes, mt_tpose and mt_mxu on
+    torus_scene's 1080p primaries).  Each kernel on the CUDA cores' f32
+    path also gets its bound at ``sep_rate``, the measured practical rate
+    of separately rounded multiplies and adds."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -1010,17 +1447,22 @@ def phase_kernel_times(recorded, torus_1080_ee, card: str) -> dict[str, tuple[fl
             st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
         ),
     }
+    for name, (kern, twin, a, kw) in recorded["probes"].items():
+        picks[name] = (kern, twin, (a, kw, None), 1)
     times = {}
     for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
         k_ms = time_ms(lambda: kern(*a, **kw), 50)
         t_ms = time_ms(lambda: twin(*a, **kw), twin_reps)
         b_ms, by = bound(name, a, kw)
-        times[name] = (k_ms, t_ms, b_ms, by)
-        extra = ""
-        if name.startswith("mt_trace"):
+        sep_ms = None
+        if name.startswith(("mt_", "refine_cull")) and name not in ("mt_mxu[high]", "mt_mxu[default]"):
+            sep_ms = work(name, a, kw)[0] / sep_rate * 1e3
+        times[name] = (k_ms, t_ms, b_ms, by, sep_ms)
+        extra = "" if sep_ms is None else f", bound at the separate rate {sep_ms:.4f} ms"
+        if name.startswith(("mt_trace", "mt_tpose", "mt_mxu")):
             # list entries: (tile, chunk) pairs, each tc x r ray-triangle tests
             n = entries((a, kw))
-            extra = f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
+            extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
         if name.endswith("early_exit]"):
             b0 = without_early_exit(a, kw)
             n_t = int(pt.entries_tested(**bind(pt.mt_trace_reference, a, kw)).sum())
@@ -1116,7 +1558,7 @@ def main(full: bool = True) -> None:
         return
     counts, frame_ms, kept = phase_paths(card)
     ab, torus_1080_ee = phase_ab(card)
-    times = phase_kernel_times(recorded, torus_1080_ee, card)
+    times = phase_kernel_times(recorded, torus_1080_ee, kept["probes"]["rates"]["separate"], card)
     phase_profile(kept, card)
     kernels = [
         {
@@ -1131,10 +1573,11 @@ def main(full: bool = True) -> None:
             "plain_ms": times[name][1],
             "bound_ms": times[name][2],
             "bound_by": times[name][3],
+            "bound_ms_at_separate_rate": times[name][4],
             # No single PyTorch call computes these functions (a masked
             # Möller–Trumbore closest hit over per-tile chunk lists, a
             # per-ray slab cull OR-reduced per tile, the fused shading
-            # passes).
+            # passes, 16 chained multiply-adds summed).
             "library_ms": None,
         }
         for name, (src, rep) in KERNELS.items()

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch.experiments.tpose_table import TposeTables
 from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks, TriChunks
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
@@ -97,3 +98,17 @@ def segmented_chunks(src, *, device: str | torch.device) -> SegmentedTriChunks:
     if tuple(bases) != tuple(int(b) for b in src.prim_base):
         raise ValueError(f"prim_base {tuple(src.prim_base)} != chunk offsets {tuple(bases)}")
     return SegmentedTriChunks(segments=tuple(parts), prim_base=tuple(bases))
+
+
+def mxu_table(table, *, device: str | torch.device) -> torch.Tensor:
+    """The JAX probe's ``build_mxu_table`` result ``[Nc, 16, 4 tc]`` ->
+    the port's tensor (the same layout)."""
+    return _tensor(np.asarray(table, dtype=np.float32), device)
+
+
+def tpose_tables(comp, bmin, bmax, num_chunks: int, *, device: str | torch.device) -> TposeTables:
+    """The JAX probe's ``build_tri_chunks_t`` tuple (comp ``[Nc, 16,
+    tc]``, bmin, bmax, nc) -> the port's
+    :class:`~rt_rs_tpu_torch.experiments.tpose_table.TposeTables`."""
+    f32 = lambda a: _tensor(np.asarray(a, dtype=np.float32), device)  # noqa: E731
+    return TposeTables(f32(comp), f32(bmin), f32(bmax), int(num_chunks))

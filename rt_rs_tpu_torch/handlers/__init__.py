@@ -1,8 +1,10 @@
 """Acceleration-backend registry.
 
-Counterpart of ``rt_rs_tpu/handlers/__init__.py``.  Only ``pbvh`` (the
-packet kernels of the frame path) is ported; asking for any other
-handler raises a ``KeyError`` that lists what is available.
+Counterpart of ``rt_rs_tpu/handlers/__init__.py``.  Ported: ``pbvh``
+(the packet kernels of the frame paths), ``naive`` (brute force, the
+cross-check) and ``blank`` (every ray misses, the overhead baseline);
+asking for any other handler raises a ``KeyError`` that lists what is
+available.
 """
 
 from __future__ import annotations
@@ -10,9 +12,11 @@ from __future__ import annotations
 from typing import Any
 
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
+from rt_rs_tpu_torch.handlers.blank import BlankIntrs
+from rt_rs_tpu_torch.handlers.naive import BasicIntrs
 from rt_rs_tpu_torch.handlers.pbvh import PacketBvhIntrs
 
-_REGISTRY = {"pbvh": PacketBvhIntrs}
+_REGISTRY = {"blank": BlankIntrs, "naive": BasicIntrs, "pbvh": PacketBvhIntrs}
 
 
 def get_handler(name: str, **kwargs: Any) -> IntrsHandler:

@@ -3,8 +3,9 @@
 Counterpart of ``rt_rs_tpu/handlers/base.py`` (reference: the
 ``IntrsHandler`` trait, ``src/lib/handlers/mod.rs:52-67``).  A handler
 builds its device tensors from the packed scene (and may permute the
-scene's prims into its leaf order), then hands the frame path the
-intersect callables of the tiled contract of
+scene's prims into its leaf order), then hands the frame paths their
+intersect callables: the flat contract of
+:func:`rt_rs_tpu_torch.ops.shade.trace` and the tiled one of
 :func:`rt_rs_tpu_torch.ops.shade.trace_tiled`.
 """
 
@@ -17,6 +18,7 @@ from typing import Any
 import torch
 
 from rt_rs_tpu_torch.config import ComputeConfig
+from rt_rs_tpu_torch.ops.packet_trace import flat_call
 from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
@@ -94,33 +96,10 @@ class IntrsHandler(abc.ABC):
 
 def tiled_as_flat(tiled_fn, ray_tile: int):
     """A tiled closest-hit entry as an :meth:`IntrsHandler.intersect_fn`
-    (the JAX package's ``packet_closest_hit`` layout): the rays are
-    padded into ``ray_tile``-ray tiles, TILE_GROUP-aligned, and the
-    results cut back to ``N``."""
-    from rt_rs_tpu_torch.ops.packet_trace import TILE_GROUP
+    (the JAX package's ``packet_closest_hit`` layout,
+    :func:`rt_rs_tpu_torch.ops.packet_trace.flat_call`)."""
 
     def flat(o, d, excl, valid=None, *, t_cap=None):
-        n = o.shape[0]
-        t_tiles = max(1, -(-n // ray_tile))
-        t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
-        n_pad = t_tiles * ray_tile
-
-        def tiles(x):  # [N, ...] -> [T, r, ...], zero padded
-            fill = x.new_zeros((n_pad - n, *x.shape[1:]))
-            return torch.cat([x, fill]).reshape(t_tiles, ray_tile, *x.shape[1:])
-
-        if valid is None:
-            valid = torch.ones((n,), dtype=torch.bool, device=o.device)
-        payload = torch.cat(
-            [
-                tiles(o).permute(2, 0, 1),
-                tiles(d).permute(2, 0, 1),
-                tiles(excl)[None].to(torch.float32),
-                o.new_zeros((1, t_tiles, ray_tile)),
-            ]
-        ).contiguous()
-        cap = None if t_cap is None else tiles(t_cap)
-        t, pid = tiled_fn(payload, tiles(valid), cap)
-        return t.reshape(-1)[:n], pid.reshape(-1)[:n]
+        return flat_call(tiled_fn, ray_tile, o, d, excl, valid, t_cap)
 
     return flat

@@ -1014,6 +1014,73 @@ def packet_closest_hit_segmented_tiled(
     return best
 
 
+# ----------------------------------------------------------------------
+# The flat entry: [N]-ray batches in the tiled layout.
+
+
+def ray_tiler(n: int, ray_tile: int):
+    """-> (T, tiles): ``tiles(x)`` zero-pads a flat [N, ...] batch to T
+    tiles of ``ray_tile`` rays, T TILE_GROUP-aligned, as [T, r, ...]."""
+    t_tiles = max(1, -(-n // ray_tile))
+    t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
+
+    def tiles(x):
+        fill = x.new_zeros((t_tiles * ray_tile - n, *x.shape[1:]))
+        return torch.cat([x, fill]).reshape(t_tiles, ray_tile, *x.shape[1:])
+
+    return t_tiles, tiles
+
+
+def flat_call(tiled_fn, ray_tile: int, o, d, excl, valid=None, t_cap=None):
+    """A tiled closest-hit entry ``tiled_fn(payload, valid, t_cap)`` on a
+    flat batch (``o``, ``d`` [N, 3], ``excl`` [N] int, ``valid`` [N]
+    bool or None, ``t_cap`` [N] or None) -> (t [N], pid [N]): the rays
+    are zero-padded into ``ray_tile``-ray tiles, TILE_GROUP-aligned, in
+    the component-major payload (excl as f32 in row 6), and the results
+    cut back to N."""
+    n = o.shape[0]
+    t_tiles, tiles = ray_tiler(n, ray_tile)
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=o.device)
+    payload = torch.cat(
+        [
+            tiles(o).permute(2, 0, 1),
+            tiles(d).permute(2, 0, 1),
+            tiles(excl)[None].to(torch.float32),
+            o.new_zeros((1, t_tiles, ray_tile)),
+        ]
+    ).contiguous()
+    cap = None if t_cap is None else tiles(t_cap)
+    t, pid = tiled_fn(payload, tiles(valid), cap)
+    return t.reshape(-1)[:n], pid.reshape(-1)[:n]
+
+
+def packet_closest_hit(
+    chunks: TriChunks,
+    o: torch.Tensor,  # [N, 3]
+    d: torch.Tensor,  # [N, 3]
+    excl: torch.Tensor,  # [N] int32
+    valid: torch.Tensor | None = None,  # [N] bool
+    t_cap: torch.Tensor | None = None,  # [N] (culling only)
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    cull_block: int = CULL_BLOCK,
+    ray_tile: int = LANES,
+    refine: bool | int = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit of a flat ray batch over the chunk table -> (t [N],
+    pid [N] int32): :func:`packet_closest_hit_tiled` on the rays padded
+    into ``ray_tile``-ray tiles (default 128, the JAX package's).  The
+    result does not depend on the tiling."""
+    tiled = partial(
+        packet_closest_hit_tiled, chunks,
+        t_min=t_min, t_max=t_max, eps=eps, cull_block=cull_block, refine=refine,
+    )
+    return flat_call(tiled, ray_tile, o, d, excl, valid, t_cap)
+
+
 def tag_refine(fn, mode: str):
     """Mark a tiled-entry callable with the refine policy so
     :func:`rt_rs_tpu_torch.ops.shade.trace_tiled` can opt bounce and

@@ -1,13 +1,25 @@
-"""Camera rays and the tiled bounce loop.
+"""Camera rays, the XLA reference bounce loop and the tiled one.
 
-Counterpart of ``rt_rs_tpu/ops/shade.py`` on the pbvh frame path:
-``render_tiled`` -> ``camera_ray_tiles`` + ``trace_tiled``.  Rays live
-as component-major ``[8, T, r]`` tiles end to end (ox, oy, oz, dx, dy,
-dz, excl, cap); each bounce is one or two intersect calls (see
-:func:`trace_tiled`) and the two shading kernels of
-:mod:`rt_rs_tpu_torch.ops.shade_tile`.  The semantics are
-the reference shader's bounce loop (compute.wgsl:219-280; headlight
-first, then the scene lights).
+Counterpart of ``rt_rs_tpu/ops/shade.py``, both of its frame paths:
+
+* the flat path (``render`` -> ``camera_rays`` + ``trace``): rays as
+  ``[N, 3]`` arrays, one fused closest-hit call of (K+1)·N rays per
+  bounce through a handler's flat ``intersect_fn``, shading in plain
+  torch.  It is the reference path of the JAX package, the one that
+  renders scenes with a real ``material = -1`` prim (such a prim blocks
+  camera rays and casts no shadow: the shadow test gathers
+  ``prim_mat``), and the one the ``naive`` and ``blank`` handlers are
+  checked against;
+* the tiled pbvh path (``render_tiled`` -> ``camera_ray_tiles`` +
+  ``trace_tiled``): rays as component-major ``[8, T, r]`` tiles end to
+  end (ox, oy, oz, dx, dy, dz, excl, cap); each bounce is one or two
+  intersect calls (see :func:`trace_tiled`) and the two shading kernels
+  of :mod:`rt_rs_tpu_torch.ops.shade_tile`.
+
+The semantics are the reference shader's bounce loop
+(compute.wgsl:219-280; headlight first, then the scene lights).  Both
+layouts take their primary rays from the same per-component arithmetic,
+so a ray is the same bits in either.
 
 ``trace_tiled``'s emit-rows branch (resident tables) and gather branch
 (segmented and streamed tables, and resident tables too large for the
@@ -30,12 +42,40 @@ from rt_rs_tpu_torch.scene.arrays import SceneArrays
 # fn(payload [8,T,r], valid [T,r], t_cap=None [T,r], **kw)
 #   -> (t [T,r], pid [T,r]) / (t, pid, rows [32,T,r]) / blocked [T,r]
 TiledIntersectFn = Callable[..., object]
+# fn(o [N,3], d [N,3], excl [N] int32, valid [N] bool, *, t_cap=None [N])
+#   -> (t [N], pid [N] int32); outputs are specified for valid rays, and
+#   t_cap (shadow rays: the light distance) only narrows culling.
+IntersectFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum of the componentwise product along the last axis, in
+    component order (x + y) + z."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)``, the square root and the quotient each correctly
+    rounded: XLA:CPU's ``rsqrt`` without FMA contraction (the stored JAX
+    frames), so the glue's rays and normals are the same bits on the
+    card as on the CPU.  Each device reaches it through another torch
+    call: the CPU's ``torch.rsqrt`` rounds so, but its vectorised
+    ``torch.sqrt`` is one ULP off on some values, while CUDA's
+    ``torch.sqrt`` is correctly rounded and its ``torch.rsqrt`` is the
+    approximate ``rsqrtf``."""
+    if x.is_cuda:
+        return _f32(1.0, x.device) / torch.sqrt(x)
+    return torch.rsqrt(x)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     """v / |v| along the last axis, as ``v * rsqrt(sum(v^2))``."""
-    s = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
-    return v * torch.rsqrt(s)[..., None]
+    return v * _rsqrt(_dot(v, v))[..., None]
+
+
+def _reflect(e: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """WGSL ``reflect(e, n) = e - 2 * dot(e, n) * n``."""
+    return e - (2.0 * _dot(e, n))[..., None] * n
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -89,16 +129,21 @@ def _pixel_grid(
     width: int,
     height: int,
     rows: int,
+    y_offset: int,
     block: tuple[int, int] | None,
     device: torch.device,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Normalized pixel coordinates -> (norm_x [N], norm_y [N],
-    n_pixels), in raster order (``block`` None) or pixel-block order.
-    Block padding duplicates clamped border pixels; ``unblock_colors``
-    crops them away."""
+    """Normalized pixel coordinates of image rows ``y_offset ..
+    y_offset + rows`` -> (norm_x [N], norm_y [N], n_pixels), in raster
+    order (``block`` None) or pixel-block order.  Block padding
+    duplicates clamped border pixels; ``unblock_colors`` crops them
+    away."""
     f32 = torch.float32
     xs = torch.arange(width, dtype=f32, device=device) / _f32(width, device) - 0.5
-    ys = torch.arange(rows, dtype=f32, device=device) / _f32(height, device) - 0.5
+    ys = torch.arange(rows, dtype=f32, device=device)
+    if y_offset:
+        ys = ys + _f32(y_offset, device)
+    ys = ys / _f32(height, device) - 0.5
     if block is None:
         return xs.repeat(rows), ys.repeat_interleave(width), rows * width
     rp, wp = padded_block_dims(width, rows, block)
@@ -109,6 +154,52 @@ def _pixel_grid(
     return norm_x, norm_y, rp * wp
 
 
+def _primary_dirs(
+    camera_pos: torch.Tensor, camera_at: torch.Tensor, norm_x, norm_y
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unit primary-ray directions (pinhole, up = +Y,
+    compute.wgsl:103-118) per component, on [N]-shaped pixel
+    coordinates: ``pt - pos``, then ``v * rsqrt(sum v^2)``.  Both ray
+    layouts take their rays from here, so a ray is the same bits in
+    either."""
+    dev = camera_pos.device
+    dir_ = _normalize((camera_at - camera_pos)[None, :])[0]
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    right = _cross(dir_, up)
+    px = right[0] * norm_x + up[0] * norm_y + camera_pos[0] + dir_[0]
+    py = right[1] * norm_x + up[1] * norm_y + camera_pos[1] + dir_[1]
+    pz = right[2] * norm_x + up[2] * norm_y + camera_pos[2] + dir_[2]
+    vx = px - camera_pos[0]
+    vy = py - camera_pos[1]
+    vz = pz - camera_pos[2]
+    rinv = _rsqrt(vx * vx + vy * vy + vz * vz)
+    return vx * rinv, vy * rinv, vz * rinv
+
+
+def camera_rays(
+    camera_pos: torch.Tensor,  # [3]
+    camera_at: torch.Tensor,  # [3]
+    width: int,
+    height: int,
+    y_offset: int = 0,
+    rows: int | None = None,
+    block: tuple[int, int] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Primary rays for every pixel -> (origins [R*W, 3], dirs [R*W, 3]),
+    ray ``y * width + x`` for pixel (x, y) in raster order
+    (compute.wgsl:284-293), or in pixel-block order with ``block=(bh,
+    bw)`` (undo with :func:`unblock_colors`; edges padded with clamped
+    rays).  ``y_offset`` / ``rows`` select a horizontal band of the
+    image; the defaults cover the full frame."""
+    if rows is None:
+        rows = height
+    norm_x, norm_y, _ = _pixel_grid(
+        width, height, rows, y_offset, block, camera_pos.device
+    )
+    d = torch.stack(_primary_dirs(camera_pos, camera_at, norm_x, norm_y), dim=1)
+    return camera_pos[None, :].expand(d.shape), d
+
+
 def camera_ray_tiles(
     camera_pos: torch.Tensor,  # [3]
     camera_at: torch.Tensor,  # [3]
@@ -117,28 +208,17 @@ def camera_ray_tiles(
     ray_tile: int,
     block: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Primary rays (pinhole, up = +Y, compute.wgsl:103-118) as
+    """Primary rays (:func:`camera_rays`' rays, bit for bit) as
     component-major tiles -> (payload [8, T, r], valid [T, r],
     n_pixels), ``T`` padded to a multiple of TILE_GROUP."""
     dev = camera_pos.device
-    dir_ = _normalize((camera_at - camera_pos)[None, :])[0]
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
-    right = _cross(dir_, up)
-
-    norm_x, norm_y, n_pixels = _pixel_grid(width, height, height, block, dev)
+    norm_x, norm_y, n_pixels = _pixel_grid(width, height, height, 0, block, dev)
     t_tiles = -(-n_pixels // ray_tile)
     t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
     n_pad = t_tiles * ray_tile
     norm_x = torch.nn.functional.pad(norm_x, (0, n_pad - n_pixels))
     norm_y = torch.nn.functional.pad(norm_y, (0, n_pad - n_pixels))
-
-    px = right[0] * norm_x + up[0] * norm_y + camera_pos[0] + dir_[0]
-    py = right[1] * norm_x + up[1] * norm_y + camera_pos[1] + dir_[1]
-    pz = right[2] * norm_x + up[2] * norm_y + camera_pos[2] + dir_[2]
-    vx = px - camera_pos[0]
-    vy = py - camera_pos[1]
-    vz = pz - camera_pos[2]
-    rinv = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    dx, dy, dz = _primary_dirs(camera_pos, camera_at, norm_x, norm_y)
     shape = (t_tiles, ray_tile)
     zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
     payload = torch.stack(
@@ -146,15 +226,240 @@ def camera_ray_tiles(
             camera_pos[0].expand(shape),
             camera_pos[1].expand(shape),
             camera_pos[2].expand(shape),
-            (vx * rinv).reshape(shape),
-            (vy * rinv).reshape(shape),
-            (vz * rinv).reshape(shape),
+            dx.reshape(shape),
+            dy.reshape(shape),
+            dz.reshape(shape),
             zeros,  # excl
             zeros,
         ]
     )
     valid = (torch.arange(n_pad, device=dev) < n_pixels).reshape(shape)
     return payload, valid, n_pixels
+
+
+# ----------------------------------------------------------------------
+# The flat path: [N, 3] rays, shading in plain torch.
+
+
+def hit_surface(
+    scene: SceneArrays,
+    prim_id: torch.Tensor,  # [N]
+    o: torch.Tensor,  # [N, 3]
+    d: torch.Tensor,  # [N, 3]
+    t: torch.Tensor,  # [N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference ``hit()`` -> (at [N, 3], unit normal [N, 3]), with the
+    corner rotation of compute.wgsl:122-126, from one shade-table row
+    gather."""
+    return _hit_from_rows(scene.shade_table[prim_id.to(torch.int64)], o, d, t)
+
+
+def _hit_from_rows(
+    row: torch.Tensor,  # [N, 32] gathered shade-table rows
+    o: torch.Tensor,
+    d: torch.Tensor,
+    t: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hit_surface` on gathered rows (the table's column order
+    holds the rotation: b = cols 0-2, c = 3-5, a = 6-8)."""
+    at = o + d * t[:, None]
+    b, c, a = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    v0 = b - a
+    v1 = c - a
+    v2 = at - a
+    d00 = _dot(v0, v0)
+    d01 = _dot(v0, v1)
+    d11 = _dot(v1, v1)
+    d20 = _dot(v2, v0)
+    d21 = _dot(v2, v1)
+    denom = d00 * d11 - d01 * d01
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    v = (d11 * d20 - d01 * d21) / denom
+    w = (d00 * d21 - d01 * d20) / denom
+    u = 1.0 - v - w
+    normal = (
+        row[:, 9:12] * v[:, None]
+        + row[:, 12:15] * w[:, None]
+        + row[:, 15:18] * u[:, None]
+    )
+    return at, _normalize(normal)
+
+
+def _light_terms(
+    light_pos: torch.Tensor,  # [N, 3] (already broadcast per ray)
+    strength: torch.Tensor,  # [N]
+    at: torch.Tensor,  # [N, 3]
+    normal: torch.Tensor,  # [N, 3]
+    ray_dir: torch.Tensor,  # [N, 3] current ray direction
+    spec_pow: torch.Tensor,  # [N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(diffuse, spec) intensities (compute.wgsl:160-175)."""
+    light_dir = _normalize(light_pos - at)
+    diffuse = strength * torch.clamp(_dot(light_dir, normal), min=0.0)
+    refl = _reflect(-light_dir, normal)
+    spec = _dot(-refl, ray_dir)
+    spec = torch.pow(torch.clamp(spec, min=0.0), spec_pow) * strength
+    return diffuse, spec
+
+
+def compacting(intersect_fn: IntersectFn) -> IntersectFn:
+    """``intersect_fn`` with the live rays packed first: a stable
+    partition by validity (neighbouring live rays stay neighbours), the
+    call on the packed batch, the results scattered back.  Off by
+    default (``trace(compact=False)``), as in the JAX package, which
+    measured the sort costing more than the coherence it buys."""
+
+    def wrapped(o, d, excl, valid, t_cap=None):
+        order = torch.argsort((~valid).to(torch.int8), stable=True)
+        inv = _invert_perm(order)
+        t, pid = intersect_fn(
+            o[order], d[order], excl[order], valid[order],
+            t_cap=None if t_cap is None else t_cap[order],
+        )
+        return t[inv], pid[inv]
+
+    return wrapped
+
+
+def render(
+    scene: SceneArrays,
+    intersect_fn: IntersectFn,
+    cfg: ComputeConfig,
+    camera_pos: torch.Tensor,  # [3]
+    camera_at: torch.Tensor,  # [3]
+    width: int,
+    height: int,
+    compact: bool = False,
+    block: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Full frame through the flat path -> color [H, W, 3] float32
+    (unclamped, the rgba8unorm store input of compute.wgsl:291).
+    ``block`` traces rays in pixel-block order; the image is the same
+    either way."""
+    o, d = camera_rays(camera_pos, camera_at, width, height, block=block)
+    color = trace(scene, intersect_fn, cfg, o, d, compact=compact)
+    if block is not None:
+        return unblock_colors(color, width, height, block)
+    return color.reshape(height, width, 3)
+
+
+def trace(
+    scene: SceneArrays,
+    intersect_fn: IntersectFn,
+    cfg: ComputeConfig,
+    o: torch.Tensor,  # [N, 3]
+    d: torch.Tensor,  # [N, 3]
+    compact: bool = False,
+) -> torch.Tensor:
+    """The ``lighting`` bounce loop (compute.wgsl:219-280) over a flat
+    ray batch -> color [N, 3].
+
+    Wavefront order: a bounce's shadow rays (all lights, light-major)
+    and the next bounce's reflection rays depend only on the current
+    hit, so they go to ``intersect_fn`` in one call of (K+1)·N rays.
+    A shadow hit counts only if its prim is real: ``pid != 0`` when the
+    scene has no negative materials, else a ``prim_mat`` gather (a
+    ``material = -1`` prim passes light).  ``compact`` packs live rays
+    before every secondary call (:func:`compacting`)."""
+    n = o.shape[0]
+    dev = o.device
+    secondary_fn = compacting(intersect_fn) if compact else intersect_fn
+    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    camera_origin = o  # headlight position (compute.wgsl:237)
+    ray_o, ray_d = o, d
+    zero_excl = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    t, prim_id = intersect_fn(ray_o, ray_d, zero_excl, active)
+    for bounce in range(cfg.bounces):
+        prim_id = torch.where(active, prim_id, 0)
+        # One [N, 32] row gather gives corners, normals and material.
+        row = scene.shade_table[prim_id.to(torch.int64)]
+        active = active & (row[:, 25] != -1.0) & (t < cfg.t_max) & (t > cfg.t_min)
+        mat_color = row[:, 18:21]
+        mat_albedo = row[:, 21:24]
+        mat_spec = row[:, 24]
+        at, normal = _hit_from_rows(row, ray_o, ray_d, t)
+        cur_d = ray_d
+
+        # The lights: the headlight first, then the scene's.
+        light_positions, light_strengths = [], []
+        if cfg.camera_light_source > 0.0:
+            light_positions.append(camera_origin)
+            light_strengths.append(
+                torch.full((n,), cfg.camera_light_source, dtype=torch.float32, device=dev)
+            )
+        for j in range(scene.num_lights):
+            light_positions.append(scene.light_pos[j][None, :].expand(n, 3))
+            light_strengths.append(scene.light_strength[j].expand(n))
+        k = len(light_positions)
+
+        if k:  # shadow rays (compute.wgsl:189-212)
+            lp = torch.stack(light_positions)  # [K, N, 3]
+            ls = torch.stack(light_strengths)  # [K, N]
+            delta = lp - at[None]
+            light_dist = torch.sqrt(_dot(delta, delta))  # [K, N]
+            light_dir = _normalize(delta)
+            side = _dot(light_dir, normal[None])
+            s_off = torch.where(side[..., None] < 0.0, -0.001, 0.001) * normal[None]
+            shadow_o = (at[None] + s_off).reshape(k * n, 3)
+            shadow_d = light_dir.reshape(k * n, 3)
+            shadow_excl = prim_id[None].expand(k, n).reshape(k * n)
+            shadow_valid = active[None].expand(k, n).reshape(k * n)
+            shadow_cap = light_dist.reshape(k * n)
+
+        last = bounce + 1 >= cfg.bounces
+        if not last:  # mirror continuation (compute.wgsl:267-276)
+            refl_dir = _normalize(_reflect(cur_d, normal))
+            r_side = _dot(refl_dir, normal)
+            next_o = at + torch.where(r_side[:, None] < 0.0, -0.001, 0.001) * normal
+            next_d = refl_dir
+
+        if k and not last:
+            st, sid = secondary_fn(
+                torch.cat([shadow_o, next_o]),
+                torch.cat([shadow_d, next_d]),
+                torch.cat([shadow_excl, zero_excl]),
+                torch.cat([shadow_valid, active]),
+                t_cap=torch.cat(
+                    [shadow_cap, torch.full((n,), cfg.t_max, dtype=torch.float32, device=dev)]
+                ),
+            )
+            sh_t, sh_id = st[: k * n], sid[: k * n]
+            t, prim_id = st[k * n :], sid[k * n :]
+            ray_o, ray_d = next_o, next_d
+        elif k:
+            sh_t, sh_id = secondary_fn(
+                shadow_o, shadow_d, shadow_excl, shadow_valid, t_cap=shadow_cap
+            )
+        elif not last:
+            t, prim_id = secondary_fn(next_o, next_d, zero_excl, active)
+            ray_o, ray_d = next_o, next_d
+
+        diffuse = torch.zeros((n,), dtype=torch.float32, device=dev)
+        spec = torch.zeros((n,), dtype=torch.float32, device=dev)
+        if k:
+            if scene.no_negative_materials:
+                real = sh_id != 0
+            else:
+                real = scene.prim_mat[sh_id.to(torch.int64)] != -1
+            sh_valid = real & (sh_t < cfg.t_max) & (sh_t > cfg.t_min)
+            # |shadow_hit.at - origin| == t (compute.wgsl:206).
+            shadowed = sh_valid.reshape(k, n) & (sh_t.reshape(k, n) < light_dist)
+            for ki in range(k):
+                diff_k, spec_k = _light_terms(lp[ki], ls[ki], at, normal, cur_d, mat_spec)
+                lit = ~shadowed[ki] & (ls[ki] > 0.0)
+                diffuse = diffuse + torch.where(lit, diff_k, 0.0)
+                spec = spec + torch.where(lit, spec_k, 0.0)
+
+        contrib = (
+            mat_color * (diffuse * mat_albedo[:, 0])[:, None]
+            + (spec * mat_albedo[:, 1])[:, None]
+        )
+        if bounce:
+            contrib = contrib * mat_albedo[:, 2][:, None]
+        color = color + torch.where(active[:, None], contrib, 0.0)
+    return color
 
 
 def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
@@ -248,9 +553,11 @@ def trace_tiled(
             "spans the compaction point)"
         )
     if not scene.no_negative_materials:
-        raise NotImplementedError(
-            "the XLA trace() path for negative materials is not ported to "
-            "rt_rs_tpu_torch yet (ROADMAP module item 9)"
+        # The shading kernels test validity as pid != 0, which would
+        # treat negative-material prims as occluders.
+        raise ValueError(
+            "trace_tiled requires scene.no_negative_materials; use the "
+            "flat trace() path for scenes with negative materials"
         )
     dev = payload.device
     t_tiles, r = valid.shape

@@ -3,13 +3,16 @@
 Counterpart of ``rt_rs_tpu/renderer.py``.  ``Renderer`` packs the scene
 onto an explicit torch device once, lets the handler build its
 acceleration tensors there, binds the handler's intersect entries, and
-renders a frame by calling :func:`rt_rs_tpu_torch.ops.shade.render_tiled`
-(PyTorch runs eagerly, so there is no compile step).  On a CUDA device
-every kernel of the frame is a hand-written CUDA kernel; on the CPU the
-same calls run their plain-PyTorch twins.
+renders a frame by calling :func:`rt_rs_tpu_torch.ops.shade.render_tiled`,
+or, for scenes with a real ``material = -1`` prim, the flat path
+:func:`rt_rs_tpu_torch.ops.shade.render` with the handler's flat
+``intersect_fn`` (the JAX package's branch; its shadow test gathers the
+material).  PyTorch runs eagerly, so there is no compile step.  On a
+CUDA device every kernel of the frame is a hand-written CUDA kernel; on
+the CPU the same calls run their plain-PyTorch twins.
 
-Not ported yet: ``animate(chain>1)``, the XLA fallback for negative
-materials and ``DynamicRenderer`` (ROADMAP module items 9 and 12).
+Not ported yet: ``animate(chain>1)`` and ``DynamicRenderer`` (ROADMAP
+module item 12).
 """
 
 from __future__ import annotations
@@ -130,12 +133,6 @@ class Renderer:
         arrays = scene.pack(device=self.device)
         self.accel, self.arrays = self.handler.build(scene, arrays)
         self.stats: IntrsStats = self.handler.stats(self.accel)
-        if not self.arrays.no_negative_materials:
-            raise NotImplementedError(
-                "scenes with negative materials need the XLA trace() path, "
-                "which is not ported to rt_rs_tpu_torch yet (ROADMAP module "
-                "item 9)"
-            )
         self._entries: dict[int, tuple] = {}
 
         self.seg_order = seg_order
@@ -202,8 +199,12 @@ class Renderer:
         (closest hit, rows or None, any-hit or None): kernel-emitted
         rows with any-hit shadows where the handler offers them and
         ``force_rows`` / ``rows_default`` asks for them, else the gather
-        branch."""
+        branch; for a negative-material scene, (the flat closest hit,
+        None, None)."""
         entries = self._entries.get(id(h))
+        if entries is None and not self.arrays.no_negative_materials:
+            entries = (h.intersect_fn(self.accel, self.arrays, self.config.compute), None, None)
+            self._entries[id(h)] = entries
         if entries is None:
             cfg = self.config.compute
             rows_fn = anyhit_fn = None
@@ -229,6 +230,16 @@ class Renderer:
         """Render one frame -> [H, W, 3] float32 tensor on the device.
         ``block`` waits for the device to finish it."""
         intersect_fn, rows_fn, anyhit_fn = self._bound(self._frame_handler())
+        if not self.arrays.no_negative_materials:
+            out = shade.render(
+                self.arrays, intersect_fn, self.config.compute,
+                self._camera_tensor(self.camera.pos),
+                self._camera_tensor(self.camera.at),
+                self.width, self.height, block=self.block,
+            )
+            if block:
+                device_sync(out)
+            return out
         out = shade.render_tiled(
             self.arrays,
             intersect_fn,

@@ -18,6 +18,10 @@ scene.to_json())`` (the f32 values round-trip exactly).
   (12,642 / 18,962 triangles; the teapots3 analogue) and the 8-torus,
   50,562-triangle canyon of the JAX package's segmented-path
   measurements.
+* :func:`ghost_scene` and :func:`torus_ghost` — scenes with real
+  ``material = -1`` prims, which block camera rays and cast no shadow
+  (the flat frame path): the JAX package's 2-triangle test scene, and
+  torus_scene with two ghost panels (6,326 triangles).
 * :func:`random_soup` — the ``_random_scene`` pattern of the fuzz
   tests (normal-distributed vertices, one white material) plus a
   camera and a light so it renders.
@@ -178,6 +182,72 @@ def torus_canyon(floor_y: float = -1.2, floor_half: float = 40.0) -> Scene:
     scene = tiled_copies(_torus_only(2.0, 0.8, (79, 40)), offsets)
     scene.camera = CameraUniform((0.0, 16.0, -36.0), (0.0, 3.0, 0.0))
     return _add_floor(scene, floor_y, floor_half)
+
+
+def ghost_scene(ghost_material: int) -> Scene:
+    """A lit wall and a small "ghost" triangle between the light and the
+    wall's centre, across part of the camera's view: the scene of the
+    JAX package's negative-material tests
+    (tests/test_negative_material.py:34-70).  With ``ghost_material =
+    -1`` the ghost blocks camera rays but passes light; with a real
+    material it shadows the wall instead."""
+    scene = Scene.empty(camera=CameraUniform((0.0, 0.0, -4.0), (0.0, 0.0, 2.0)))
+    scene.vert_pos = np.array(
+        [
+            # wall at z = 2, facing the camera (its bottom edge at -3.3,
+            # off every pixel row's knife edge)
+            [-4.0, -3.3, 2.0], [4.0, -3.3, 2.0], [0.3, 5.0, 2.0],
+            # ghost at z = 0
+            [1.5, -1.0, 0.0], [3.0, -1.0, 0.0], [2.2, 1.0, 0.0],
+        ],
+        dtype=np.float32,
+    )
+    scene.vert_norm = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (6, 1))
+    scene.prim_indices = np.array([[0, 1, 2], [3, 4, 5]], dtype=np.uint32)
+    scene.prim_material = np.array([0, ghost_material], dtype=np.int32)
+    scene.light_pos = np.array([[4.0, 0.0, -2.0]], dtype=np.float32)
+    scene.light_strength = np.array([1.5], dtype=np.float32)
+    scene.mat_color = np.array([[0.8, 0.2, 0.2], [0.2, 0.8, 0.2]], np.float32)
+    scene.mat_albedo = np.array([[1.0, 0.5, 0.5], [1.0, 0.5, 0.5]], np.float32)
+    scene.mat_spec = np.array([8.0, 8.0], np.float32)
+    return scene
+
+
+def _add_panel(scene: Scene, corners, material: int) -> Scene:
+    """Append a flat quad (2 triangles, ``corners`` in order around it)
+    with material ``material`` to ``scene``."""
+    corners = np.asarray(corners, np.float64)
+    nrm = np.cross(corners[1] - corners[0], corners[2] - corners[0])
+    nrm /= np.linalg.norm(nrm)
+    nv = scene.vert_pos.shape[0]
+    scene.vert_pos = np.concatenate([scene.vert_pos, corners]).astype(np.float32)
+    scene.vert_norm = np.concatenate([scene.vert_norm, np.tile(nrm, (4, 1))]).astype(np.float32)
+    scene.prim_indices = np.concatenate(
+        [scene.prim_indices, nv + np.array([[0, 1, 2], [0, 2, 3]])]
+    ).astype(np.uint32)
+    scene.prim_material = np.concatenate(
+        [scene.prim_material, np.full(2, material, np.int32)]
+    ).astype(np.int32)
+    return scene
+
+
+def torus_ghost() -> Scene:
+    """:func:`torus_scene` with two ``material = -1`` ghost panels, 6,326
+    triangles: the full-size negative-material scene.  One 8x8 panel
+    stands 15 units from the torus towards the first light, out of the
+    camera's view: it must cast no shadow.  One 2x3 panel stands upright
+    between the camera and the torus (z = -5), over part of the view: it
+    blocks the camera rays that reach it."""
+    scene = torus_scene()
+    to_light = np.asarray(LIGHT_POS[0], np.float64)
+    to_light /= np.linalg.norm(to_light)
+    u = np.cross(to_light, (0.0, 1.0, 0.0))
+    u /= np.linalg.norm(u)
+    v = np.cross(u, to_light)
+    c = 15.0 * to_light
+    shade_panel = [c - 4 * u - 4 * v, c + 4 * u - 4 * v, c + 4 * u + 4 * v, c - 4 * u + 4 * v]
+    view_panel = [(0.5, -1.0, -5.0), (0.5, 2.0, -5.0), (2.5, 2.0, -5.0), (2.5, -1.0, -5.0)]
+    return _add_panel(_add_panel(scene, shade_panel, -1), view_panel, -1)
 
 
 def random_soup(seed: int, n: int, scale: float = 5.0) -> Scene:

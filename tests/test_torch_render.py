@@ -133,9 +133,9 @@ def test_unported_paths_raise():
         get_handler("pbvh", tri_chunk_fine=16)
     neg = random_soup(1, 10)
     neg.prim_material[0] = -1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Renderer(neg, config=_config(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # Negative materials take the flat path; the tiled one refuses them,
+    # as the JAX package's does.
+    with pytest.raises(ValueError, match="negative"):
         shade.trace_tiled(
             neg.pack(device="cpu"), None, ComputeConfig(), torch.zeros(8, 32, 256),
             torch.zeros(32, 256, dtype=torch.bool), torch.zeros(3),
