@@ -47,12 +47,18 @@ exits nonzero without printing a result):
    early exit, the flat path's ``torus_ghost()`` frames at 384x288 and
    1920x1080, and the canyon through the transposed table at 640x480
    (every mt_tpose call).  Intersection and refine outputs (t, pid, rows, blocked,
-   overlap masks, compacted ids and counts) must be bit-equal; shading
-   outputs within 4 ULP (the twins use torch's rsqrt / pow, whose CUDA
-   builds may round differently from the kernels' rsqrtf / powf).  Each
+   overlap masks, compacted ids and counts) must be bit-equal, and each
+   mt_trace and refine_cull call, run twice, gives the same bits (the
+   balanced mt_trace merges its items with atomics in no fixed order);
+   shading outputs within SHADE_MAX_ULP (the twins use torch's pow,
+   whose CUDA build may round differently from the kernels' powf).  Each
    segmented call's (t, pid) must equal one flat call on
    ``flatten_segments`` of its table, and each streamed call's the flat
-   closest hit under the same cull, on valid rays.  The probes' kernels
+   closest hit under the same cull, on valid rays.  mt_trace at the
+   extremes of balance, in each default mode: one tile listing every
+   chunk of a 128-chunk table and the others empty, and every tile
+   listing every chunk, bit-equal to its twin and to the balanced
+   design's mirror (``mt_trace_split_reference``).  The probes' kernels
    at the JAX mains' sizes: fma_peak (separate bit-equal, fused within
    rtol 1e-6), mt_tpose (tc 64 and 128) bit-equal to its twin and to
    mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to its
@@ -65,9 +71,9 @@ exits nonzero without printing a result):
    ``torus_row(2)`` at 96x72 against the JAX package's stored frame
    (tests/data/torch_port_torus_row2_96x72.npz, atol 2e-5); segmented
    also ``gather_band_torus()`` (one table past the rows table's cap:
-   the gather branch) at 32x16, finite and not black, its distance from
-   the stored frame (tests/data/torch_port_gather_band_32x16.npz) and
-   from the port's CPU frame printed; the canyon
+   the gather branch) at 32x16 against its stored frame
+   (tests/data/torch_port_gather_band_32x16.npz, atol 2e-5), its
+   distance from the port's CPU frame printed; the canyon
    at 640x480 (both) and 1920x1080 (segmented): finite, not black,
    orbits of 30 and 12 frames; the canyon's segmented and DMA frames at
    640x480 must be bit-equal.  knobs: the 96x72 frames of
@@ -93,21 +99,28 @@ exits nonzero without printing a result):
    canyon segmented 640x480 orbits, with the closest-hit list entries of
    one frame against the entries early exit tested; the fused bounce
    kernel on torus 384x288 orbits.
-6. Kernel times (CUDA events), each against its twin and its bound (the
+6. Kernel times (device time from torch.profiler with the L2 cache
+   overwritten before each call, so inputs come from HBM as the bounds
+   assume; beside CUDA events around back-to-back calls), each against
+   its twin and its bound (the
    least time the card could take for the call's work), at the
    384x288 torus frame's shapes, the 640x480 canyon frame's and the
    torus 1080p early-exit frame's primary call; early-exit calls also
    as the default call over the same lists, the fused shading call also
    as shade_post + shade_pre; the probes' kernels at the compare
    phase's calls.  Each f32 kernel's bound also at the measured
-   separate-FMA rate.
+   separate-FMA rate, its launches per wrapper call (torch.profiler),
+   and each mt_trace call's list lengths.  The default-mode mt_trace
+   calls in one table: the three above, the torus 1080p primary rows
+   call and the flat ``torus_ghost()`` 1080p frame's busiest closest
+   call.
 7. Where the time goes: torch.profiler over canyon frames (default and
    early exit) and torus 1080p frames (default and knobs), device time
    by kernel kind and the device's idle share, and over flat
    ``torus_ghost()`` 1080p frames.
 
 The second-to-last lines are JSON objects of frame times (with the
-A/B) and of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
+A/B and the mt_trace calls) and of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -118,6 +131,7 @@ import inspect
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -136,7 +150,9 @@ TORUS_GHOST_FRAME = ROOT / "tests" / "data" / "torch_port_torus_ghost_96x72.npz"
 # XLA:CPU held to SSE4.2, so no FMA contraction (see
 # tests/test_torch_render.py); they round op by op like the port.
 REF_ATOL = 2e-5
-SHADE_MAX_ULP = 4
+# Shading kernels vs twins: both compute rsqrt as IEEE 1 / sqrt, and
+# torch's CUDA pow is the kernels' powf; every replay was 0 ULP apart.
+SHADE_MAX_ULP = 0
 TORUS_REPLAY = (384, 288)
 CANYON_REPLAY = (640, 480)
 # path -> frame sizes driven (name -> width, height, orbit frames)
@@ -369,7 +385,7 @@ def phase_build():
     cuda.library()
     say(f"[build] {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     for ln in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in ln or "registers" in ln:
+        if "Compiling entry function" in ln or "registers" in ln or "spill" in ln:
             say(f"[build] {ln.strip()}")
 
 
@@ -487,11 +503,13 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         errs["refine_cull"] = max(
             errs["refine_cull"], check_equal(f"{label} refine_cull#{i}", kern, twin)
         )
+        check_equal(f"{label} refine_cull#{i} run twice", pt.refine_cull(*a, **kw), kern)
         check_equal(f"{label} compact#{i}", pt.compact(kern), pt.compact(twin))
     for i, (a, kw, _) in enumerate(calls["mt_trace"]):
         name = pt.mt_name(kw["mode"], bind(pt.mt_trace_reference, a, kw)["ed"] is not None)
         kern, twin = pt.mt_trace(*a, **kw), pt.mt_trace_reference(*a, **kw)
         errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
+        check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         kern, twin = tp.mt_tpose(*a, **kw), tp.mt_tpose_reference(*a, **kw)
         errs["mt_tpose"] = max(errs["mt_tpose"], check_equal(f"{label} mt_tpose#{i}", kern, twin))
@@ -516,6 +534,51 @@ def bind(fn, a, kw) -> dict:
     b = inspect.signature(fn).bind(*a, **kw)
     b.apply_defaults()
     return dict(b.arguments)
+
+
+def check_skewed(errs: dict, recorded: dict) -> None:
+    """mt_trace at the two extremes of balance, in each default mode:
+    one tile (the recorded call's busiest) lists every chunk of the table
+    and every other tile nothing, and every tile lists every chunk.  The
+    calls: the canyon segmented frame's closest-hit call on its largest
+    segment, the torus frame's primary rows call and first any-hit call
+    (640x480, 384x288).  Kernel = twin = the balanced design's mirror
+    (``mt_trace_split_reference``) bit for bit, and run twice alike."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    seg, torus = recorded["canyon segmented"]["mt_trace"], recorded["torus"]["mt_trace"]
+    picks = {
+        "canyon closest": max(
+            (c for c in seg if c[1]["mode"] == "closest"), key=lambda c: c[0][0].shape[0]
+        ),
+        "torus rows": next(c for c in torus if c[1]["mode"] == "rows"),
+        "torus anyhit": next(c for c in torus if c[1]["mode"] == "anyhit"),
+    }
+    for label, (a, kw, _) in picks.items():
+        b = bind(pt.mt_trace_reference, a, kw)
+        if b.pop("ed") is not None:
+            raise AssertionError(f"{label}: an early-exit call")
+        nc, n_tiles = b["comp"].shape[0], b["payload"].shape[1]
+        busiest = int(b["counts"].argmax())
+        b["ids"] = torch.arange(nc, dtype=torch.int32, device=DEVICE).expand(n_tiles, nc).contiguous()
+        name = pt.mt_name(b["mode"], False)
+        for shape in ("one tile", "every tile"):
+            if shape == "one tile":
+                b["counts"] = torch.zeros(n_tiles, dtype=torch.int32, device=DEVICE)
+                b["counts"][busiest] = nc
+            else:
+                b["counts"] = torch.full((n_tiles,), nc, dtype=torch.int32, device=DEVICE)
+            kern = pt.mt_trace(**b)
+            what = f"skewed {label}, {shape} listing all {nc} chunks"
+            errs[name] = max(errs[name], check_equal(what, kern, pt.mt_trace_reference(**b)))
+            check_equal(f"{what} vs the split mirror", kern, pt.mt_trace_split_reference(**b))
+            check_equal(f"{what} run twice", pt.mt_trace(**b), kern)
+            say(
+                f"[compare] {what} ({n_tiles} tiles of {b['payload'].shape[2]} rays): "
+                f"{name} = twin = split mirror, run twice alike"
+            )
 
 
 def check_against_flat(label: str, calls) -> tuple[int, int]:
@@ -604,11 +667,13 @@ def phase_compare():
         )
         say(
             f"[compare] {label} {r.width}x{r.height} frame calls {n}, mt modes "
-            f"{modes}: intersection, refine and mt_tpose bit-equal, shading max ULP {ulps}; "
+            f"{modes}: intersection, refine and mt_tpose bit-equal (mt_trace and "
+            f"refine_cull also run twice alike), shading max ULP {ulps}; "
             f"{n_seg} segmented and {n_stream} streamed calls equal the flat "
             f"call; replay {time.perf_counter() - t0:.1f} s"
         )
         recorded[label] = calls
+    check_skewed(errs, recorded)
     recorded["probes"] = compare_probes(errs)
     return errs, recorded
 
@@ -746,11 +811,10 @@ def check_stored(name: str, r, path: pathlib.Path, key: str = "frame") -> None:
 
 def gather_band() -> None:
     """The gather branch on one table: ``gather_band_torus()`` at 32x16,
-    finite and not black.  Its distance from the JAX package's stored
-    frame and from the port's own CPU frame is printed, not held: one
-    pixel flips on the card from shade_pre's ``rsqrtf`` (ROADMAP §3,
-    localised by ``python3 -m rt_rs_tpu_torch.experiments.band_divergence``);
-    the gather branch is held to a stored frame by ``torus_row(2)``."""
+    finite, not black, and within REF_ATOL of the JAX package's stored
+    frame (one pixel flipped there while the shading kernels used
+    ``rsqrtf``: ROADMAP §3); its distance from the port's own CPU frame
+    is printed."""
     import numpy as np
 
     global DEVICE
@@ -770,11 +834,14 @@ def gather_band() -> None:
     ):
         d = np.abs(frame - ref)
         far = np.argwhere(d > REF_ATOL)
-        say(
-            f"[frame] gather band 32x16 vs {what}: max abs {d.max():.3g}, "
+        line = (
+            f"gather band 32x16 vs {what}: max abs {d.max():.3g}, "
             f"{len(far)} of {d.size} values beyond {REF_ATOL} at (row, col) "
             f"{sorted({(int(i), int(j)) for i, j, _ in far})}"
         )
+        if what.endswith("stored frame") and len(far):
+            raise AssertionError(line)
+        say(f"[frame] {line}")
 
 
 def orbit_ms(name: str, r, frames: int, card: str, black: bool = False) -> float:
@@ -1393,7 +1460,81 @@ def phase_ab(card: str) -> tuple[dict, dict]:
     return summary, recorded["early_exit torus 1920x1080"]
 
 
-def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> dict[str, tuple]:
+def list_stats(counts) -> str:
+    """An mt_trace call's lists: tiles, entries, the longest and mean
+    list, empty tiles."""
+    return (
+        f"{counts.numel()} tiles, {int(counts.sum())} entries, max {int(counts.max())}, "
+        f"mean {float(counts.float().mean()):.3f}, {int((counts == 0).sum())} empty"
+    )
+
+
+# Bytes overwritten before each profiled call: five times the H100's
+# 50 MB L2, so a call reads its inputs from HBM, as its bound assumes.
+L2_FLUSH_BYTES = 256 << 20
+
+
+def profiled(fn, reps: int = 10) -> tuple[dict[str, int], float]:
+    """One wrapper call's kernel launches by kernel name and its device
+    time in ms (the sum of its kernels' durations), from torch.profiler
+    over ``reps`` calls, each after L2_FLUSH_BYTES are overwritten (the
+    fill's own kernel is left out).  Unlike CUDA events around
+    back-to-back calls, this does not read the host: a wrapper's Python
+    side can outlast a kernel of tens of microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 2, dtype=torch.int16, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flush.fill_(1)
+        flush.fill_(1)
+        torch.cuda.synchronize()
+    fill = {e.name for e in prof.events() if e.device_type != DeviceType.CPU}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    kernels, fills = [], 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            continue
+        if e.name in fill or "FillFunctor<short>" in e.name:  # the fill of int16 `flush`
+            fills += 1
+        else:
+            kernels.append(e)
+    if fills != reps:
+        say(f"[warn] profiled: the L2 fill seen {fills} times in {reps} calls; the times may hold it")
+    names = collections.Counter(
+        re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0].split("<")[0]
+        for e in kernels
+    )
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return {k: round(v / reps) for k, v in names.items()}, us / reps / 1e3
+
+
+def mt_call_ms(label: str, call, sep_rate: float, card: str) -> dict[str, float]:
+    """One default-mode mt_trace call's device ms (:func:`profiled`),
+    printed with the call's lists and bound."""
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    a, kw, _ = call
+    b = bind(pt.mt_trace_reference, a, kw)
+    name = pt.mt_name(b["mode"], False)
+    ms = profiled(lambda: pt.mt_trace(*a, **kw))[1]
+    b_ms, by = bound(name, a, kw)
+    sep_ms = work(name, a, kw)[0] / sep_rate * 1e3
+    say(
+        f"[mt call] {label} ({list_stats(b['counts'])}): kernel {ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({by}), {sep_ms:.4f} at the separate rate; {card}"
+    )
+    return dict(ms=ms, bound_ms=b_ms, sep_ms=sep_ms)
+
+
+def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str):
     """Kernel vs twin vs bound: at the 384x288 torus frame's shapes (the
     primary rows call, bounce 0's shadow batch and its refine cull,
     bounce 0's shading, the knobs frame's first fused shading call),
@@ -1406,7 +1547,12 @@ def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> d
     phase's calls (fma_peak at the JAX sizes, mt_tpose and mt_mxu on
     torus_scene's 1080p primaries).  Each kernel on the CUDA cores' f32
     path also gets its bound at ``sep_rate``, the measured practical rate
-    of separately rounded multiplies and adds."""
+    of separately rounded multiplies and adds, and its launches per
+    wrapper call; each mt_trace call its lists.  Then the default-mode
+    mt_trace calls (:func:`mt_call_ms`): the three above, the torus
+    1080p frame's primary rows call and the flat ``torus_ghost()`` 1080p
+    frame's busiest closest-hit call.  -> (kernel name -> times, call ->
+    mt_trace time and bounds)."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -1451,7 +1597,8 @@ def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> d
         picks[name] = (kern, twin, (a, kw, None), 1)
     times = {}
     for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
-        k_ms = time_ms(lambda: kern(*a, **kw), 50)
+        ev_ms = time_ms(lambda: kern(*a, **kw), 50)
+        launched, k_ms = profiled(lambda: kern(*a, **kw))
         t_ms = time_ms(lambda: twin(*a, **kw), twin_reps)
         b_ms, by = bound(name, a, kw)
         sep_ms = None
@@ -1459,14 +1606,17 @@ def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> d
             sep_ms = work(name, a, kw)[0] / sep_rate * 1e3
         times[name] = (k_ms, t_ms, b_ms, by, sep_ms)
         extra = "" if sep_ms is None else f", bound at the separate rate {sep_ms:.4f} ms"
+        extra += f", launches per call {sum(launched.values())} {launched}"
         if name.startswith(("mt_trace", "mt_tpose", "mt_mxu")):
             # list entries: (tile, chunk) pairs, each tc x r ray-triangle tests
             n = entries((a, kw))
             extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
+        if name.startswith("mt_trace"):
+            extra += f" ({list_stats(a[3])})"
         if name.endswith("early_exit]"):
             b0 = without_early_exit(a, kw)
             n_t = int(pt.entries_tested(**bind(pt.mt_trace_reference, a, kw)).sum())
-            d_ms = time_ms(lambda: pt.mt_trace(**b0), 50)
+            d_ms = profiled(lambda: pt.mt_trace(**b0))[1]
             db_ms, _ = bound(name, (), b0)
             extra += (
                 f", {n_t} tested; the same call without early exit: kernel "
@@ -1479,17 +1629,32 @@ def phase_kernel_times(recorded, torus_1080_ee, sep_rate: float, card: str) -> d
                 st.shade_post(*post, **post_kw)
                 st.shade_pre(*pre, **pre_kw)
 
-            extra = f"; shade_post + shade_pre on the same inputs {time_ms(post_pre, 50):.4f} ms"
+            extra += f"; shade_post + shade_pre on the same inputs {profiled(post_pre)[1]:.4f} ms"
         say(
-            f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, bound "
+            f"[time] {name}: kernel {k_ms:.4f} ms (device, profiler; CUDA events over 50 "
+            f"back-to-back wrapper calls {ev_ms:.4f}), twin {t_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({by}){extra}; {card}"
         )
-    return times
+    with Recorder() as rec:
+        kept["torus"]["1920x1080"].render_frame()
+    ghost = recorded["flat torus_ghost 1080p"]["mt_trace"]
+    mt_calls = {
+        "mt_trace[closest] canyon segmented 640x480, busiest call": picks["mt_trace[closest]"][2],
+        "mt_trace[rows] torus 384x288 primary": picks["mt_trace[rows]"][2],
+        "mt_trace[anyhit] torus 384x288 shadows": picks["mt_trace[anyhit]"][2],
+        "mt_trace[rows] torus 1920x1080 primary": next(
+            c for c in rec.calls["mt_trace"] if c[1]["mode"] == "rows"
+        ),
+        "mt_trace[closest] torus_ghost flat 1920x1080, busiest call": max(ghost, key=entries),
+    }
+    return times, {label: mt_call_ms(label, call, sep_rate, card) for label, call in mt_calls.items()}
 
 
 # kernel name fragment -> kind, for the profile's breakdown
 KINDS = (
-    ("mt_trace_kernel", "mt_trace"),
+    ("mt_trace_early_exit_kernel", "mt_trace"),  # the per-tile walk
+    ("mt_trace_items_kernel", "mt_trace"),  # the balanced design: its items
+    ("mt_trace_prologue_kernel", "mt_trace prologue"),  # and its scan and set-up
     ("mt_stream_kernel", "mt_stream"),
     ("refine_cull_kernel", "refine_cull"),
     ("shade_pre_kernel", "shade_pre"),
@@ -1558,7 +1723,9 @@ def main(full: bool = True) -> None:
         return
     counts, frame_ms, kept = phase_paths(card)
     ab, torus_1080_ee = phase_ab(card)
-    times = phase_kernel_times(recorded, torus_1080_ee, kept["probes"]["rates"]["separate"], card)
+    times, mt_calls = phase_kernel_times(
+        recorded, torus_1080_ee, kept, kept["probes"]["rates"]["separate"], card
+    )
     phase_profile(kept, card)
     kernels = [
         {
@@ -1582,7 +1749,7 @@ def main(full: bool = True) -> None:
         }
         for name, (src, rep) in KERNELS.items()
     ]
-    say(json.dumps({"frame_ms": frame_ms, "ab": ab, "card": card}))
+    say(json.dumps({"frame_ms": frame_ms, "ab": ab, "mt_calls": mt_calls, "card": card}))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(

@@ -20,11 +20,8 @@
 
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))
 
-// NaN-propagating min/max with the semantics of jnp.minimum/maximum
-// and torch.minimum/maximum (fminf/fmaxf would drop the NaN).
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
+// NaN-propagating max with the semantics of jnp.maximum and
+// torch.maximum (fmaxf would drop the NaN).
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
@@ -102,7 +99,7 @@ __device__ __forceinline__ HitNormal hit_normal(const Row& row, float ox,
   const float nx = row(9) * vv + row(12) * ww + row(15) * uu;
   const float ny = row(10) * vv + row(13) * ww + row(16) * uu;
   const float nz = row(11) * vv + row(14) * ww + row(17) * uu;
-  const float rn = rsqrtf(nx * nx + ny * ny + nz * nz);
+  const float rn = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
   h.nx = nx * rn;
   h.ny = ny * rn;
   h.nz = nz * rn;

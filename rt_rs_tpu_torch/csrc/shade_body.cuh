@@ -53,7 +53,7 @@ __device__ __forceinline__ void shade_pre_ray(
     const float ddx = lx - h.hx, ddy = ly - h.hy, ddz = lz - h.hz;
     const float s = ddx * ddx + ddy * ddy + ddz * ddz;
     const float dist = sqrtf(s);
-    const float inv = rsqrtf(s);
+    const float inv = 1.0f / sqrtf(s);
     const float ux = ddx * inv, uy = ddy * inv, uz = ddz * inv;
     const float side = ux * h.nx + uy * h.ny + uz * h.nz;
     const float off = (side < 0.0f) ? -0.001f : 0.001f;
@@ -86,7 +86,7 @@ __device__ __forceinline__ void shade_pre_ray(
     float rx = dx - 2.0f * dn * h.nx;
     float ry = dy - 2.0f * dn * h.ny;
     float rz = dz - 2.0f * dn * h.nz;
-    const float rr = rsqrtf(rx * rx + ry * ry + rz * rz);
+    const float rr = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz);
     rx = rx * rr;
     ry = ry * rr;
     rz = rz * rr;
@@ -141,7 +141,7 @@ __device__ __forceinline__ void shade_post_ray(
     const float ls = lights[li * 4 + 3];
     const float ddx = lx - h.hx, ddy = ly - h.hy, ddz = lz - h.hz;
     const float s = ddx * ddx + ddy * ddy + ddz * ddz;
-    const float inv = rsqrtf(s);
+    const float inv = 1.0f / sqrtf(s);
     const float ux = ddx * inv, uy = ddy * inv, uz = ddz * inv;
     bool shadowed;
     if (blocked_mode) {

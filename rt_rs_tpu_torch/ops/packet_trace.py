@@ -12,8 +12,12 @@ chunk list.  Two hand-written CUDA kernels do the rest:
   cull, replacing ``_refine_kernel``;
 * :func:`mt_trace` — kernel B (csrc/mt_trace.cu), the Möller–Trumbore
   trace in closest-hit, emit-rows and any-hit modes, replacing
-  ``_mt_kernel`` + ``mt_chunk_test``, with an early-exit variant of the
-  first two over front-to-back lists (``early_exit``).
+  ``_mt_kernel`` + ``mt_chunk_test``: balanced work items (a tile and a
+  few consecutive list entries) on a persistent grid, merged exactly
+  per ray (:func:`mt_items`, :func:`hit_key`,
+  :func:`mt_trace_split_reference` mirror it), with an early-exit
+  variant of the first two over front-to-back lists (``early_exit``)
+  that keeps one block per tile.
 
 The cull's knobs (``refine`` granularity, ``cull_block``,
 ``early_exit``) are the JAX package's; each changes the work, never
@@ -74,6 +78,16 @@ EXIT_CHECK = 8
 REFINE_SUB = 1
 # Sort key of the chunks a tile does not list (early_exit).
 UNLISTED_KEY = 3.0e38
+# Kernel B's work item per mode: a tile and at most this many consecutive
+# entries of its list.  The kernel's compile-time ITEM_* (csrc/mt_trace.cu,
+# tuned on the card, PERF.md); here only the plain mirror's default.
+MT_ITEM_SIZES = {"closest": 2, "rows": 2, "anyhit": 1}
+# Shared memory a block of kernel B may take, in bytes: the early-exit
+# walk stages a [tc, 9] chunk within the default 48 KiB, the items kernel
+# a ring of two [tc, 12] chunks within Hopper's opt-in 227 KiB, each less
+# its static slots.
+MT_WALK_SMEM = 48 * 1024 - 256
+MT_ITEMS_SMEM = 227 * 1024 - 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,8 +432,6 @@ def refine_cull(
     cuda.check("capm", capm, torch.float32, (n_tiles, r), dev)
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
-    if nc * 6 * 4 > 48 * 1024:
-        raise ValueError(f"{nc} chunks exceed the kernel's shared memory")
     out = torch.empty((n_tiles, nc), dtype=torch.bool, device=dev)
     cuda.call(
         "refine_cull", "rt_refine_cull",
@@ -622,6 +634,96 @@ def entries_tested(comp, payload, ids, counts, attr=None, ed=None, **kw) -> torc
     return _mt_twin(comp, payload, ids, counts, attr, ed, **kw)[1]
 
 
+# ----------------------------------------------------------------------
+# Kernel B's balanced design in plain PyTorch (csrc/mt_trace.cu): the
+# work items and the exact (t, pid) merge, mirrored for the tests and
+# the on-card checks.
+
+
+def hit_key(t: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
+    """int64 merge keys ordered like (t, pid) lexicographically (t as
+    floats, -0.0 taken as +0.0; 0 <= pid < 2^31).  Kernel B's unsigned
+    key ``ordered_bits(t) << 32 | pid`` minus 2^63, so that torch's
+    signed int64 orders them alike."""
+    t = torch.where(t == 0.0, torch.zeros_like(t), t)
+    bits = t.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return ordered * (1 << 32) + pid.to(torch.int64)
+
+
+def hit_key_decode(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hit_key`'s inverse -> (t f32, pid int32)."""
+    ordered = key >> 32
+    bits = torch.where(ordered < 0, ordered ^ 0x7FFFFFFF, ordered).to(torch.int32)
+    return bits.view(torch.float32), (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def mt_items(counts: torch.Tensor, per_item: int):
+    """Kernel B's work items -> (tile, k0, n) int64 [I], in item order:
+    tile t's list cut into ceil(counts[t] / per_item) slices of
+    ``per_item`` consecutive entries from k0 (the last one shorter).
+    Item i belongs to the last tile whose first item (the exclusive scan
+    of the tiles' item counts) is at most i, as the kernel finds it."""
+    n_items = (counts.to(torch.int64) + per_item - 1) // per_item
+    offsets = torch.cumsum(n_items, 0) - n_items
+    item = torch.arange(int(n_items.sum()), device=counts.device)
+    tile = torch.searchsorted(offsets, item, right=True) - 1
+    k0 = (item - offsets[tile]) * per_item
+    n = torch.clamp(counts[tile].to(torch.int64) - k0, max=per_item)
+    return tile, k0, n
+
+
+def mt_trace_split_reference(
+    comp, payload, ids, counts, attr=None, *, t_min, t_max, eps, mode, pid_base=0,
+    per_item: int | None = None, order: torch.Tensor | None = None,
+):
+    """Kernel B's balanced design (:func:`mt_trace_reference`'s
+    arguments, no early exit): the twin on each work item alone (the
+    tile's rays against its slice of the list), merged per ray in the
+    item order ``order`` (a permutation of :func:`mt_items`; None = item
+    order): the minimum :func:`hit_key` of the items that hit, or the
+    OR of the any-hit verdicts.  A tile of one item takes that item's
+    result as it is, as the kernel writes it.  ``per_item`` None takes
+    the kernel's size for ``mode`` (MT_ITEM_SIZES).  Equal to
+    :func:`mt_trace_reference` bit for bit in every order."""
+    per_item = MT_ITEM_SIZES[mode] if per_item is None else per_item
+    dev = payload.device
+    n_tiles, r = payload.shape[1], payload.shape[2]
+    tile, k0, n = mt_items(counts, per_item)
+    pos = torch.clamp(k0[:, None] + torch.arange(per_item, device=dev), max=ids.shape[1] - 1)
+    local = mt_trace_reference(
+        comp, payload[:, tile], ids[tile[:, None], pos], n.to(torch.int32),
+        t_min=t_min, t_max=t_max, eps=eps, pid_base=pid_base,
+        mode="anyhit" if mode == "anyhit" else "closest",
+    )
+    order = torch.arange(tile.numel(), device=dev) if order is None else order.to(dev)
+    # Merge wave w takes each tile's w-th item in `order`: a tile's items
+    # are folded one after another, in that order.
+    by_tile = torch.sort(tile[order], stable=True)
+    first = torch.searchsorted(by_tile.values, by_tile.values)
+    rank = torch.empty_like(first)
+    rank[by_tile.indices] = torch.arange(order.numel(), device=dev) - first
+    waves = [order[rank == w] for w in range(int(rank.max()) + 1 if rank.numel() else 0)]
+    if mode == "anyhit":
+        blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
+        for items in waves:
+            blocked[tile[items]] |= local[items]
+        return blocked
+    t_loc, pid_loc = local
+    miss = _f32(float(np.float32(t_max + 1.0)), dev)
+    key = hit_key(miss.expand(n_tiles, r), torch.zeros((n_tiles, r), dtype=torch.int32, device=dev))
+    k_loc = torch.where(t_loc < miss, hit_key(t_loc, pid_loc), key[0])
+    for items in waves:
+        key[tile[items]] = torch.minimum(key[tile[items]], k_loc[items])
+    t, pid = hit_key_decode(key)
+    single = (counts[tile] <= per_item).nonzero()[:, 0]
+    t[tile[single]] = t_loc[single]
+    pid[tile[single]] = pid_loc[single]
+    if mode == "rows":
+        return t, pid, attr[pid.to(torch.int64)].permute(2, 0, 1).contiguous()
+    return t, pid
+
+
 def mt_trace(
     comp: torch.Tensor,
     payload: torch.Tensor,
@@ -644,7 +746,11 @@ def mt_trace(
     (the sorted entry bounds of front-to-back lists) selects the
     early-exit variant of the closest and rows modes, counted as
     ``mt_trace[<mode>,early_exit]``.  CPU tensors run
-    :func:`mt_trace_reference`; CUDA tensors launch the kernel."""
+    :func:`mt_trace_reference`; CUDA tensors launch the kernel: without
+    ``ed``, balanced work items (MT_ITEM_SIZES entries) on a persistent
+    grid with an exact (t, pid) merge (two launches; see
+    :func:`mt_trace_split_reference`); with ``ed``, the per-tile walk
+    (one launch)."""
     if mode not in MT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
     if mode == "rows" and attr is None:
@@ -670,6 +776,9 @@ def mt_trace(
             raise ValueError(f"attr: {attr.shape[0]} rows, need at least {need}")
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
+    smem, limit = (tc * 9 * 4, MT_WALK_SMEM) if ed is not None else (tc * 24 * 4, MT_ITEMS_SMEM)
+    if smem > limit:
+        raise ValueError(f"tri_chunk {tc}: {smem} B of shared memory a block, over the {limit} B limit")
     out_t = out_pid = out_rows = out_blocked = None
     if mode == "anyhit":
         out_blocked = torch.empty((n_tiles, r), dtype=torch.bool, device=dev)
@@ -678,14 +787,22 @@ def mt_trace(
         out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
     if mode == "rows":
         out_rows = torch.empty((32, n_tiles, r), dtype=torch.float32, device=dev)
+    # The balanced design's scratch (csrc/mt_trace.cu): per-ray merge
+    # keys, and the item counter, per-tile item offsets and finished-item
+    # counts; the kernel initialises both.
+    keys = work = None
+    if ed is None:
+        work = torch.empty((2 * n_tiles + 3,), dtype=torch.int32, device=dev)
+        if mode != "anyhit":
+            keys = torch.empty((n_tiles, r), dtype=torch.int64, device=dev)
     cuda.call(
         mt_name(mode, ed is not None), "rt_mt_trace",
         payload.data_ptr(), comp.data_ptr(), ids.data_ptr(),
         counts.data_ptr(), cuda.ptr(attr if mode == "rows" else None),
         cuda.ptr(ed), cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
-        cuda.ptr(out_blocked), n_tiles, r, nc, tc, int(pid_base), float(t_min),
-        float(t_max), float(eps), float(np.float32(t_max + 1.0)),
-        MT_MODES.index(mode), EXIT_CHECK,
+        cuda.ptr(out_blocked), cuda.ptr(keys), cuda.ptr(work), n_tiles, r, nc, tc,
+        int(pid_base), float(t_min), float(t_max), float(eps),
+        float(np.float32(t_max + 1.0)), MT_MODES.index(mode), EXIT_CHECK,
     )
     if mode == "anyhit":
         return out_blocked

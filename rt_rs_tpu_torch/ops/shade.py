@@ -54,18 +54,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def _rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """``1 / sqrt(x)``, the square root and the quotient each correctly
-    rounded: XLA:CPU's ``rsqrt`` without FMA contraction (the stored JAX
-    frames), so the glue's rays and normals are the same bits on the
-    card as on the CPU.  Each device reaches it through another torch
-    call: the CPU's ``torch.rsqrt`` rounds so, but its vectorised
-    ``torch.sqrt`` is one ULP off on some values, while CUDA's
-    ``torch.sqrt`` is correctly rounded and its ``torch.rsqrt`` is the
-    approximate ``rsqrtf``."""
-    if x.is_cuda:
-        return _f32(1.0, x.device) / torch.sqrt(x)
-    return torch.rsqrt(x)
+# IEEE 1 / sqrt on every device, shared with the shading twins.
+_rsqrt = shade_tile._rsqrt
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,22 @@ from rt_rs_tpu_torch.ops.packet_trace import _f32
 SUBGROUP = 8  # tiles per liveness subgroup
 
 
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)``, the square root and the quotient each correctly
+    rounded: XLA:CPU's ``rsqrt`` without FMA contraction (the stored JAX
+    frames), and the shading kernels' ``1.0f / sqrtf`` (IEEE under the
+    build's flags), so the twins equal the kernels on the card and the
+    glue's rays and normals (``shade._rsqrt``) are the same bits on the
+    card as on the CPU.  Each device reaches it through another torch
+    call: the CPU's ``torch.rsqrt`` rounds so, but its vectorised
+    ``torch.sqrt`` is one ULP off on some values, while CUDA's
+    ``torch.sqrt`` is correctly rounded and its ``torch.rsqrt`` is the
+    approximate ``rsqrtf``."""
+    if x.is_cuda:
+        return _f32(1.0, x.device) / torch.sqrt(x)
+    return torch.rsqrt(x)
+
+
 def _hit_normal(rows, payload, t):
     """at + interpolated unit normal, op for op ``_hit_normal`` of the
     JAX package (corner rotation baked into the column order)."""
@@ -56,7 +72,7 @@ def _hit_normal(rows, payload, t):
     nx = rows[9] * vv + rows[12] * ww + rows[15] * uu
     ny = rows[10] * vv + rows[13] * ww + rows[16] * uu
     nz = rows[11] * vv + rows[14] * ww + rows[17] * uu
-    rn = torch.rsqrt(nx * nx + ny * ny + nz * nz)
+    rn = _rsqrt(nx * nx + ny * ny + nz * nz)
     return (hx, hy, hz), (nx * rn, ny * rn, nz * rn)
 
 
@@ -84,7 +100,7 @@ def shade_pre_reference(rows, payload, t, pid_f, live_sg, lights, emit_next: boo
         ddx, ddy, ddz = lx - hx, ly - hy, lz - hz
         s = ddx * ddx + ddy * ddy + ddz * ddz
         dist = torch.sqrt(s)
-        inv = torch.rsqrt(s)
+        inv = _rsqrt(s)
         ux, uy, uz = ddx * inv, ddy * inv, ddz * inv
         side = ux * nx + uy * ny + uz * nz
         off = _side_offset(side)
@@ -112,7 +128,7 @@ def shade_pre_reference(rows, payload, t, pid_f, live_sg, lights, emit_next: boo
         rx = dx - 2.0 * dn * nx
         ry = dy - 2.0 * dn * ny
         rz = dz - 2.0 * dn * nz
-        rr = torch.rsqrt(rx * rx + ry * ry + rz * rz)
+        rr = _rsqrt(rx * rx + ry * ry + rz * rz)
         rx, ry, rz = rx * rr, ry * rr, rz * rr
         rside = rx * nx + ry * ny + rz * nz
         roff = _side_offset(rside)
@@ -182,7 +198,7 @@ def shade_post_reference(
         lx, ly, lz, ls = lights[li, 0], lights[li, 1], lights[li, 2], lights[li, 3]
         ddx, ddy, ddz = lx - hx, ly - hy, lz - hz
         s = ddx * ddx + ddy * ddy + ddz * ddz
-        inv = torch.rsqrt(s)
+        inv = _rsqrt(s)
         ux, uy, uz = ddx * inv, ddy * inv, ddz * inv
         if blocked_mode:
             shadowed = sh_t[li] > 0.0
