@@ -30,7 +30,10 @@ device="cuda")``:
   mxu_mt.py, tpose_table.py) as ``rt_rs_tpu_torch.experiments``: the
   practical f32 rate, the matrix-product and transposed-table closest
   hits on ``torus_scene``'s 1080p primaries, and the canyon rendered
-  through the transposed table.
+  through the transposed table;
+* ``chain``: ``Renderer.animate(chain=K)``, one replay of a captured
+  CUDA graph of K orbit frames per dispatch, on every frame path above
+  (torus, segmented and dma canyon, knobs, flat, blank, naive).
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -64,10 +67,11 @@ exits nonzero without printing a result):
    mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to its
    twin, [high] and [default] within ``mxu_mt.TF32_BOUNDS`` of highest.
 4. Paths.  Launch counters are reset right before each path and read
-   right after it; every kernel of the path must have launched.
+   right after it; every kernel of the path must have launched (the
+   ``chain`` path runs last, as phase 8).
    torus: the 96x72 frame against the JAX package's stored frame
    (tests/data/torch_port_torus_96x72.npz, atol 2e-5), 384x288 and
-   1920x1080 frames and orbits (60 and 12 frames).  segmented and dma:
+   1920x1080 frames and orbits (30 and 12 frames).  segmented and dma:
    ``torus_row(2)`` at 96x72 against the JAX package's stored frame
    (tests/data/torch_port_torus_row2_96x72.npz, atol 2e-5); segmented
    also ``gather_band_torus()`` (one table past the rows table's cap:
@@ -75,12 +79,12 @@ exits nonzero without printing a result):
    (tests/data/torch_port_gather_band_32x16.npz, atol 2e-5), its
    distance from the port's CPU frame printed; the canyon
    at 640x480 (both) and 1920x1080 (segmented): finite, not black,
-   orbits of 30 and 12 frames; the canyon's segmented and DMA frames at
+   orbits of 16 and 12 frames; the canyon's segmented and DMA frames at
    640x480 must be bit-equal.  knobs: the 96x72 frames of
    ``torus_scene`` and of segmented ``torus_row(2)`` against the stored
    frames; every other knob frame bit-equal to the default path's frame
    of the same scene and size (torus 384x288 and 1080p, then orbits of
-   60 and 12 frames; the canyon at 640x480; a camera with pos == at);
+   30 and 12 frames; the canyon at 640x480; a camera with pos == at);
    early exit's sort of NaN keys equal on the card and the CPU.  flat:
    the glue's rsqrt bit-equal to IEEE ``1 / sqrt``; ``torus_ghost()`` at 96x72 and ``ghost_scene(-1)`` / ``(1)`` at
    64x48 against the JAX package's stored frames
@@ -113,14 +117,29 @@ exits nonzero without printing a result):
    and each mt_trace call's list lengths.  The default-mode mt_trace
    calls in one table: the three above, the torus 1080p primary rows
    call and the flat ``torus_ghost()`` 1080p frame's busiest closest
-   call.
+   call.  shade_post also at the torus 1080p frame's shapes.
 7. Where the time goes: torch.profiler over canyon frames (default and
    early exit) and torus 1080p frames (default and knobs), device time
    by kernel kind and the device's idle share, and over flat
    ``torus_ghost()`` 1080p frames.
+8. The ``chain`` path (:func:`phase_chain`; last, because single-call
+   profiles taken after graph captures lost kernels): each case of
+   CHAIN captures its graphs (a host read or a host-to-device copy
+   inside a frame makes the capture raise); frame 0 of a replay equals
+   eager ``render_frame``, frames 1..K-1 eager frames at the f32 cameras
+   the graph wrote out, a second replay the first, bit for bit; N
+   chained frames launch what N eager frames launch, kernel by kernel,
+   with the counts set to 0 just before and read just after, and leave
+   the host camera where the eager loop does; the device bytes of the
+   1080p graphs; the eager orbit against chain=16 (and chain=4 at
+   1080p) in interleaved turns (AB_ORDER), each with the device's idle
+   share.  The turns run in a process of their own (``python3
+   chip_smoke.py --chain-turns``), which never runs torch.profiler:
+   once used, it left each later eager launch of the process slower.
 
 The second-to-last lines are JSON objects of frame times (with the
-A/B and the mt_trace calls) and of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
+chain phase, the A/B, the mt_trace calls and shade_post at 1080p) and
+of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -157,10 +176,10 @@ TORUS_REPLAY = (384, 288)
 CANYON_REPLAY = (640, 480)
 # path -> frame sizes driven (name -> width, height, orbit frames)
 SIZES = {
-    "torus": {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)},
-    "segmented": {"640x480": (640, 480, 30), "1920x1080": (1920, 1080, 12)},
-    "dma": {"640x480": (640, 480, 30)},
-    "flat": {"384x288": (384, 288, 60), "1920x1080": (1920, 1080, 12)},
+    "torus": {"384x288": (384, 288, 30), "1920x1080": (1920, 1080, 12)},
+    "segmented": {"640x480": (640, 480, 16), "1920x1080": (1920, 1080, 12)},
+    "dma": {"640x480": (640, 480, 16)},
+    "flat": {"384x288": (384, 288, 30), "1920x1080": (1920, 1080, 12)},
 }
 # the probes' rays: torus_scene's primaries at this size (the JAX mains')
 PROBE_SIZE = (1920, 1080)
@@ -242,6 +261,11 @@ PATHS = {
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
+    # animate(chain=K): the frame paths above inside captured CUDA graphs
+    "chain": (
+        "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]",
+        "mt_trace[rows,early_exit]", "mt_stream", "shade_pre", "shade_post", "shade_bounce",
+    ),
 }
 # The knobs path's torus and segmented frames: the fused bounce kernel
 # and early exit (Renderer kwargs, handler kwargs).
@@ -258,6 +282,23 @@ GLUE_KNOBS = {
 # The A/Bs (experiments/early_exit_ab.py's protocol): orbits in
 # interleaved turns, the knob off (False) and on (True).
 AB_ORDER = (False, True, True, False, False, True)
+# The chain phase (Renderer.animate(chain=K): a replay of a captured CUDA
+# graph of K orbit frames per dispatch): case -> (Renderer factory, K,
+# orbit frames N).  K = 16 is bench.py's; N is a multiple of K, so that
+# N chained frames launch what N eager frames launch.
+CHAIN = {
+    "torus 384x288": (lambda: renderer(384, 288), 16, 32),
+    "torus 1920x1080": (lambda: renderer(1920, 1080), 16, 16),
+    "canyon segmented 640x480": (lambda: canyon(640, 480, "segmented"), 16, 16),
+    "canyon segmented 1920x1080": (lambda: canyon(1920, 1080, "segmented"), 16, 16),
+    "canyon dma 640x480": (lambda: canyon(640, 480, "dma"), 16, 16),
+    "knobs torus 384x288": (lambda: renderer(384, 288, knobs=KNOBS[0], **KNOBS[1]), 16, 16),
+    "flat torus_ghost 384x288": (lambda: ghost(384, 288), 16, 16),
+    "blank 384x288": (lambda: renderer(384, 288, handler="blank"), 16, 32),
+    "naive 96x72": (lambda: renderer(96, 72, handler="naive"), 2, 2),
+}
+# cases also timed at chain=4, and whose graphs' device bytes are read
+CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
 # f32 outside the tensor cores, dense TF32 on the tensor cores, and HBM3
@@ -453,6 +494,13 @@ def canyon(width: int, height: int, mode: str, **handler_kwargs):
     from rt_rs_tpu_torch.scene.presets import torus_canyon
 
     return renderer(width, height, torus_canyon(), streaming_mode=mode, **handler_kwargs)
+
+
+def ghost(width: int, height: int):
+    """``torus_ghost()`` (a negative-material scene: the flat path)."""
+    from rt_rs_tpu_torch.scene.presets import torus_ghost
+
+    return renderer(width, height, torus_ghost())
 
 
 class TposeCanyon:
@@ -1145,6 +1193,8 @@ def phase_paths(card: str):
 
     counts, frame_ms, first, kept = {}, {}, {}, {}
     for path, needed in PATHS.items():
+        if path == "chain":  # phase_chain
+            continue
         reset_counts()
         if path == "knobs":
             ms, kept[path] = drive_knobs(card, first)
@@ -1180,6 +1230,215 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def same_bits(what: str, a, b) -> None:
+    """Bit-equal tensors (NaN where the other is NaN)."""
+    import torch
+
+    nan = torch.isnan(a)
+    if not (a.shape == b.shape and torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])):
+        raise AssertionError(f"{what}: not bit-equal (max abs {max_abs(a, b)})")
+
+
+def device_bytes() -> tuple[int, int]:
+    """(bytes the caching allocator holds, bytes in use on the card),
+    with the allocator's unused cache released first."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return torch.cuda.memory_reserved(), total - free
+
+
+def check_chain(label: str, r, k: int, mult: float) -> dict:
+    """Checks (a)-(d) of one chain case: (a) the first dispatch captures
+    its graph (a host read or a host-to-device copy in the frame makes the
+    capture raise); (b) its frame 0 equals eager ``render_frame`` at the
+    same camera and (c) frames 1..K-1 equal eager frames at the f32
+    cameras the graph wrote out, bit for bit; (d) a second replay gives
+    the same bits.  -> the capture's seconds and device bytes: the
+    chains' buffers of this K, the graph memory pool's growth, and what
+    the card gave outside the caching allocator (the graph itself)."""
+    import torch
+
+    held0, used0 = device_bytes()
+    t0 = time.perf_counter()
+    frames, poses, h = r._run_chain(k, mult)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    held1, used1 = device_bytes()
+    io_bytes = (frames.numel() + poses.numel() + 7) * 4
+    frames, poses = frames.clone(), poses.clone()
+    same_bits(f"chain {label} frame 0 vs render_frame", frames[0], r.render_frame())
+    at = r._camera_tensor(r.camera.at)
+    host, drift = r.camera, 0.0
+    for j in range(1, k):
+        eager = r._render(h, poses[j], at)
+        same_bits(f"chain {label} frame {j} vs the eager frame at its camera", frames[j], eager)
+        host = host.orbited(mult)
+        drift = max(drift, max_abs(poses[j].double().cpu(), torch.tensor(host.pos, dtype=torch.float64)))
+    again, poses2, _ = r._run_chain(k, mult)
+    same_bits(f"chain {label} second replay", again, frames)
+    same_bits(f"chain {label} second replay's cameras", poses2, poses)
+    check_frame(f"chain {label} frame {k - 1}", frames[k - 1], r.width, r.height, black=label.startswith("blank"))
+    return dict(
+        capture_s=capture_s,
+        io_mb=io_bytes / 1e6,
+        pool_mb=(held1 - held0 - io_bytes) / 1e6,
+        outside_mb=((used1 - used0) - (held1 - held0)) / 1e6,
+        f32_camera_drift=drift,
+    )
+
+
+def chain_orbit(r, n: int, mult: float, k: int | None, start):
+    """``r.animate`` over ``n`` orbit frames from camera ``start``, one
+    sync at the end -> (ms/frame by CUDA events, ms/frame on the host
+    clock); ``k`` None is the eager loop."""
+    import torch
+
+    r.camera = start
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    s.record()
+    r.animate(n, orbit_mult=mult, sync_every=n, chain=k)
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def busy_ms(r, frames: int = 2) -> float:
+    """Device ms per eager frame (torch.profiler, the sum of its kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r.render_frame()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            r.render_frame(block=False)
+            r.orbit(1.0)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type != DeviceType.CPU)
+    return us / 1e3 / frames
+
+
+def chain_modes(label: str, k: int) -> dict[str, int | None]:
+    """A chain case's timed modes: the eager loop, chain=K, and chain=4
+    for CHAIN4."""
+    modes = {"eager": None, f"chain={k}": k}
+    if label in CHAIN4:
+        modes["chain=4"] = 4
+    return modes
+
+
+def chain_turns() -> None:
+    """``python3 chip_smoke.py --chain-turns``: the chain phase's timing,
+    in a process of its own that never runs torch.profiler (once used in
+    a process, it left each later eager launch slower: PERF.md §6).
+    Per case of CHAIN: one warm-up orbit per mode (the eager frames'
+    set-up, every dispatch's graph), then the modes' orbits in
+    interleaved turns (AB_ORDER), ms/frame by CUDA events.  Prints one
+    JSON line: case -> mode -> ms per turn."""
+    from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
+
+    out = {}
+    for label, (make, k, n) in CHAIN.items():
+        r = make()
+        start, mult = r.camera, 2.0 * math.pi / n / ORBIT_RATE
+        modes = chain_modes(label, k)
+        for kk in modes.values():
+            chain_orbit(r, n, mult, kk, start)
+        ms = {m: [] for m in modes}
+        for on in AB_ORDER:
+            for m, kk in modes.items():
+                if (kk is not None) == on:
+                    ms[m].append(chain_orbit(r, n, mult, kk, start)[0])
+        out[label] = ms
+    print(json.dumps(out), flush=True)
+
+
+def phase_chain(card: str) -> tuple[dict[str, int], dict]:
+    """``Renderer.animate(chain=K)`` on every frame path (CHAIN): the
+    checks of :func:`check_chain`; then (e) the launch counts of N
+    chained frames (all graphs captured, counts set to 0 just before and
+    read just after) equal N eager frames', kernel by kernel, and (f) the
+    host camera after them equals the eager loop's; the device busy time
+    of profiled eager frames; then the eager orbit against chain=K (and
+    chain=4, CHAIN4) in interleaved turns (:func:`chain_turns`, in a
+    process of its own), with the device's idle share of each: busy over
+    each wall.  -> (the chained runs' launches, summed over the cases;
+    the results by case)."""
+    from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
+
+    total: collections.Counter[str] = collections.Counter()
+    summary = {}
+    for label, (make, k, n) in CHAIN.items():
+        r = make()
+        start = r.camera
+        mult = 2.0 * math.pi / n / ORBIT_RATE
+        r.render_frame()  # eager warm-up
+        res = check_chain(label, r, k, mult)
+        if label in CHAIN4:
+            res["chain4"] = check_chain(label, r, 4, mult)
+        r.animate(n, orbit_mult=mult, chain=k)  # captures every dispatch's graph
+        r.camera = start
+        reset_counts()
+        r.animate(n, orbit_mult=mult, chain=k)
+        chained, cam_chain = read_counts(), r.camera
+        r.camera = start
+        reset_counts()
+        r.animate(n, orbit_mult=mult)
+        eager, cam_loop = read_counts(), r.camera
+        if chained != eager:
+            diff = {x: (chained[x], eager[x]) for x in KERNELS if chained[x] != eager[x]}
+            raise AssertionError(f"chain {label}: launches (chained, eager) differ: {diff}")
+        if cam_chain != cam_loop:
+            raise AssertionError(f"chain {label}: host camera {cam_chain} != the loop's {cam_loop}")
+        total.update(chained)
+        r.camera = start
+        launched = {x: c for x, c in chained.items() if c}
+        res.update(busy_ms=busy_ms(r), launches=launched)
+        summary[label] = res
+        extra = ""
+        if label in CHAIN4:
+            c4 = res["chain4"]
+            extra = (
+                f"; bytes: K={k} buffers {res['io_mb']:.1f} MB, graph pool {res['pool_mb']:.1f} MB, "
+                f"outside the allocator {res['outside_mb']:.1f} MB; K=4 buffers {c4['io_mb']:.1f} "
+                f"MB, pool {c4['pool_mb']:.1f} MB, outside {c4['outside_mb']:.1f} MB"
+            )
+        say(
+            f"[chain] {label}: K={k}, N={n}: captured in {res['capture_s']:.2f} s; frame 0 = "
+            f"render_frame, frames 1..{k - 1} = eager frames at the graph's f32 cameras (max "
+            f"{res['f32_camera_drift']:.3g} from the f64 orbit), a second replay alike: bit for "
+            f"bit; launches of {n} chained frames = {n} eager frames' {launched}; host camera "
+            f"= the loop's{extra}"
+        )
+        del r
+    missing = [x for x in PATHS["chain"] if total[x] == 0]
+    if missing:
+        raise AssertionError(f"chain: kernels never launched on the path: {missing}")
+    say(f"[launches] chain: {dict(+total)}")
+    turns = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--chain-turns"],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True, check=True,
+    ).stdout
+    for label, ms in json.loads(turns.strip().splitlines()[-1]).items():
+        res = summary[label]
+        busy = res["busy_ms"]
+        idle = {m: 1.0 - busy / sorted(v)[len(v) // 2] for m, v in ms.items()}
+        res.update(ms=ms, idle_share=idle)
+        say(
+            f"[chain time] {label}: ms/frame (CUDA events, orbits of {CHAIN[label][2]}, turns "
+            f"{AB_ORDER}, a process of their own) "
+            + ", ".join(f"{m} {[round(x, 3) for x in v]}" for m, v in ms.items())
+            + f"; device busy {busy:.3f} ms/frame (profiled eager frames), idle share "
+            + ", ".join(f"{m} {v:.3f}" for m, v in idle.items())
+            + f"; {card}"
+        )
+    return {x: total[x] for x in KERNELS}, summary
 
 
 # ----------------------------------------------------------------------
@@ -1420,10 +1679,10 @@ def phase_ab(card: str) -> tuple[dict, dict]:
     cases = {
         "early_exit torus 1920x1080": (lambda on: renderer(1920, 1080, early_exit=on), 12),
         "early_exit canyon segmented 640x480": (
-            lambda on: canyon(640, 480, "segmented", early_exit=on), 30,
+            lambda on: canyon(640, 480, "segmented", early_exit=on), 16,
         ),
         "fuse_bounce torus 384x288": (
-            lambda on: renderer(384, 288, knobs={"fuse_bounce": on}), 60,
+            lambda on: renderer(384, 288, knobs={"fuse_bounce": on}), 30,
         ),
     }
     summary, recorded = {}, {}
@@ -1637,6 +1896,18 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         )
     with Recorder() as rec:
         kept["torus"]["1920x1080"].render_frame()
+    # shade_post at the torus 1080p frame's shapes (bounce 0's call), where
+    # its body and not one launch's ramp sets its time.
+    a, kw, _ = rec.calls["shade_post"][0]
+    k_ms = profiled(lambda: st.shade_post(*a, **kw))[1]
+    b_ms, by = bound("shade_post", a, kw)
+    t_ms = time_ms(lambda: st.shade_post_reference(*a, **kw), 2)
+    times["shade_post 1920x1080"] = (k_ms, t_ms, b_ms, by, None)
+    say(
+        f"[time] shade_post torus 1920x1080 bounce 0 ({a[2].shape[0]} tiles): kernel {k_ms:.4f} "
+        f"ms (device, profiler), twin {t_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"{b_ms / k_ms:.2f} of the bound; {card}"
+    )
     ghost = recorded["flat torus_ghost 1080p"]["mt_trace"]
     mt_calls = {
         "mt_trace[closest] canyon segmented 640x480, busiest call": picks["mt_trace[closest]"][2],
@@ -1727,6 +1998,9 @@ def main(full: bool = True) -> None:
         recorded, torus_1080_ee, kept, kept["probes"]["rates"]["separate"], card
     )
     phase_profile(kept, card)
+    # Last: the phases above time single calls with torch.profiler, whose
+    # traces lost kernels when they ran after graphs were captured.
+    counts["chain"], frame_ms["chain"] = phase_chain(card)
     kernels = [
         {
             "name": name,
@@ -1749,7 +2023,15 @@ def main(full: bool = True) -> None:
         }
         for name, (src, rep) in KERNELS.items()
     ]
-    say(json.dumps({"frame_ms": frame_ms, "ab": ab, "mt_calls": mt_calls, "card": card}))
+    say(
+        json.dumps(
+            {
+                "frame_ms": frame_ms, "ab": ab, "mt_calls": mt_calls,
+                "shade_post_1080p": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["shade_post 1920x1080"])),
+                "card": card,
+            }
+        )
+    )
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(
@@ -1767,4 +2049,7 @@ def main(full: bool = True) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--chain-turns"]:
+        chain_turns()
+    else:
+        main()

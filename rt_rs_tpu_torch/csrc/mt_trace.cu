@@ -500,35 +500,46 @@ __global__ void __launch_bounds__(1024) mt_trace_items_kernel(
   cp_async_wait_all();
 }
 
-// Resident blocks of the items kernel on the whole card, per mode,
-// cached for the last (device, ray tile, shared memory) seen.  A ring
-// over the default 48 KiB opts in to more first.  0 on failure.
+// The items kernel's launch shape for one (device, ray tile, shared
+// memory): the card's SMs and the resident blocks on all of them.
+struct Residency {
+  int dev, r;
+  size_t smem;
+  int sms, blocks;
+};
+
+// Residency per mode, cached for every key seen (a frame alternates ray
+// tiles under the `narrow` knob), so that once a frame has run eagerly
+// its calls make no attribute or occupancy query: a CUDA graph capture
+// of the frame then records launches only, with the grid the eager call
+// used.  A ring over the default 48 KiB opts in to more first.  Blocks
+// 0 on failure.
 template <int MODE>
-int persistent_blocks(int r, size_t smem) {
-  static int key_dev = -1, key_r = -1, blocks = 0;
-  static size_t key_smem = 0;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev != key_dev || r != key_r || smem != key_smem) {
-    int sms = 0, per_sm = 0;
-    if ((smem > 48 * 1024 &&
-         cudaFuncSetAttribute(mt_trace_items_kernel<MODE>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem) != cudaSuccess) ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, mt_trace_items_kernel<MODE>, r, smem) != cudaSuccess ||
-        per_sm <= 0) {
-      cudaGetLastError();  // not sticky: the caller reports its own code
-      return 0;
-    }
-    key_dev = dev;
-    key_r = r;
-    key_smem = smem;
-    blocks = sms * per_sm;
+Residency persistent_blocks(int r, size_t smem) {
+  constexpr int kKeys = 8;
+  static Residency seen[kKeys];
+  static int n_seen = 0;
+  Residency out{-1, r, smem, 0, 0};
+  if (cudaGetDevice(&out.dev) != cudaSuccess) return out;
+  for (int i = 0; i < n_seen && i < kKeys; ++i)
+    if (seen[i].dev == out.dev && seen[i].r == r && seen[i].smem == smem)
+      return seen[i];
+  int per_sm = 0;
+  if ((smem > 48 * 1024 &&
+       cudaFuncSetAttribute(mt_trace_items_kernel<MODE>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)smem) != cudaSuccess) ||
+      cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount,
+                             out.dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mt_trace_items_kernel<MODE>, r, smem) != cudaSuccess ||
+      per_sm <= 0) {
+    cudaGetLastError();  // not sticky: the caller reports its own code
+    return out;
   }
-  return blocks;
+  out.blocks = out.sms * per_sm;
+  seen[n_seen++ % kKeys] = out;
+  return out;
 }
 
 template <int MODE>
@@ -540,11 +551,9 @@ int launch_items(const float* payload, const float* comp, const int* ids,
                  float eps, float miss, cudaStream_t stream) {
   constexpr int E = item_entries<MODE>();
   const size_t smem = 2 * (size_t)tc * 12 * sizeof(float);
-  const int resident = persistent_blocks<MODE>(r, smem);
+  const Residency res = persistent_blocks<MODE>(r, smem);
+  const int resident = res.blocks, sms = res.sms;
   if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  int sms = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long plane = (long)n_tiles * r;
   const long pro_blocks = (plane + kPrologueThreads - 1) / kPrologueThreads;
   mt_trace_prologue_kernel<MODE>

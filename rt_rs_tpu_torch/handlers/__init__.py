@@ -2,9 +2,10 @@
 
 Counterpart of ``rt_rs_tpu/handlers/__init__.py``.  Ported: ``pbvh``
 (the packet kernels of the frame paths), ``naive`` (brute force, the
-cross-check) and ``blank`` (every ray misses, the overhead baseline);
-asking for any other handler raises a ``KeyError`` that lists what is
-available.
+cross-check) and ``blank`` (every ray misses, the overhead baseline).
+A handler of the JAX package that is not ported yet raises
+``NotImplementedError`` naming the ROADMAP item that ports it; any other
+name raises ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,16 +18,19 @@ from rt_rs_tpu_torch.handlers.naive import BasicIntrs
 from rt_rs_tpu_torch.handlers.pbvh import PacketBvhIntrs
 
 _REGISTRY = {"blank": BlankIntrs, "naive": BasicIntrs, "pbvh": PacketBvhIntrs}
+# The JAX package's other handlers -> the ROADMAP §1 item that ports them.
+_NOT_PORTED = {"bvh": 4, "rf_bvh": 4, "lbvh": 6}
 
 
 def get_handler(name: str, **kwargs: Any) -> IntrsHandler:
-    try:
-        factory = _REGISTRY[name]
-    except KeyError:
-        raise KeyError(
-            f"handler {name!r} is not ported to rt_rs_tpu_torch; "
-            f"available: {available()}"
-        ) from None
+    factory = _REGISTRY.get(name)
+    if factory is None:
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"handler {name!r} is not ported to rt_rs_tpu_torch yet (ROADMAP "
+                f"§1 item {_NOT_PORTED[name]}); available: {available()}"
+            )
+        raise ValueError(f"unknown handler {name!r}; available: {available()}")
     return factory(**kwargs)
 
 

@@ -3,7 +3,7 @@
 Only :func:`reorder_scene_arrays` of ``rt_rs_tpu/handlers/bvh.py`` is
 ported: the pbvh handler packs its chunk table in the BVH's leaf order.
 The threaded-traversal ``bvh`` handler itself is not ported yet
-(ROADMAP module item 11).
+(ROADMAP §1 item 4).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ The JAX handler's knobs are taken with the same names and defaults
 (``early_exit``, ``cull_block``, ``refine``, ``ray_tile``,
 ``tri_chunk``, ``data`` / ``path``); each changes the work, never the
 frame.  The dual-granularity table (``tri_chunk_fine``) is not ported
-yet (ROADMAP module item 10): it raises ``NotImplementedError``.
+yet (ROADMAP §1 item 5): it raises ``NotImplementedError``.
 ``interpret`` and ``collapse`` are not taken: the first picks the
 Pallas interpreter, the second a Mosaic pipeline trick, and neither has
 a visible effect to port.
@@ -41,7 +41,7 @@ from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to rt_rs_tpu_torch yet (ROADMAP module item 10)"
+        f"{what} is not ported to rt_rs_tpu_torch yet (ROADMAP §1 item 5)"
     )
 
 

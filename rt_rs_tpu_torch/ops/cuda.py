@@ -28,6 +28,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+from typing import Callable
 
 import torch
 
@@ -141,8 +142,24 @@ def library() -> ctypes.CDLL:
 
 # Kernel launches by wrapper name (mt_trace by mode, e.g. "mt_trace[rows]"),
 # counted by `call` once per launched kernel: a run shows from these that
-# it went through the kernels.  `LAUNCHES.clear()` resets them.
+# it went through the kernels.  `LAUNCHES.clear()` resets them.  A CUDA
+# graph's launches are counted at each replay (`captured_launches`).
 LAUNCHES: collections.Counter[str] = collections.Counter()
+
+
+def captured_launches(capture: Callable[[], None]) -> collections.Counter[str]:
+    """Run ``capture``, a CUDA graph capture, whose wrapper calls record
+    their kernels in the graph and launch nothing -> the launches they
+    recorded, which each replay of the graph makes.  ``LAUNCHES`` is
+    left as it was before the capture."""
+    before = LAUNCHES.copy()
+    try:
+        capture()
+    finally:
+        recorded = LAUNCHES - before
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+    return recorded
 
 
 def call(counter: str, name: str, *args) -> None:

@@ -135,7 +135,7 @@ def closest_hit_bruteforce(
         return torch.cat([a, a.new_zeros((pad, 3))])
 
     pa_, pb_, pc_ = pad3(pa), pad3(pb), pad3(pc)
-    miss = torch.tensor(t_max + 1.0, dtype=torch.float32, device=o.device)
+    miss = torch.full((), t_max + 1.0, dtype=torch.float32, device=o.device)
     best_t = miss.expand(n).clone()
     best_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
     iota = torch.arange(chunk, dtype=torch.int32, device=o.device)[None, :]

@@ -63,9 +63,10 @@ def block_lists(
     t_tiles, nc = overlap.shape
     nb = -(-nc // cpb)
     bits = torch.nn.functional.pad(overlap, (0, nb * cpb - nc)).to(torch.int32)
-    weights = torch.from_numpy(
-        np.left_shift(np.int32(1), np.arange(cpb, dtype=np.int32))
-    ).to(overlap.device)
+    # 1 << j made on the device (no host copy); bit 31 wraps to -2^31 as
+    # in NumPy's int32 shift.
+    one = torch.ones((), dtype=torch.int64, device=overlap.device)
+    weights = (one << torch.arange(cpb, device=overlap.device)).to(torch.int32)
     words = (bits.reshape(t_tiles, nb, cpb) * weights).sum(dim=-1, dtype=torch.int32)
     block_any = (words.reshape(t_tiles // TILE_GROUP, TILE_GROUP, nb) != 0).any(dim=1)
     key = (~block_any).to(torch.int32)

@@ -200,8 +200,11 @@ def build_tri_chunks(
 def _f32(x: float, device: torch.device) -> torch.Tensor:
     """A float32 scalar on ``device``: keeps every constant of the
     twins in f32 and every division tensor-by-tensor (a CUDA tensor
-    divided by a host scalar is computed as a reciprocal multiply)."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    divided by a host scalar is computed as a reciprocal multiply).
+    Filled on the device (``x`` rounded to f32 as ``torch.tensor``
+    rounds it), so a frame makes no host-to-device copy and can be
+    captured in a CUDA graph."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 # ----------------------------------------------------------------------

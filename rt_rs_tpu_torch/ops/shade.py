@@ -135,7 +135,9 @@ def _pixel_grid(
         ys = ys + _f32(y_offset, device)
     ys = ys / _f32(height, device) - 0.5
     if block is None:
-        return xs.repeat(rows), ys.repeat_interleave(width), rows * width
+        # expand, not repeat_interleave: its size is known without a
+        # device read, so the frame stays capturable in a CUDA graph
+        return xs.repeat(rows), ys[:, None].expand(rows, width).reshape(-1), rows * width
     rp, wp = padded_block_dims(width, rows, block)
     xi = torch.clamp(torch.arange(wp, device=device), max=width - 1)
     yi = torch.clamp(torch.arange(rp, device=device), max=rows - 1)
@@ -154,7 +156,7 @@ def _primary_dirs(
     either."""
     dev = camera_pos.device
     dir_ = _normalize((camera_at - camera_pos)[None, :])[0]
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    up = torch.eye(3, dtype=torch.float32, device=dev)[1]  # (0, 1, 0), made on the device
     right = _cross(dir_, up)
     px = right[0] * norm_x + up[0] * norm_y + camera_pos[0] + dir_[0]
     py = right[1] * norm_x + up[1] * norm_y + camera_pos[1] + dir_[1]

@@ -11,16 +11,22 @@ material).  PyTorch runs eagerly, so there is no compile step.  On a
 CUDA device every kernel of the frame is a hand-written CUDA kernel; on
 the CPU the same calls run their plain-PyTorch twins.
 
-Not ported yet: ``animate(chain>1)`` and ``DynamicRenderer`` (ROADMAP
-module item 12).
+``animate(chain=K)`` renders K orbit frames per dispatch, the orbit
+advanced in f32 between them: on a CUDA device one replay of a captured
+CUDA graph, on the CPU the same frames eagerly.  ``render_frame`` stays
+eager.
+
+Not ported yet: ``DynamicRenderer`` (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
 
+import collections
 import copy
+import dataclasses
 import time
 import warnings
-from typing import Any, Callable
+from typing import Any, Callable, Hashable
 
 import numpy as np
 import torch
@@ -28,8 +34,17 @@ import torch
 from rt_rs_tpu_torch.config import ComputeConfig, Config
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
-from rt_rs_tpu_torch.ops import shade
+from rt_rs_tpu_torch.ops import cuda, shade
 from rt_rs_tpu_torch.scene import Scene
+from rt_rs_tpu_torch.scene.camera import orbit_f32
+
+# Chains kept per Renderer, least recently used evicted first: one per
+# (K, segment order, config, knobs).  seg_order="auto" gives at most 26
+# orders, so every order of one K fits.  On a CUDA device an entry is a
+# captured graph; the K frames' buffers are shared by the graphs of one
+# K, and their intermediates by all graphs in one memory pool, so an
+# entry adds little device memory of its own (PERF.md §6).
+CHAIN_CACHE_LIMIT = 32
 
 
 def _segmented_parts(accel):
@@ -65,6 +80,61 @@ def device_sync(x: torch.Tensor) -> None:
     """Wait until the device has finished ``x`` (a no-op on the CPU)."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+class LruCache:
+    """A mapping of at most ``limit`` entries that evicts the least
+    recently used one."""
+
+    def __init__(self, limit: int):
+        if limit < 1:
+            raise ValueError(f"cache limit {limit} must be at least 1")
+        self.limit = limit
+        self._entries: collections.OrderedDict[Hashable, Any] = collections.OrderedDict()
+
+    def get(self, key: Hashable, make: Callable[[], Any]) -> Any:
+        """The entry of ``key``, made by ``make()`` on a miss."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return self._entries[key]
+        value = make()
+        self._entries[key] = value
+        while len(self._entries) > self.limit:
+            self._entries.popitem(last=False)
+        return value
+
+    def keys(self) -> list:
+        """Keys from the least to the most recently used."""
+        return list(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+@dataclasses.dataclass
+class _ChainIO:
+    """The fixed buffers of the chains of one K: the camera inputs
+    (filled before each dispatch) and the K frames [K, H, W, 3] with the
+    f32 camera positions [K, 3] they were rendered at (overwritten by
+    each dispatch)."""
+
+    pos: torch.Tensor
+    at: torch.Tensor
+    mult: torch.Tensor
+    frames: torch.Tensor
+    poses: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Chain:
+    """A cache entry: on a CUDA device the captured graph of K frames
+    and the kernel launches each replay makes; on the CPU no graph."""
+
+    graph: Any = None
+    launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
 
 class Renderer:
@@ -134,6 +204,9 @@ class Renderer:
         self.accel, self.arrays = self.handler.build(scene, arrays)
         self.stats: IntrsStats = self.handler.stats(self.accel)
         self._entries: dict[int, tuple] = {}
+        self._chains = LruCache(CHAIN_CACHE_LIMIT)
+        self._chain_io: dict[int, _ChainIO] = {}
+        self._graph_pool = None  # the chains' shared CUDA graph memory pool
 
         self.seg_order = seg_order
         self._order_handlers: dict[tuple[int, ...], IntrsHandler] = {}
@@ -223,29 +296,31 @@ class Renderer:
             self._entries[id(h)] = entries
         return entries
 
-    def _camera_tensor(self, v) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.float32, device=self.device)
+    def _host_f32(self, v) -> torch.Tensor:
+        """A host vector as an f32 CPU tensor, pinned when the device is
+        a card, so that copying it there does not wait for the device."""
+        t = torch.tensor(v, dtype=torch.float32)
+        return t.pin_memory() if self.device.type == "cuda" else t
 
-    def render_frame(self, block: bool = True) -> torch.Tensor:
-        """Render one frame -> [H, W, 3] float32 tensor on the device.
-        ``block`` waits for the device to finish it."""
-        intersect_fn, rows_fn, anyhit_fn = self._bound(self._frame_handler())
+    def _camera_tensor(self, v) -> torch.Tensor:
+        return self._host_f32(v).to(self.device, non_blocking=True)
+
+    def _render(self, h: IntrsHandler, pos: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+        """One frame through ``h``'s entries from the f32 camera tensors
+        ``pos`` and ``at`` [3] -> [H, W, 3]: the tiled path, or the flat
+        one for a negative-material scene."""
+        intersect_fn, rows_fn, anyhit_fn = self._bound(h)
         if not self.arrays.no_negative_materials:
-            out = shade.render(
-                self.arrays, intersect_fn, self.config.compute,
-                self._camera_tensor(self.camera.pos),
-                self._camera_tensor(self.camera.at),
+            return shade.render(
+                self.arrays, intersect_fn, self.config.compute, pos, at,
                 self.width, self.height, block=self.block,
             )
-            if block:
-                device_sync(out)
-            return out
-        out = shade.render_tiled(
+        return shade.render_tiled(
             self.arrays,
             intersect_fn,
             self.config.compute,
-            self._camera_tensor(self.camera.pos),
-            self._camera_tensor(self.camera.at),
+            pos,
+            at,
             self.width,
             self.height,
             ray_tile=self.handler.block_lanes,
@@ -260,6 +335,15 @@ class Renderer:
                 else self.retile
             ),
             narrow=self.narrow,
+        )
+
+    def render_frame(self, block: bool = True) -> torch.Tensor:
+        """Render one frame -> [H, W, 3] float32 tensor on the device.
+        ``block`` waits for the device to finish it."""
+        out = self._render(
+            self._frame_handler(),
+            self._camera_tensor(self.camera.pos),
+            self._camera_tensor(self.camera.at),
         )
         if block:
             device_sync(out)
@@ -283,6 +367,7 @@ class Renderer:
             compute=compute, resolution=self.config.resolution, fps=self.config.fps
         )
         self._entries.clear()
+        self._chains.clear()
 
     def animate(
         self,
@@ -295,16 +380,127 @@ class Renderer:
         """Render ``frames`` orbit steps -> per-frame seconds (the
         study's benchmark protocol: N frames over camera orbit
         rotations).  The device is synchronised every ``sync_every``
-        frames and the elapsed time is spread over them."""
+        frames and the elapsed time is spread over them; ``on_frame(i,
+        frame, dt)`` then sees each of them, in order, as a device
+        tensor.
+
+        ``chain`` (K > 1) renders K frames per dispatch, the contract of
+        the JAX package's ``animate(chain=)``: frame 0 of a dispatch is
+        the unchained frame at the host camera; frames 1..K-1 advance
+        the orbit in f32 (:func:`~rt_rs_tpu_torch.scene.camera.orbit_f32`),
+        a few ULP from the host's f64 orbit; a last dispatch renders K
+        frames and keeps those it needs.  The host camera stays
+        canonical: after each dispatch it takes one f64 orbit step per
+        frame kept, so it ends bit-identical to the loop's.  With
+        ``seg_order="auto"`` the order is taken once per dispatch, from
+        its first camera.  On a CUDA device a dispatch is one replay of
+        a CUDA graph captured at the first dispatch of its (K, segment
+        order, config, knobs); a capture that fails raises.  On the CPU
+        the frames run eagerly."""
         if chain is not None and chain > 1:
-            raise NotImplementedError(
-                "animate(chain>1) is not ported to rt_rs_tpu_torch yet "
-                "(ROADMAP module item 12)"
-            )
+            return self._animate_chained(frames, orbit_mult, on_frame, sync_every, chain)
         return _animate_loop(
             lambda i: self.render_frame(block=False),
             self.orbit, frames, orbit_mult, on_frame, sync_every,
         )
+
+    def _chain_key(self, k: int, h: IntrsHandler) -> tuple:
+        return (
+            k, getattr(h, "seg_order", None), self.config.compute, self.block,
+            self.force_rows, self.fuse_bounce, self.shadow_cull, self.retile, self.narrow,
+        )
+
+    def _io(self, k: int) -> _ChainIO:
+        io = self._chain_io.get(k)
+        if io is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            io = _ChainIO(
+                pos=torch.zeros(3, **f32),
+                at=torch.zeros(3, **f32),
+                mult=torch.zeros((), **f32),
+                frames=torch.zeros((k, self.height, self.width, 3), **f32),
+                poses=torch.zeros((k, 3), **f32),
+            )
+            self._chain_io[k] = io
+        return io
+
+    def _chain_frames(self, h: IntrsHandler, k: int, io: _ChainIO) -> None:
+        """The K frames of one dispatch from ``io``'s camera into
+        ``io.frames`` / ``io.poses``: the body of a captured graph."""
+        pos = io.pos
+        for j in range(k):
+            io.frames[j].copy_(self._render(h, pos, io.at))
+            io.poses[j].copy_(pos)
+            pos = orbit_f32(pos, io.at, io.mult)
+
+    def _capture(self, h: IntrsHandler, k: int, io: _ChainIO) -> _Chain:
+        """Capture :meth:`_chain_frames` in a CUDA graph.  The kernels
+        are built and one eager frame runs on a side stream first, so
+        that nothing is set up lazily inside the capture.  The launches
+        the capture records are counted at each replay, not here."""
+        cuda.library()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._render(h, io.pos, io.at)
+        current.wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                self._chain_frames(h, k, io)
+
+        return _Chain(graph, cuda.captured_launches(capture))
+
+    def _run_chain(self, k: int, orbit_mult: float) -> tuple[torch.Tensor, torch.Tensor, IntrsHandler]:
+        """One dispatch of K frames from the host camera (which it does
+        not move) -> (frames [K, H, W, 3], their f32 camera positions
+        [K, 3], the frame handler).  The two tensors are the chains'
+        fixed buffers: the next dispatch of this K overwrites them."""
+        h = self._frame_handler()
+        io = self._io(k)
+        io.pos.copy_(self._host_f32(self.camera.pos), non_blocking=True)
+        io.at.copy_(self._host_f32(self.camera.at), non_blocking=True)
+        io.mult.fill_(orbit_mult)
+        if self.device.type == "cuda":
+            chain = self._chains.get(self._chain_key(k, h), lambda: self._capture(h, k, io))
+            chain.graph.replay()
+            cuda.LAUNCHES.update(chain.launches)
+        else:
+            self._chains.get(self._chain_key(k, h), _Chain)
+            self._chain_frames(h, k, io)
+        return io.frames, io.poses, h
+
+    def _animate_chained(self, frames, orbit_mult, on_frame, sync_every, k) -> list[float]:
+        """:meth:`animate` with ``chain=k`` (the JAX package's
+        ``_animate_chained``): the kept frames of each dispatch are
+        copied out of the chains' buffers before the next one."""
+        times: list[float] = []
+        pending: list[torch.Tensor] = []  # [m, H, W, 3] per dispatch
+        done = 0
+        t0 = time.perf_counter()
+        while done < frames:
+            m = min(k, frames - done)
+            stacked = self._run_chain(k, orbit_mult)[0][:m].clone()
+            pending.append(stacked)
+            for _ in range(m):
+                self.orbit(orbit_mult)
+            done += m
+            n_pend = sum(p.shape[0] for p in pending)
+            if n_pend >= sync_every or done >= frames:
+                device_sync(stacked)
+                dt = (time.perf_counter() - t0) / n_pend
+                times.extend([dt] * n_pend)
+                if on_frame is not None:
+                    base = done - n_pend
+                    for i, f in enumerate(f for p in pending for f in p):
+                        on_frame(base + i, f, dt)
+                pending = []
+                t0 = time.perf_counter()
+        return times
 
 
 def _animate_loop(

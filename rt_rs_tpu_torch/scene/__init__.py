@@ -7,7 +7,7 @@ Counterpart of ``rt_rs_tpu/scene/__init__.py`` (reference:
 package loads unchanged in the other.  :meth:`Scene.pack` places the
 :class:`SceneArrays` on an explicit torch device.
 
-OBJ import (``add_mesh``) is not ported yet (ROADMAP module item 2).
+OBJ import (``add_mesh``) is not ported yet (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations

@@ -20,6 +20,8 @@ import dataclasses
 import math
 from typing import Any, Mapping
 
+import torch
+
 from rt_rs_tpu_torch.geom import SceneFormatError, _vec3, f32_json
 
 ORBIT_SPEED = 0.1  # camera.rs:171
@@ -62,6 +64,20 @@ class CameraUniform:
             ),
             at=self.at,
         )
+
+
+def orbit_f32(pos: torch.Tensor, at: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
+    """:meth:`CameraUniform.orbited` in f32 on ``pos`` / ``at`` [3] and
+    ``mult`` [] float32 tensors -> the new position [3], in the JAX
+    package's op order (``_orbit_f32``, rt_rs_tpu/renderer.py:68-80):
+    ``atan2``, ``+ ORBIT_RATE * mult``, ``sqrt(x*x + z*z)``, ``cos``,
+    ``sin``.  ``Renderer.animate(chain=)`` advances the orbit with it
+    between the frames of one dispatch, on the device."""
+    x = pos[0] - at[0]
+    z = pos[2] - at[2]
+    theta = torch.atan2(z, x) + ORBIT_RATE * mult
+    r = torch.sqrt(x * x + z * z)
+    return torch.stack([at[0] + r * torch.cos(theta), pos[1], at[2] + r * torch.sin(theta)])
 
 
 @dataclasses.dataclass

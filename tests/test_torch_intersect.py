@@ -155,8 +155,10 @@ def test_registry_and_blank_entries():
     from rt_rs_tpu_torch.handlers import _REGISTRY
 
     assert sorted(_REGISTRY) == ["blank", "naive", "pbvh"]
-    with pytest.raises(KeyError, match="naive"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         get_handler("rf_bvh")
+    with pytest.raises(ValueError, match="unknown handler 'nope'.*naive"):
+        get_handler("nope")
     cfg = ComputeConfig()
     h = get_handler("blank")
     assert h.stats(None).name == "Blank" and get_handler("naive").stats(None).size == 0

@@ -112,8 +112,10 @@ def test_animate_orbits_and_times():
     seen = []
     times = r.animate(3, sync_every=2, on_frame=lambda i, f, dt: seen.append(i))
     assert len(times) == 3 and all(t > 0 for t in times) and seen == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        r.animate(2, chain=2)
+    # K frames per dispatch: the same protocol (tests/test_torch_chain.py).
+    seen = []
+    times = r.animate(3, sync_every=2, chain=2, on_frame=lambda i, f, dt: seen.append(i))
+    assert len(times) == 3 and all(t > 0 for t in times) and seen == [0, 1, 2]
 
 
 def test_update_config_rebinds_bounces():
@@ -127,9 +129,9 @@ def test_update_config_rebinds_bounces():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(KeyError, match="pbvh"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         get_handler("bvh")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         get_handler("pbvh", tri_chunk_fine=16)
     neg = random_soup(1, 10)
     neg.prim_material[0] = -1
@@ -140,9 +142,12 @@ def test_unported_paths_raise():
             neg.pack(device="cpu"), None, ComputeConfig(), torch.zeros(8, 32, 256),
             torch.zeros(32, 256, dtype=torch.bool), torch.zeros(3),
         )
+    # animate(chain=K) is ported: its first frame is render_frame's.
     r = Renderer(random_soup(2, 10), config=_config(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        r.animate(2, chain=2)
+    frame = r.render_frame()
+    got = []
+    r.animate(2, chain=2, on_frame=lambda i, f, dt: got.append(f))
+    assert len(got) == 2 and torch.equal(got[0], frame)
 
 
 def test_camera_at_pos_warns():
