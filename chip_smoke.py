@@ -51,8 +51,15 @@ exits nonzero without printing a result):
    1920x1080, and the canyon through the transposed table at 640x480
    (every mt_tpose call).  Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal, and each
-   mt_trace and refine_cull call, run twice, gives the same bits (the
-   balanced mt_trace merges its items with atomics in no fixed order);
+   mt_trace, mt_stream and refine_cull call, run twice, gives the same
+   bits (the balanced designs merge their items with atomics in no fixed
+   order); mt_stream also equals its design's mirror
+   (``mt_stream_split_reference``).  Early-exit mt_trace calls equal the
+   balanced design's mirror (``mt_trace_exit_split_reference``) on every
+   ray, and the twin and the default mode on the same lists on valid
+   rays (outputs are specified there only; the call's ``valid`` is its
+   interval cull's) and on every ray of the tiles whose list fits one
+   item;
    shading outputs within SHADE_MAX_ULP (the twins use torch's pow,
    whose CUDA build may round differently from the kernels' powf).  Each
    segmented call's (t, pid) must equal one flat call on
@@ -61,7 +68,12 @@ exits nonzero without printing a result):
    extremes of balance, in each default mode: one tile listing every
    chunk of a 128-chunk table and the others empty, and every tile
    listing every chunk, bit-equal to its twin and to the balanced
-   design's mirror (``mt_trace_split_reference``).  The probes' kernels
+   design's mirror (``mt_trace_split_reference``); early exit likewise
+   on the canyon's busiest closest call and the knobs torus primary rows
+   call, the lists sorted by the call's own entry bounds; mt_stream on
+   256 tiles of the canyon dma frame's busiest call, one tile and then
+   every tile listing every chunk of every block, against its twin and
+   mirror.  The probes' kernels
    at the JAX mains' sizes: fma_peak (separate bit-equal, fused within
    rtol 1e-6), mt_tpose (tc 64 and 128) bit-equal to its twin and to
    mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to its
@@ -117,7 +129,10 @@ exits nonzero without printing a result):
    and each mt_trace call's list lengths.  The default-mode mt_trace
    calls in one table: the three above, the torus 1080p primary rows
    call and the flat ``torus_ghost()`` 1080p frame's busiest closest
-   call.  shade_post also at the torus 1080p frame's shapes.
+   call.  shade_post also at the torus 1080p frame's shapes.  mt_stream
+   and the early-exit calls also print the per-tile walks' times they
+   replaced (WALK_MS, constants) and, for early exit, the entries the
+   per-tile rule and the items test.
 7. Where the time goes: torch.profiler over canyon frames (default and
    early exit) and torus 1080p frames (default and knobs), device time
    by kernel kind and the device's idle share, and over flat
@@ -442,6 +457,7 @@ class Recorder:
         self.targets = [
             (packet_trace, "refine_cull"),
             (packet_trace, "mt_trace"),
+            (packet_trace, "chunk_overlap_mask_cm"),
             (packet_trace, "packet_closest_hit_segmented_tiled"),
             (packet_stream, "mt_stream"),
             (packet_stream, "stream_closest_hit"),
@@ -553,10 +569,15 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         )
         check_equal(f"{label} refine_cull#{i} run twice", pt.refine_cull(*a, **kw), kern)
         check_equal(f"{label} compact#{i}", pt.compact(kern), pt.compact(twin))
+    exits = iter(exit_calls(calls))
     for i, (a, kw, _) in enumerate(calls["mt_trace"]):
         name = pt.mt_name(kw["mode"], bind(pt.mt_trace_reference, a, kw)["ed"] is not None)
         kern, twin = pt.mt_trace(*a, **kw), pt.mt_trace_reference(*a, **kw)
-        errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
+        if name.endswith("early_exit]"):
+            valid = next(exits)[0]
+            errs[name] = max(errs[name], check_exit(f"{label} {name}#{i}", a, kw, kern, twin, valid))
+        else:
+            errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         kern, twin = tp.mt_tpose(*a, **kw), tp.mt_tpose_reference(*a, **kw)
@@ -566,6 +587,8 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         errs["mt_stream"] = max(
             errs["mt_stream"], check_equal(f"{label} mt_stream#{i}", kern, twin)
         )
+        check_equal(f"{label} mt_stream#{i} vs the split mirror", kern, ps.mt_stream_split_reference(*a, **kw))
+        check_equal(f"{label} mt_stream#{i} run twice", ps.mt_stream(*a, **kw), kern)
     for name, kern_fn, twin_fn in (
         ("shade_pre", st.shade_pre, st.shade_pre_reference),
         ("shade_post", st.shade_post, st.shade_post_reference),
@@ -582,6 +605,51 @@ def bind(fn, a, kw) -> dict:
     b = inspect.signature(fn).bind(*a, **kw)
     b.apply_defaults()
     return dict(b.arguments)
+
+
+def exit_calls(calls) -> list:
+    """(valid, overlap, near) of each early-exit mt_trace call of a
+    recorded frame, in order: the interval cull with entry bounds that
+    its packet_closest_hit_tiled call ran just before it (the same
+    payload)."""
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    culls = [
+        (bind(pt.chunk_overlap_mask_cm, a, kw), out)
+        for a, kw, out in calls["chunk_overlap_mask_cm"]
+    ]
+    culls = [(b, out) for b, out in culls if b["want_near"]]
+    exits = [bind(pt.mt_trace_reference, a, kw) for a, kw, _ in calls["mt_trace"]]
+    exits = [b for b in exits if b["ed"] is not None]
+    if len(culls) != len(exits):
+        raise AssertionError(f"{len(exits)} early-exit calls, {len(culls)} interval culls with bounds")
+    out = []
+    for (c, (overlap, near)), b in zip(culls, exits, strict=True):
+        if c["o3"].data_ptr() != b["payload"].data_ptr():
+            raise AssertionError("an early-exit call and its interval cull differ in rays")
+        out.append((c["ray_valid"], overlap, near))
+    return out
+
+
+def check_exit(what: str, a, kw, kern, twin, valid) -> float:
+    """An early-exit mt_trace call: the kernel equals the balanced
+    design's mirror (``mt_trace_exit_split_reference``) on every ray,
+    the twin on valid rays and on every ray of the tiles whose list fits
+    the lead item, and the default mode on the same lists on valid rays
+    (outputs are specified on valid rays only) -> max abs error against
+    the twin on those rays (0.0).  Prints how many rays outside them
+    differ from the twin."""
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    b = bind(pt.mt_trace_reference, a, kw)
+    check_equal(f"{what} vs the exit mirror", kern, pt.mt_trace_exit_split_reference(**b))
+    single = (b["counts"] <= pt.MT_EXIT_ITEM_SIZE)[:, None] | valid
+    check_valid_equal(f"{what} vs the twin", kern, twin, single)
+    check_valid_equal(f"{what} vs the default mode", kern, pt.mt_trace(**without_early_exit(a, kw)), valid)
+    other = sum(int(((x != y) & ~single).sum()) for x, y in zip(outputs(kern)[:2], outputs(twin)[:2]))
+    if other:
+        say(f"[compare] {what}: {other} outputs of invalid rays differ from the twin (unspecified there)")
+    return max(max_abs(x[..., single], y[..., single]) for x, y in zip(outputs(kern), outputs(twin)))
 
 
 def check_skewed(errs: dict, recorded: dict) -> None:
@@ -627,6 +695,82 @@ def check_skewed(errs: dict, recorded: dict) -> None:
                 f"[compare] {what} ({n_tiles} tiles of {b['payload'].shape[2]} rays): "
                 f"{name} = twin = split mirror, run twice alike"
             )
+
+
+def check_skewed_exit(errs: dict, recorded: dict) -> None:
+    """Early exit at the two extremes of balance: the canyon early-exit
+    frame's busiest closest-hit call and the knobs torus frame's primary
+    rows call (640x480, 384x288) with one tile (the call's busiest)
+    listing every chunk of the table and every other tile nothing, and
+    with every tile listing every chunk, front to back by the call's own
+    interval-cull entry bounds.  Checked as every early-exit call is
+    (:func:`check_exit`), and run twice alike."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    entries = lambda c: int(c[0][3].sum())  # noqa: E731
+    for label, calls, mode in (
+        ("canyon closest", recorded["canyon early_exit"], "closest"),
+        ("torus knobs rows", recorded["torus knobs"], "rows"),
+    ):
+        exits = [c for c in calls["mt_trace"] if bind(pt.mt_trace_reference, c[0], c[1])["ed"] is not None]
+        i = max((i for i, c in enumerate(exits) if c[1]["mode"] == mode), key=lambda i: entries(exits[i]))
+        valid, overlap, near = exit_calls(calls)[i]
+        b = bind(pt.mt_trace_reference, exits[i][0], exits[i][1])
+        name = pt.mt_name(mode, True)
+        for shape in ("one tile", "every tile"):
+            if shape == "one tile":
+                listed = torch.zeros_like(overlap)
+                listed[int(overlap.sum(dim=1).argmax())] = True
+            else:
+                listed = torch.ones_like(overlap)
+            b["ids"], b["counts"], b["ed"] = pt.early_exit_lists(listed, near)
+            kern = pt.mt_trace(**b)
+            what = f"skewed {label}, {shape} listing all {overlap.shape[1]} chunks"
+            errs[name] = max(errs[name], check_exit(what, (), b, kern, pt.mt_trace_reference(**b), valid))
+            check_equal(f"{what} run twice", pt.mt_trace(**b), kern)
+            say(
+                f"[compare] {what} ({overlap.shape[0]} tiles): {name} = exit mirror, = twin "
+                "and = the default mode on valid rays, run twice alike"
+            )
+
+
+def check_skewed_stream(errs: dict, recorded: dict) -> None:
+    """mt_stream at the two extremes of balance, on the first 256 tiles
+    (8 groups) of the canyon dma frame's busiest call: one tile (the
+    busiest) listing every chunk of every block and every other tile
+    nothing, and every tile listing every chunk.  Kernel = twin = the
+    design's mirror (``mt_stream_split_reference``) bit for bit, and run
+    twice alike."""
+    import torch
+
+    from rt_rs_tpu_torch.ops import packet_stream as ps
+    from rt_rs_tpu_torch.ops import packet_trace as pt
+
+    a, kw, _ = max(recorded["canyon dma"]["mt_stream"], key=lambda c: c[0][0].shape[1])
+    b = bind(ps.mt_stream_reference, a, kw)
+    n = min(8 * pt.TILE_GROUP, b["payload"].shape[1])
+    groups, nb = n // pt.TILE_GROUP, b["words"].shape[1]
+    cpb = b["table"].shape[0] // nb
+    _, counts = ps.stream_lists(b["words"][:n], b["blockids"][:groups], b["counts"][:groups], cpb)
+    full = (1 << cpb) - 1
+    full -= (1 << 32) if full >= 1 << 31 else 0  # cpb ones as an int32
+    b["payload"] = b["payload"][:, :n].contiguous()
+    b["blockids"] = torch.arange(nb, dtype=torch.int32, device=DEVICE).expand(groups, nb).contiguous()
+    for shape in ("one tile", "every tile"):
+        b["words"] = torch.full((n, nb), full, dtype=torch.int32, device=DEVICE)
+        b["counts"] = torch.full((groups,), nb, dtype=torch.int32, device=DEVICE)
+        if shape == "one tile":
+            busiest = int(counts.argmax())
+            b["words"][torch.arange(n, device=DEVICE) != busiest] = 0
+            b["counts"][torch.arange(groups, device=DEVICE) != busiest // pt.TILE_GROUP] = 0
+        kern = ps.mt_stream(**b)
+        what = f"skewed canyon dma, {shape} listing all {nb * cpb} chunks"
+        errs["mt_stream"] = max(errs["mt_stream"], check_equal(what, kern, ps.mt_stream_reference(**b)))
+        check_equal(f"{what} vs the split mirror", kern, ps.mt_stream_split_reference(**b))
+        check_equal(f"{what} run twice", ps.mt_stream(**b), kern)
+        say(f"[compare] {what} ({n} tiles of 128 rays): mt_stream = twin = split mirror, run twice alike")
 
 
 def check_against_flat(label: str, calls) -> tuple[int, int]:
@@ -722,6 +866,8 @@ def phase_compare():
         )
         recorded[label] = calls
     check_skewed(errs, recorded)
+    check_skewed_exit(errs, recorded)
+    check_skewed_stream(errs, recorded)
     recorded["probes"] = compare_probes(errs)
     return errs, recorded
 
@@ -1702,17 +1848,19 @@ def phase_ab(card: str) -> tuple[dict, dict]:
         if name.startswith("early_exit"):
             with Recorder() as rec:
                 rs[True].render_frame()
-            listed = tested = 0
+            listed = tested = items = 0
             for a, kw, _ in rec.calls["mt_trace"]:
                 b = bind(pt.mt_trace_reference, a, kw)
                 if b["ed"] is not None:
                     listed += int(b["counts"].sum())
                     tested += int(pt.entries_tested(**b).sum())
+                    items += int(pt.exit_entries_tested(**b).sum())
             torch.cuda.synchronize()
-            summary[name].update(entries_listed=listed, entries_tested=tested)
+            summary[name].update(entries_listed=listed, entries_tested=tested, entries_items=items)
             line += (
-                f"; closest-hit entries per frame: {listed} listed, {tested} tested "
-                f"({tested / max(listed, 1):.3f})"
+                f"; closest-hit entries per frame: {listed} listed, {tested} tested by the "
+                f"per-tile rule ({tested / max(listed, 1):.3f}), {items} by the items "
+                f"({items / max(listed, 1):.3f})"
             )
             recorded[name] = rec.calls
         say(f"{line}; {card}")
@@ -1727,6 +1875,16 @@ def list_stats(counts) -> str:
         f"mean {float(counts.float().mean()):.3f}, {int((counts == 0).sum())} empty"
     )
 
+
+# Device ms of the per-tile walks that the balanced designs of mt_stream
+# and early exit replaced, on the calls phase 6 times (this script's
+# phase 6 at commit 70c240c, NVIDIA H100 80GB HBM3, 700.00 W): printed
+# beside the new times for the record, not rerun.
+WALK_MS = {
+    "mt_stream": 10.1059,
+    "mt_trace[closest,early_exit]": 1.3434,
+    "mt_trace[rows,early_exit]": 2.1129,
+}
 
 # Bytes overwritten before each profiled call: five times the H100's
 # 50 MB L2, so a call reads its inputs from HBM, as its bound assumes.
@@ -1874,13 +2032,17 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             extra += f" ({list_stats(a[3])})"
         if name.endswith("early_exit]"):
             b0 = without_early_exit(a, kw)
-            n_t = int(pt.entries_tested(**bind(pt.mt_trace_reference, a, kw)).sum())
+            b = bind(pt.mt_trace_reference, a, kw)
+            n_t = int(pt.entries_tested(**b).sum())
+            n_i = int(pt.exit_entries_tested(**b).sum())
             d_ms = profiled(lambda: pt.mt_trace(**b0))[1]
             db_ms, _ = bound(name, (), b0)
             extra += (
-                f", {n_t} tested; the same call without early exit: kernel "
-                f"{d_ms:.4f} ms, bound {db_ms:.4f} ms"
+                f", {n_t} tested by the per-tile rule, {n_i} by the items; the same call "
+                f"without early exit: kernel {d_ms:.4f} ms, bound {db_ms:.4f} ms"
             )
+        if name in WALK_MS:
+            extra += f"; the per-tile walk it replaced: {WALK_MS[name]} ms (a constant: WALK_MS)"
         if name == "shade_bounce":
             (post, post_kw), (pre, pre_kw) = bounce_halves(a, kw)
 
@@ -1923,10 +2085,11 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
 
 # kernel name fragment -> kind, for the profile's breakdown
 KINDS = (
-    ("mt_trace_early_exit_kernel", "mt_trace"),  # the per-tile walk
     ("mt_trace_items_kernel", "mt_trace"),  # the balanced design: its items
     ("mt_trace_prologue_kernel", "mt_trace prologue"),  # and its scan and set-up
-    ("mt_stream_kernel", "mt_stream"),
+    ("mt_stream_items_kernel", "mt_stream"),
+    ("mt_stream_prologue_kernel", "mt_stream prologue"),  # the scan and set-up
+    ("mt_stream_expand_kernel", "mt_stream prologue"),  # and the words' expansion
     ("refine_cull_kernel", "refine_cull"),
     ("shade_pre_kernel", "shade_pre"),
     ("shade_post_kernel", "shade_post"),

@@ -8,160 +8,139 @@
 // tile one int32 word per block, bit j = "this tile may hit chunk j of
 // the block".  Rays are the component-major payload [8, T, 128] (ox,
 // oy, oz, dx, dy, dz, excl, -).  Outputs: t [T, 128] f32 (the miss is
-// t_max + 1) and pid [T, 128] i32 (0 on a miss).  Chunk j of a block is
-// tested only where its bit is set, with kernel B's test (mt_test in
-// common.cuh) and exclusion (pid != excl); the winner is the minimum
-// t, ties to the smallest pid.  valid and t_cap are not read: they act
-// through the host's cull only, as on the TPU.
+// t_max + 1) and pid [T, 128] i32 (0 on a miss).  Chunk j of a listed
+// block is tested where its bit is set, with kernel B's test and
+// exclusion (pid != excl, pid = 1 + chunk * tc + slot); the winner is
+// the minimum t, ties to the smallest pid.  valid and t_cap are not
+// read: they act through the host's cull only, as on the TPU.
 //
-// Design.  The TPU kernel runs one grid step per group, DMAs each
-// listed block into a double-buffered VMEM scratch and keeps per-slot
-// accumulators reduced at the end.  Here one CTA owns one 128-ray tile
-// (one thread per ray) and walks its group's list itself: a block whose
-// word is 0 for this tile is skipped (the test is uniform across the
-// CTA: no divergence), the others are staged into shared memory with
-// cp.async, double-buffered so that the next live block's copy overlaps
-// this block's tests.  Each thread scans the block's set chunks and
-// their triangles in ascending (block, chunk, slot) order with a strict
-// `<`, which keeps the minimum t and, on ties, the smallest pid: the
-// same winner as the TPU's per-slot accumulators followed by its
-// (min t, min pid) reduction.
+// Design.  The blocks, words and group lists are the TPU's mechanism
+// for streaming blocks through VMEM; the function they define is, per
+// tile, the closest hit over the set chunks of its group's listed
+// blocks.  The first port walked that list with one CTA per tile,
+// staging a whole block (two, double-buffered) even where one chunk bit
+// was set; the tiles' lists are very uneven, so the grid lasted as long
+// as the longest one (~10x its arithmetic bound).  Here:
+// * an expansion launch turns each tile's words into its ascending list
+//   of set chunk ids (one warp per tile: the group's listed blocks 32 at
+//   a time, a warp scan of their popcounts, each lane writing its
+//   block's set bits), which is ascending pid order;
+// * kernel B's balanced items (mt_items.cuh) run those lists: a
+//   prologue launch and a persistent items launch, ITEM_STREAM entries
+//   (chunks) per item, the per-ray (t, pid) key merged with atomicMin.
+//   The lexicographic minimum over a tile's set chunks is what the TPU
+//   kernel's ascending strict scan keeps, in any order of the items.
+// Three launches, no host read.
 //
-// What bounds it on this card: f32 arithmetic, 39 operations per
-// (ray, triangle) pair before the rare division, against 18 KB of
-// block per 8K-65K pair tests; the block is read from shared memory as
-// broadcasts.  The design keeps the arithmetic fed by overlapping the
-// block copies with the tests and by skipping unset chunks wholesale.
-#include "common.cuh"
+// What bounds it on this card: f32 arithmetic, 39 operations per (ray,
+// triangle) pair before the rare division, the chunk read from shared
+// memory as a broadcast.
+#include "mt_items.cuh"
 
 namespace {
 
 constexpr int kLanes = 128;     // rays per tile (one thread each)
 constexpr int kTileGroup = 32;  // tiles per block list
+constexpr int kExpandThreads = 256;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
+// Chunks per work item (mirrored by ops/packet_stream.py's
+// STREAM_ITEM_SIZE for the plain-PyTorch mirror).
+enum { ITEM_STREAM = 4 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start the copy of n floats (one block) into shared memory as one
-// cp.async group: 16-byte copies when n is a multiple of 4 (block
-// offsets are then 16-byte aligned too), else 4-byte copies.
-__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  if ((n & 3) == 0) {
-    for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
-      cp_async16(dst + i, src + i);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
-  }
-  cp_async_commit();
-}
-
-__global__ void mt_stream_kernel(const float* __restrict__ payload,
-                                 const float* __restrict__ comp,
-                                 const int* __restrict__ words,
-                                 const int* __restrict__ blockids,
-                                 const int* __restrict__ counts,
-                                 float* __restrict__ out_t,
-                                 int* __restrict__ out_pid, int n_tiles,
-                                 int nb, int cpb, int tc, float t_min,
-                                 float t_max, float eps, float miss) {
-  extern __shared__ __align__(16) float smem[];  // 2 x [cpb * tc * 9]
-  const int tile = blockIdx.x;
-  const int lane = threadIdx.x;
-  const long plane = (long)n_tiles * kLanes;
-  const long idx = (long)tile * kLanes + lane;
-
-  const float ox = payload[0 * plane + idx];
-  const float oy = payload[1 * plane + idx];
-  const float oz = payload[2 * plane + idx];
-  const float dx = payload[3 * plane + idx];
-  const float dy = payload[4 * plane + idx];
-  const float dz = payload[5 * plane + idx];
-  const float excl = payload[6 * plane + idx];
-
+// ids[t, 0:tile_counts[t]] = the chunks (block * cpb + bit) whose bit is
+// set in words[t, b] for the listed blocks b of t's group, ascending.
+__global__ void __launch_bounds__(kExpandThreads) mt_stream_expand_kernel(
+    const int* __restrict__ words, const int* __restrict__ blockids,
+    const int* __restrict__ counts, int* __restrict__ ids,
+    int* __restrict__ tile_counts, int n_tiles, int nb, int cpb) {
+  const int tile = (int)(((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (tile >= n_tiles) return;  // whole warps: n_tiles is per warp
   const int group = tile / kTileGroup;
-  const int count = counts[group];
+  const int n = counts[group];
   const int* list = blockids + (long)group * nb;
   const int* tile_words = words + (long)tile * nb;
-  const int n = cpb * tc * 9;  // floats per block
-
-  // The first list position >= k whose block this tile must test.
-  auto next_live = [&](int k) {
-    while (k < count && tile_words[list[k]] == 0) ++k;
-    return k;
-  };
-
-  float best_t = miss;
-  int best_id = 0;
-  int k = next_live(0);
-  if (k < count) stage(smem, comp + (long)list[k] * n, n);
-  int slot = 0;
-  while (k < count) {
-    const int k_next = next_live(k + 1);
-    if (k_next < count) {
-      stage(smem + (1 - slot) * n, comp + (long)list[k_next] * n, n);
-      cp_async_wait<1>();  // this block's group has landed
-    } else {
-      cp_async_wait<0>();
+  int* out = ids + (long)tile * nb * cpb;
+  int total = 0;
+  for (int base = 0; base < n; base += 32) {
+    int blk = 0;
+    unsigned w = 0u;
+    if (base + lane < n) {
+      blk = list[base + lane];
+      w = (unsigned)tile_words[blk];
     }
-    __syncthreads();
-    const int blk = list[k];
-    const unsigned word = (unsigned)tile_words[blk];
-    const float* buf = smem + slot * n;
-    for (int j = 0; j < cpb; ++j) {
-      if (!((word >> j) & 1u)) continue;
-      const int pid0 = 1 + (blk * cpb + j) * tc;
-      const float* chunk = buf + j * tc * 9;
-      for (int s = 0; s < tc; ++s) {
-        float w;
-        if (!mt_test(chunk + s * 9, ox, oy, oz, dx, dy, dz, t_min, t_max, eps,
-                     w))
-          continue;
-        if ((float)(pid0 + s) == excl) continue;
-        if (w < best_t) {
-          best_t = w;
-          best_id = pid0 + s;
-        }
-      }
+    const int pc = __popc(w);
+    int x = pc;  // inclusive warp scan of the popcounts
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += y;
     }
-    __syncthreads();  // everyone is done with this buffer before its refill
-    k = k_next;
-    slot ^= 1;
+    int pos = total + x - pc;
+    while (w) {
+      out[pos++] = blk * cpb + (__ffs((int)w) - 1);
+      w &= w - 1u;
+    }
+    total += __shfl_sync(0xffffffffu, x, 31);
   }
-  out_t[idx] = best_t;
-  out_pid[idx] = best_id;  // 0 unless some hit (all hits have w < t_max)
+  if (lane == 0) tile_counts[tile] = total;
+}
+
+__global__ void __launch_bounds__(kPrologueThreads) mt_stream_prologue_kernel(
+    const int* __restrict__ tile_counts, float* __restrict__ out_t,
+    int* __restrict__ out_pid, unsigned long long* __restrict__ keys,
+    int* __restrict__ work, int n_tiles, float miss) {
+  items_prologue<MODE_CLOSEST, ITEM_STREAM, false>(
+      tile_counts, nullptr, out_t, out_pid, nullptr, nullptr, keys, work,
+      n_tiles, kLanes, miss);
+}
+
+__global__ void __launch_bounds__(kLanes) mt_stream_items_kernel(
+    const float* __restrict__ payload, const float* __restrict__ table,
+    const int* __restrict__ ids, const int* __restrict__ tile_counts,
+    float* __restrict__ out_t, int* __restrict__ out_pid,
+    unsigned long long* __restrict__ keys, int* __restrict__ work,
+    int n_tiles, int nc, int tc, float t_min, float t_max, float eps,
+    float miss) {
+  items_body<MODE_CLOSEST, ITEM_STREAM, false>(
+      payload, table, ids, tile_counts, nullptr, nullptr, nullptr, out_t,
+      out_pid, nullptr, nullptr, keys, work, n_tiles, kLanes, nc, tc, 0, t_min,
+      t_max, eps, miss, 1);
 }
 
 }  // namespace
 
-RT_EXPORT int rt_mt_stream(const float* payload, const float* comp,
+// Scratch the wrapper allocates: `ids` [T, nb * cpb] and `tile_counts`
+// [T] int32 (the expanded lists), `keys` [T * 128] u64, `work` [4 T + 4]
+// int32.
+RT_EXPORT int rt_mt_stream(const float* payload, const float* table,
                            const int* words, const int* blockids,
-                           const int* counts, float* out_t, int* out_pid,
-                           int n_tiles, int nb, int cpb, int tc, float t_min,
-                           float t_max, float eps, float miss,
+                           const int* counts, int* ids, int* tile_counts,
+                           unsigned long long* keys, int* work, float* out_t,
+                           int* out_pid, int n_tiles, int nb, int cpb, int tc,
+                           float t_min, float t_max, float eps, float miss,
                            cudaStream_t stream) {
-  if (n_tiles > 0) {
-    const size_t smem = 2 * (size_t)cpb * tc * 9 * sizeof(float);
-    mt_stream_kernel<<<n_tiles, kLanes, smem, stream>>>(
-        payload, comp, words, blockids, counts, out_t, out_pid, n_tiles, nb,
-        cpb, tc, t_min, t_max, eps, miss);
-  }
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  const size_t smem = 2 * (size_t)tc * 12 * sizeof(float);
+  const Residency res = persistent_blocks(mt_stream_items_kernel, kLanes, smem);
+  if (res.blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long threads = (long)n_tiles * 32;
+  mt_stream_expand_kernel<<<(int)((threads + kExpandThreads - 1) /
+                                  kExpandThreads),
+                            kExpandThreads, 0, stream>>>(
+      words, blockids, counts, ids, tile_counts, n_tiles, nb, cpb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mt_stream_prologue_kernel<<<prologue_blocks((long)n_tiles * kLanes,
+                                              res.sms),
+                              kPrologueThreads, 0, stream>>>(
+      tile_counts, out_t, out_pid, keys, work, n_tiles, miss);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nc = nb * cpb;
+  const long most = (long)n_tiles * ((nc + ITEM_STREAM - 1) / ITEM_STREAM);
+  mt_stream_items_kernel<<<items_grid(most, res.blocks), kLanes, smem,
+                           stream>>>(payload, table, ids, tile_counts, out_t,
+                                     out_pid, keys, work, n_tiles, nc, tc,
+                                     t_min, t_max, eps, miss);
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,8 @@ _F = ctypes.c_float
 # C entry points -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "rt_refine_cull": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "rt_mt_trace": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
-    "rt_mt_stream": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "rt_mt_trace": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "rt_mt_stream": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_shade_pre": [_P] * 6 + [_I, _I, _I, _I] + [_P] * 4 + [_P],
     "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P],
     "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P],

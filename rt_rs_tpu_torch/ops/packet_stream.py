@@ -5,9 +5,12 @@ is the JAX package's: rays padded to 128-ray tiles in groups of
 TILE_GROUP, the ray-major tile-interval cull, and per tile one int32
 word per block of ``cpb`` chunks (bit j = the tile may hit chunk j of
 the block); per group, the compacted ascending list of blocks any of its
-tiles may hit.  Kernel E (:func:`mt_stream`, csrc/mt_stream.cu) walks
-those lists, replacing ``_mt_stream_kernel``; its plain-PyTorch twin
-:func:`mt_stream_reference` runs only for CPU tensors.
+tiles may hit.  Kernel E (:func:`mt_stream`, csrc/mt_stream.cu)
+replaces ``_mt_stream_kernel``: it expands each tile's words into its
+ascending list of set chunks and runs kernel B's balanced items over
+them (:func:`mt_stream_split_reference` mirrors that design); its
+plain-PyTorch twin :func:`mt_stream_reference` runs only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -23,12 +26,19 @@ from rt_rs_tpu_torch.ops.packet_trace import (
     TriChunks,
     _f32,
     chunk_overlap_mask,
+    compact,
     mt_chunk_test,
+    mt_trace_split_reference,
     twin_slices,
 )
 
 BLOCK_SUBLANES = 512  # triangles per block (the JAX package's DMA block)
 STREAM_LANES = 128  # rays per tile: the kernel's fixed tile width
+# Kernel E's work item: a tile and at most this many consecutive chunks
+# of its expanded list.  The kernel's compile-time ITEM_STREAM
+# (csrc/mt_stream.cu, tuned on the card, PERF.md); here only the plain
+# mirror's default.
+STREAM_ITEM_SIZE = 4
 
 
 def chunks_per_block(tc: int) -> int:
@@ -190,6 +200,53 @@ def mt_stream_reference(
     return best_t, best_id
 
 
+def stream_lists(
+    words: torch.Tensor,  # [T, NB] int32
+    blockids: torch.Tensor,  # [T / 32, NB] int32
+    counts: torch.Tensor,  # [T / 32] int32
+    cpb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E's expansion -> (ids [T, NB * cpb] int32, counts [T]
+    int32): each tile's chunks (block * cpb + bit) whose bit is set in
+    its word of a block its group lists, ascending (:func:`compact` of
+    that mask)."""
+    n_tiles, nb = words.shape
+    dev = words.device
+    group = torch.arange(n_tiles, device=dev) // TILE_GROUP
+    listed = torch.arange(nb, device=dev)[None, :] < counts[group][:, None]  # [T, NB]
+    order = blockids[group].to(torch.int64)  # a permutation of the blocks per tile
+    w = torch.where(listed, words.gather(1, order), 0)
+    w = torch.zeros_like(words).scatter(1, order, w)  # listed words, block order
+    bit = (w[:, :, None] >> torch.arange(cpb, device=dev, dtype=torch.int32)) & 1
+    return compact(bit.reshape(n_tiles, nb * cpb) != 0)
+
+
+def mt_stream_split_reference(
+    payload: torch.Tensor,
+    table: torch.Tensor,
+    words: torch.Tensor,
+    blockids: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    per_item: int | None = None,
+    order: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E's design (:func:`mt_stream`'s arguments): the expanded
+    lists (:func:`stream_lists`) through kernel B's balanced closest-hit
+    mirror, ``per_item`` chunks an item (None: STREAM_ITEM_SIZE), merged
+    in the item order ``order`` (:func:`mt_trace_split_reference`).
+    Equal to :func:`mt_stream_reference` bit for bit in every order."""
+    nb = words.shape[1]
+    ids, tile_counts = stream_lists(words, blockids, counts, table.shape[0] // max(nb, 1))
+    return mt_trace_split_reference(
+        table, payload, ids, tile_counts, t_min=t_min, t_max=t_max, eps=eps, mode="closest",
+        per_item=STREAM_ITEM_SIZE if per_item is None else per_item, order=order,
+    )
+
+
 def mt_stream(
     payload: torch.Tensor,
     table: torch.Tensor,
@@ -205,7 +262,8 @@ def mt_stream(
     int32; misses (t_max + 1, 0)).  Outputs for rays whose tile lists
     nothing they could hit are misses; ``valid`` (payload row 7) is not
     read.  CPU tensors run :func:`mt_stream_reference`; CUDA tensors
-    launch the kernel."""
+    launch the kernel: the expansion, the items prologue and the items
+    (three launches; see :func:`mt_stream_split_reference`)."""
     kw = dict(t_min=t_min, t_max=t_max, eps=eps)
     if not payload.is_cuda:
         return mt_stream_reference(payload, table, words, blockids, counts, **kw)
@@ -222,16 +280,21 @@ def mt_stream(
         raise ValueError(f"tile count {n_tiles} not a multiple of {TILE_GROUP}")
     if not 1 <= cpb <= 32 or cpb * tc > BLOCK_SUBLANES:
         raise ValueError(f"{cpb} chunks of {tc} per block: expected <= 32 and <= 512 tris")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned (the kernel stages it with cp.async)")
     out_t = torch.empty((n_tiles, STREAM_LANES), dtype=torch.float32, device=dev)
     out_pid = torch.empty((n_tiles, STREAM_LANES), dtype=torch.int32, device=dev)
+    # Scratch (csrc/mt_stream.cu): the expanded lists, the per-ray merge
+    # keys and the items' counters and offsets; the kernel fills them.
+    ids = torch.empty((n_tiles, nb * cpb), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    keys = torch.empty((n_tiles, STREAM_LANES), dtype=torch.int64, device=dev)
+    work = torch.empty((4 * n_tiles + 4,), dtype=torch.int32, device=dev)
     cuda.call(
         "mt_stream", "rt_mt_stream",
         payload.data_ptr(), table.data_ptr(), words.data_ptr(),
-        blockids.data_ptr(), counts.data_ptr(), out_t.data_ptr(),
-        out_pid.data_ptr(), n_tiles, nb, cpb, tc, float(t_min), float(t_max),
-        float(eps), float(np.float32(t_max + 1.0)),
+        blockids.data_ptr(), counts.data_ptr(), ids.data_ptr(),
+        tile_counts.data_ptr(), keys.data_ptr(), work.data_ptr(),
+        out_t.data_ptr(), out_pid.data_ptr(), n_tiles, nb, cpb, tc,
+        float(t_min), float(t_max), float(eps), float(np.float32(t_max + 1.0)),
     )
     return out_t, out_pid
 

@@ -16,8 +16,10 @@ chunk list.  Two hand-written CUDA kernels do the rest:
   few consecutive list entries) on a persistent grid, merged exactly
   per ray (:func:`mt_items`, :func:`hit_key`,
   :func:`mt_trace_split_reference` mirror it), with an early-exit
-  variant of the first two over front-to-back lists (``early_exit``)
-  that keeps one block per tile.
+  variant of the first two over front-to-back lists (``early_exit``) on
+  the same items: each tile's lead item, and its later items bounded by
+  the lead's snapshot (:func:`mt_trace_exit_split_reference` mirrors
+  it).
 
 The cull's knobs (``refine`` granularity, ``cull_block``,
 ``early_exit``) are the JAX package's; each changes the work, never
@@ -79,15 +81,14 @@ REFINE_SUB = 1
 # Sort key of the chunks a tile does not list (early_exit).
 UNLISTED_KEY = 3.0e38
 # Kernel B's work item per mode: a tile and at most this many consecutive
-# entries of its list.  The kernel's compile-time ITEM_* (csrc/mt_trace.cu,
-# tuned on the card, PERF.md); here only the plain mirror's default.
+# entries of its list, and early exit's item (both modes).  The kernel's
+# compile-time ITEM_* (csrc/mt_trace.cu, tuned on the card, PERF.md);
+# here only the plain mirrors' defaults.
 MT_ITEM_SIZES = {"closest": 2, "rows": 2, "anyhit": 1}
-# Shared memory a block of kernel B may take, in bytes: the early-exit
-# walk stages a [tc, 9] chunk within the default 48 KiB, the items kernel
-# a ring of two [tc, 12] chunks within Hopper's opt-in 227 KiB, each less
-# its static slots.
-MT_WALK_SMEM = 48 * 1024 - 256
-MT_ITEMS_SMEM = 227 * 1024 - 64
+MT_EXIT_ITEM_SIZE = 4
+# Shared memory a block of kernel B may take, in bytes: a ring of two
+# [tc, 12] chunks within Hopper's opt-in 227 KiB, less its static slots.
+MT_ITEMS_SMEM = 227 * 1024 - 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -536,9 +537,16 @@ def twin_slices(tiles: torch.Tensor, per_tile: int):
     return [tiles[s0 : s0 + step] for s0 in range(0, tiles.numel(), step)]
 
 
-def _mt_twin(comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, pid_base=0):
+def _mt_twin(
+    comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, pid_base=0,
+    worst0=None, bound=None, k_base=None,
+):
     """Kernel B's twin -> (its result, entries tested per tile [T]
-    int64).  See :func:`mt_trace_reference`."""
+    int64).  See :func:`mt_trace_reference`.  Early exit's items
+    (:func:`mt_trace_exit_split_reference`) also pass each tile's
+    starting ``worst0`` [T], a per-lane ``bound`` [T, r] that the
+    refreshed worst takes the minimum with, and ``k_base`` [T], the
+    global list position of entry 0 (the refresh cadence counts it)."""
     dev = payload.device
     n_tiles, r = payload.shape[1], payload.shape[2]
     tc = comp.shape[1]
@@ -551,7 +559,8 @@ def _mt_twin(comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, p
     blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
     tested = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     walking = torch.ones(n_tiles, dtype=torch.bool, device=dev)
-    worst = miss.expand(n_tiles).clone()
+    worst = miss.expand(n_tiles).clone() if worst0 is None else worst0.clone()
+    k_base = torch.zeros(n_tiles, dtype=torch.int64, device=dev) if k_base is None else k_base
     kmax = int(counts.max()) if n_tiles else 0
     for k in range(kmax):
         reach = counts > k
@@ -585,9 +594,11 @@ def _mt_twin(comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, p
                 better |= (cmin == best_t[sel]) & (cid < best_id[sel])
             best_t[sel] = torch.where(better, cmin, best_t[sel])
             best_id[sel] = torch.where(better, cid, best_id[sel])
-        if ed is not None and k % EXIT_CHECK == EXIT_CHECK - 1:
+        if ed is not None:
             # Every lane counts (invalid and padding rays too).
-            worst = torch.where(reach, best_t.amax(dim=1), worst)
+            lanes = best_t if bound is None else torch.minimum(best_t, bound)
+            refresh = reach & ((k_base + k) % EXIT_CHECK == EXIT_CHECK - 1)
+            worst = torch.where(refresh, lanes.amax(dim=1), worst)
     if mode == "anyhit":
         return blocked, tested
     if mode == "rows":
@@ -676,6 +687,20 @@ def mt_items(counts: torch.Tensor, per_item: int):
     return tile, k0, n
 
 
+def _merge_waves(tile: torch.Tensor, order: torch.Tensor | None) -> list[torch.Tensor]:
+    """Items ``order`` (a permutation of the items of ``tile``; None =
+    item order) as merge waves: wave w takes each tile's w-th item in
+    ``order``, so that folding the waves in turn folds a tile's items one
+    after another, in that order."""
+    dev = tile.device
+    order = torch.arange(tile.numel(), device=dev) if order is None else order.to(dev)
+    by_tile = torch.sort(tile[order], stable=True)
+    first = torch.searchsorted(by_tile.values, by_tile.values)
+    rank = torch.empty_like(first)
+    rank[by_tile.indices] = torch.arange(order.numel(), device=dev) - first
+    return [order[rank == w] for w in range(int(rank.max()) + 1 if rank.numel() else 0)]
+
+
 def mt_trace_split_reference(
     comp, payload, ids, counts, attr=None, *, t_min, t_max, eps, mode, pid_base=0,
     per_item: int | None = None, order: torch.Tensor | None = None,
@@ -699,14 +724,7 @@ def mt_trace_split_reference(
         t_min=t_min, t_max=t_max, eps=eps, pid_base=pid_base,
         mode="anyhit" if mode == "anyhit" else "closest",
     )
-    order = torch.arange(tile.numel(), device=dev) if order is None else order.to(dev)
-    # Merge wave w takes each tile's w-th item in `order`: a tile's items
-    # are folded one after another, in that order.
-    by_tile = torch.sort(tile[order], stable=True)
-    first = torch.searchsorted(by_tile.values, by_tile.values)
-    rank = torch.empty_like(first)
-    rank[by_tile.indices] = torch.arange(order.numel(), device=dev) - first
-    waves = [order[rank == w] for w in range(int(rank.max()) + 1 if rank.numel() else 0)]
+    waves = _merge_waves(tile, order)
     if mode == "anyhit":
         blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
         for items in waves:
@@ -725,6 +743,80 @@ def mt_trace_split_reference(
     if mode == "rows":
         return t, pid, attr[pid.to(torch.int64)].permute(2, 0, 1).contiguous()
     return t, pid
+
+
+def _exit_split(
+    comp, payload, ids, counts, attr, ed, *, t_min, t_max, eps, mode, pid_base=0,
+    per_item=None, order=None,
+):
+    """:func:`mt_trace_exit_split_reference` -> (its result, entries
+    tested per tile [T] int64)."""
+    per_item = MT_EXIT_ITEM_SIZE if per_item is None else per_item
+    dev = payload.device
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode="closest", pid_base=pid_base)
+    # Each tile's lead: the twin's walk on its first per_item entries.
+    (t, pid), tested = _mt_twin(
+        comp, payload, ids, torch.clamp(counts, max=per_item), None, ed, **kw
+    )
+    # The later items: from the lead's worst, each lane bounded by the
+    # lead's best t.
+    rest = torch.clamp(counts - per_item, min=0)
+    tile, k0, n = mt_items(rest, per_item)
+    if tile.numel():
+        k0 = k0 + per_item
+        pos = torch.clamp(k0[:, None] + torch.arange(per_item, device=dev), max=ids.shape[1] - 1)
+        (t_loc, pid_loc), tested_loc = _mt_twin(
+            comp, payload[:, tile], ids[tile[:, None], pos], n.to(torch.int32), None,
+            ed[tile[:, None], pos], worst0=t.amax(dim=1)[tile], bound=t[tile], k_base=k0, **kw,
+        )
+        tested = tested.index_add(0, tile, tested_loc)
+        miss = _f32(float(np.float32(t_max + 1.0)), dev)
+        key = hit_key(t, pid)
+        k_loc = torch.where(t_loc < miss, hit_key(t_loc, pid_loc), key[tile])
+        for items in _merge_waves(tile, order):
+            key[tile[items]] = torch.minimum(key[tile[items]], k_loc[items])
+        t_key, pid_key = hit_key_decode(key)
+        multi = (counts > per_item)[:, None]
+        t, pid = torch.where(multi, t_key, t), torch.where(multi, pid_key, pid)
+    if mode == "rows":
+        return (t, pid, attr[pid.to(torch.int64)].permute(2, 0, 1).contiguous()), tested
+    return (t, pid), tested
+
+
+def mt_trace_exit_split_reference(
+    comp, payload, ids, counts, attr=None, ed=None, *, t_min, t_max, eps, mode, pid_base=0,
+    per_item: int | None = None, order: torch.Tensor | None = None,
+):
+    """Early exit's balanced design (csrc/mt_items.cuh; the closest and
+    rows modes of :func:`mt_trace_reference` with ``ed``).  Each tile's
+    lead item walks its first ``per_item`` entries with the twin's
+    per-tile rule; a tile whose list fits takes that result as it is.
+    Every later item (:func:`mt_items` of the remaining entries) walks
+    with the same rule, starting from the largest of the lead's per-lane
+    bests and refreshing to the largest over lanes of min(own best, the
+    lead's best); their hits are folded into the lead's :func:`hit_key`
+    per ray in the item order ``order`` (a permutation of the later
+    items; None = item order).  Items read only
+    the lead's snapshot, so the result is the same in every order, and
+    on valid rays it equals :func:`mt_trace_reference` bit for bit (and
+    so the default mode's result); on invalid rays of tiles with more
+    than one item it may differ from the twin's, which depends on where
+    the sequential walk stopped.  ``per_item`` None takes the kernel's
+    size (MT_EXIT_ITEM_SIZE)."""
+    if mode not in ("closest", "rows") or ed is None:
+        raise ValueError("the early-exit mirror needs ed and the closest or rows mode")
+    return _exit_split(
+        comp, payload, ids, counts, attr, ed, t_min=t_min, t_max=t_max, eps=eps,
+        mode=mode, pid_base=pid_base, per_item=per_item, order=order,
+    )[0]
+
+
+def exit_entries_tested(comp, payload, ids, counts, attr=None, ed=None, **kw) -> torch.Tensor:
+    """[T] int64: the list entries each tile of an early-exit
+    :func:`mt_trace` call tests on the card (the lead's and every rest
+    item's, :func:`mt_trace_exit_split_reference`).  Takes its
+    arguments."""
+    return _exit_split(comp, payload, ids, counts, attr, ed, **kw)[1]
 
 
 def mt_trace(
@@ -749,11 +841,13 @@ def mt_trace(
     (the sorted entry bounds of front-to-back lists) selects the
     early-exit variant of the closest and rows modes, counted as
     ``mt_trace[<mode>,early_exit]``.  CPU tensors run
-    :func:`mt_trace_reference`; CUDA tensors launch the kernel: without
-    ``ed``, balanced work items (MT_ITEM_SIZES entries) on a persistent
-    grid with an exact (t, pid) merge (two launches; see
-    :func:`mt_trace_split_reference`); with ``ed``, the per-tile walk
-    (one launch)."""
+    :func:`mt_trace_reference`; CUDA tensors launch the kernel: balanced
+    work items on a persistent grid with an exact (t, pid) merge, two
+    launches.  Without ``ed``, MT_ITEM_SIZES entries an item (see
+    :func:`mt_trace_split_reference`); with ``ed``, MT_EXIT_ITEM_SIZE
+    entries an item, each tile's lead item and the later ones bounded by
+    its snapshot (see :func:`mt_trace_exit_split_reference`: equal to the
+    twin on valid rays)."""
     if mode not in MT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
     if mode == "rows" and attr is None:
@@ -779,9 +873,11 @@ def mt_trace(
             raise ValueError(f"attr: {attr.shape[0]} rows, need at least {need}")
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
-    smem, limit = (tc * 9 * 4, MT_WALK_SMEM) if ed is not None else (tc * 24 * 4, MT_ITEMS_SMEM)
-    if smem > limit:
-        raise ValueError(f"tri_chunk {tc}: {smem} B of shared memory a block, over the {limit} B limit")
+    if tc * 24 * 4 > MT_ITEMS_SMEM:
+        raise ValueError(
+            f"tri_chunk {tc}: {tc * 24 * 4} B of shared memory a block, over the "
+            f"{MT_ITEMS_SMEM} B limit"
+        )
     out_t = out_pid = out_rows = out_blocked = None
     if mode == "anyhit":
         out_blocked = torch.empty((n_tiles, r), dtype=torch.bool, device=dev)
@@ -790,20 +886,22 @@ def mt_trace(
         out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
     if mode == "rows":
         out_rows = torch.empty((32, n_tiles, r), dtype=torch.float32, device=dev)
-    # The balanced design's scratch (csrc/mt_trace.cu): per-ray merge
-    # keys, and the item counter, per-tile item offsets and finished-item
-    # counts; the kernel initialises both.
-    keys = work = None
-    if ed is None:
-        work = torch.empty((2 * n_tiles + 3,), dtype=torch.int32, device=dev)
-        if mode != "anyhit":
-            keys = torch.empty((n_tiles, r), dtype=torch.int64, device=dev)
+    # The balanced design's scratch (csrc/mt_items.cuh): the item
+    # counters, per-tile item offsets and finished-item counts, per-ray
+    # merge keys and, for early exit, the leads' per-lane best t and
+    # per-tile worst; the kernel initialises all of them.
+    work = torch.empty((4 * n_tiles + 4,), dtype=torch.int32, device=dev)
+    keys = lead = None
+    if mode != "anyhit":
+        keys = torch.empty((n_tiles, r), dtype=torch.int64, device=dev)
+    if ed is not None:
+        lead = torch.empty((n_tiles * (r + 1),), dtype=torch.float32, device=dev)
     cuda.call(
         mt_name(mode, ed is not None), "rt_mt_trace",
         payload.data_ptr(), comp.data_ptr(), ids.data_ptr(),
         counts.data_ptr(), cuda.ptr(attr if mode == "rows" else None),
         cuda.ptr(ed), cuda.ptr(out_t), cuda.ptr(out_pid), cuda.ptr(out_rows),
-        cuda.ptr(out_blocked), cuda.ptr(keys), cuda.ptr(work), n_tiles, r, nc, tc,
+        cuda.ptr(out_blocked), cuda.ptr(keys), cuda.ptr(work), cuda.ptr(lead), n_tiles, r, nc, tc,
         int(pid_base), float(t_min), float(t_max), float(eps),
         float(np.float32(t_max + 1.0)), MT_MODES.index(mode), EXIT_CHECK,
     )
@@ -871,7 +969,7 @@ def packet_closest_hit_tiled(
     * ``early_exit`` (closest and rows modes; ignored for any-hit;
       needs ``cull_block == 1``): lists sorted front to back by the
       interval cull's entry bound, and the kernel's early-exit variant
-      stops a tile at the first entry beyond its worst best t."""
+      skips the entries beyond its tiles' worst best t."""
     nc = chunks.num_chunks
     if cull_block < 1 or nc % cull_block:
         raise ValueError(

@@ -21,6 +21,7 @@ tests/test_torch_packet_trace.py and tests/test_torch_shade_tile.py:
 from __future__ import annotations
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,8 +32,8 @@ from rt_rs_tpu.ops.pallas import packet_trace as jpt
 from rt_rs_tpu.ops.pallas import shade_tile as jst
 from rt_rs_tpu_torch import Config, Renderer, Resolution
 from rt_rs_tpu_torch.handlers.pbvh import PacketBvhIntrs
+from rt_rs_tpu_torch.ops import cuda, shade, shade_tile
 from rt_rs_tpu_torch.ops import packet_trace as pt
-from rt_rs_tpu_torch.ops import shade, shade_tile
 from rt_rs_tpu_torch.scene.presets import torus_row, torus_scene
 
 # pytest-xdist runs several test processes at once; torch's default of
@@ -195,10 +196,9 @@ def test_early_exit_segmented():
         assert_valid_equal(base, fast, valid)
 
 
-def test_early_exit_skips_entries():
-    """Rays that all hit the first torus of torus_row(2) head-on: every
-    tile stops before the end of its list (the second torus lies behind
-    the first), and the result equals the full walk."""
+def head_on_rays():
+    """(torus_row(2)'s flattened table, payload [8, 32, 256], valid):
+    rays that all hit the first torus head-on."""
     scene = torus_row(2)
     accel, _ = PacketBvhIntrs().build(scene, scene.pack(device="cpu"))
     chunks = pt.flatten_segments(accel)
@@ -213,7 +213,14 @@ def test_early_exit_skips_entries():
     )
     d = np.stack([np.ones((t_tiles, r)), *rng.uniform(-1e-3, 1e-3, (2, t_tiles, r))])
     payload = _t(np.concatenate([o, d, np.zeros((2, t_tiles, r))]).astype(np.float32))
-    valid = torch.ones((t_tiles, r), dtype=torch.bool)
+    return chunks, payload, torch.ones((t_tiles, r), dtype=torch.bool)
+
+
+def test_early_exit_skips_entries():
+    """Rays that all hit the first torus of torus_row(2) head-on: every
+    tile stops before the end of its list (the second torus lies behind
+    the first), and the result equals the full walk."""
+    chunks, payload, valid = head_on_rays()
     win = dict(t_min=T_MIN, t_max=T_MAX)
     ov, near = pt.chunk_overlap_mask_cm(
         payload[0:3], 1.0 / payload[3:6], valid, chunks.bmin, chunks.bmax, want_near=True, **win
@@ -238,6 +245,122 @@ def test_early_exit_checks(tables):
     ed = torch.zeros((32, chunks.num_chunks))
     with pytest.raises(ValueError, match="any-hit"):
         pt.mt_trace(chunks.comp, p, None, None, None, ed, mode="anyhit", **KW)
+
+
+def exit_case(tables, case: str):
+    """(chunks, payload, valid, ids, counts, ed) of one early-exit call:
+    ``random_rays`` (30% invalid, a tile of NaN rays: no tile stops),
+    ``head_on_rays`` (every tile stops early), or torus_scene's 64x48
+    primaries (12 live tiles of 32) with skewed lists, sorted by the
+    interval cull's entry bounds: the busiest tile listing every chunk
+    and the rest nothing, or every tile listing every chunk."""
+    if case == "head-on":
+        chunks, payload, valid = head_on_rays()
+    elif case == "random":
+        chunks = tables[0]
+        payload, valid = (_t(x) for x in random_rays(nan_tile=True))
+    else:
+        chunks = tables[0]
+        scene = torus_scene()
+        payload, valid, _ = shade.camera_ray_tiles(
+            torch.tensor(scene.camera.pos, dtype=torch.float32),
+            torch.tensor(scene.camera.at, dtype=torch.float32), 64, 48, 256, block=(16, 16),
+        )
+    ov, near = pt.chunk_overlap_mask_cm(
+        payload[0:3], 1.0 / payload[3:6], valid, chunks.bmin, chunks.bmax, want_near=True,
+        t_min=T_MIN, t_max=T_MAX,
+    )
+    if case == "one tile":
+        busiest = int(ov.sum(dim=1).argmax())
+        ov = torch.zeros_like(ov)
+        ov[busiest] = True
+    elif case == "every tile":
+        ov = torch.ones_like(ov)
+    ids, counts, ed = pt.early_exit_lists(ov, near)
+    return chunks, payload, valid, ids, counts, ed
+
+
+EXIT_SPLIT_CASES = [
+    ("random", 1, "closest"),
+    ("random", 8, "rows"),
+    ("head-on", 1, "rows"),
+    ("head-on", 3, "closest"),
+    ("head-on", 4, "rows"),
+    ("head-on", 8, "closest"),
+    ("one tile", 8, "rows"),
+    ("one tile", 16, "closest"),
+    ("every tile", 3, "rows"),
+    ("every tile", 8, "closest"),
+]
+
+
+@pytest.mark.parametrize("case,per_item,mode", EXIT_SPLIT_CASES)
+def test_early_exit_split_bit_equal_to_the_twin(tables, case, per_item, mode):
+    """Early exit's balanced mirror: the same bits in every merge order
+    on every ray; the twin's bits on valid rays, and on every ray of the
+    tiles whose list fits the lead item."""
+    chunks, payload, valid, ids, counts, ed = exit_case(tables, case)
+    args = (chunks.comp, payload, ids, counts, chunks.attr if mode == "rows" else None, ed)
+    kw = dict(mode=mode, per_item=per_item, **KW)
+    n_rest = pt.mt_items(torch.clamp(counts - per_item, min=0), per_item)[0].numel()
+    g = torch.Generator().manual_seed(per_item)
+    got = pt.mt_trace_exit_split_reference(*args, **kw)
+    for order in (torch.randperm(n_rest, generator=g), torch.arange(n_rest).flip(0)):
+        again = pt.mt_trace_exit_split_reference(*args, order=order, **kw)
+        assert_valid_equal(got, again, torch.ones_like(valid))
+    want = pt.mt_trace_reference(*args, mode=mode, **KW)
+    assert_valid_equal(got, want, valid)
+    single = (counts <= per_item)[:, None].expand_as(valid)
+    assert_valid_equal(got, want, single)
+    assert bool((got[1][valid] != 0).any())  # the call hits geometry
+    tested = pt.exit_entries_tested(*args, **kw)
+    assert bool((tested <= counts).all())
+    if case == "head-on" and per_item >= pt.EXIT_CHECK:
+        # The lead's snapshot prunes like the walk: each tile stops early.
+        assert bool((tested < counts).all()), (tested, counts)
+
+
+@pytest.mark.parametrize("extra", [{}, {"emit_rows": True}], ids=["closest", "rows"])
+def test_early_exit_split_matches_jax_and_default(tables, extra):
+    """The mirror on torus_scene's 96x72 primaries (27 live tiles of
+    32), at the kernel's item size and at 8 (where some tiles stop
+    early): bit-equal to the default mode on valid rays, and matching the
+    JAX package's early-exit kernel (interpret mode) under the hit
+    rule."""
+    chunks, jc = tables
+    scene = torus_scene()
+    p, v, _ = shade.camera_ray_tiles(
+        torch.tensor(scene.camera.pos, dtype=torch.float32),
+        torch.tensor(scene.camera.at, dtype=torch.float32), 96, 72, 256, block=(16, 16),
+    )
+    valid = v.numpy()
+    ov, near = pt.chunk_overlap_mask_cm(
+        p[0:3], 1.0 / p[3:6], v, chunks.bmin, chunks.bmax, want_near=True, t_min=T_MIN, t_max=T_MAX
+    )
+    ids, counts, ed = pt.early_exit_lists(ov, near)
+    mode = "rows" if extra else "closest"
+    args = (chunks.comp, p, ids, counts, chunks.attr if extra else None, ed)
+    base = pt.packet_closest_hit_tiled(chunks, p, v, **KW, **extra)
+    ref = jpt.packet_closest_hit_tiled(
+        jc, _j(p.numpy()), _j(valid), early_exit=True, interpret=True, **KW, **extra
+    )
+    for per_item in (None, 8):
+        ours = pt.mt_trace_exit_split_reference(*args, mode=mode, per_item=per_item, **KW)
+        assert_valid_equal(ours, base, valid)
+        same = assert_hits_match(ours, ref, valid)
+        if extra:
+            rows, jrows = ours[2].numpy()[:, valid], np.asarray(ref[2])[:, valid]
+            np.testing.assert_array_equal(rows[:, same], jrows[:, same])
+    tested = pt.exit_entries_tested(*args, mode=mode, per_item=8, **KW)
+    assert int(tested.sum()) < int(counts.sum())
+
+
+def test_exit_item_size_mirrors_the_kernel():
+    """The mirror's default item size is the kernel's compile-time one
+    (``ITEM_EXIT`` in csrc/mt_trace.cu)."""
+    src = (cuda.CSRC / "mt_trace.cu").read_text()
+    (size,) = re.findall(r"ITEM_EXIT = (\d+)", src)
+    assert int(size) == pt.MT_EXIT_ITEM_SIZE >= 1
 
 
 # ----------------------------------------------------------------------
