@@ -51,10 +51,11 @@ exits nonzero without printing a result):
    1920x1080, and the canyon through the transposed table at 640x480
    (every mt_tpose call).  Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal, and each
-   mt_trace, mt_stream and refine_cull call, run twice, gives the same
-   bits (the balanced designs merge their items with atomics in no fixed
-   order); mt_stream also equals its design's mirror
-   (``mt_stream_split_reference``).  Early-exit mt_trace calls equal the
+   mt_trace, mt_stream, mt_tpose, mt_mxu and refine_cull call, run twice,
+   gives the same bits (the balanced designs merge their items with
+   atomics in no fixed order); mt_stream and mt_tpose also equal their
+   designs' mirrors (``mt_stream_split_reference``,
+   ``mt_tpose_split_reference``).  Early-exit mt_trace calls equal the
    balanced design's mirror (``mt_trace_exit_split_reference``) on every
    ray, and the twin and the default mode on the same lists on valid
    rays (outputs are specified there only; the call's ``valid`` is its
@@ -75,9 +76,12 @@ exits nonzero without printing a result):
    every tile listing every chunk of every block, against its twin and
    mirror.  The probes' kernels
    at the JAX mains' sizes: fma_peak (separate bit-equal, fused within
-   rtol 1e-6), mt_tpose (tc 64 and 128) bit-equal to its twin and to
-   mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to its
-   twin, [high] and [default] within ``mxu_mt.TF32_BOUNDS`` of highest.
+   rtol 1e-6), mt_tpose (tc 64 and 128) bit-equal to its twin, its mirror
+   and mt_trace[closest] on the same lists, mt_mxu[highest] bit-equal to
+   its twin and mirror, [high] and [default] within
+   ``mxu_mt.TF32_BOUNDS`` of highest (each precision's mirror bit-equal
+   to its twin); both again on the 256 busiest tiles of those calls with
+   one tile, then every tile, listing every chunk.
 4. Paths.  Launch counters are reset right before each path and read
    right after it; every kernel of the path must have launched (the
    ``chain`` path runs last, as phase 8).
@@ -124,19 +128,20 @@ exits nonzero without printing a result):
    torus 1080p early-exit frame's primary call; early-exit calls also
    as the default call over the same lists, the fused shading call also
    as shade_post + shade_pre; the probes' kernels at the compare
-   phase's calls.  Each f32 kernel's bound also at the measured
-   separate-FMA rate, its launches per wrapper call (torch.profiler),
-   and each mt_trace call's list lengths.  The default-mode mt_trace
+   phase's calls, and mt_trace[closest] on mt_tpose's tc = 64 lists.
+   Each f32 kernel's bound also at the measured separate-FMA rate, its
+   launches per wrapper call (torch.profiler; mt_tpose and mt_mxu must
+   make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
    calls in one table: the three above, the torus 1080p primary rows
    call and the flat ``torus_ghost()`` 1080p frame's busiest closest
-   call.  shade_post also at the torus 1080p frame's shapes.  mt_stream
-   and the early-exit calls also print the per-tile walks' times they
-   replaced (WALK_MS, constants) and, for early exit, the entries the
-   per-tile rule and the items test.
+   call.  shade_post also at the torus 1080p frame's shapes.  mt_stream,
+   the early-exit calls and the probes' MT kernels also print the
+   per-tile walks' times they replaced (WALK_MS, constants) and, for
+   early exit, the entries the per-tile rule and the items test.
 7. Where the time goes: torch.profiler over canyon frames (default and
-   early exit) and torus 1080p frames (default and knobs), device time
-   by kernel kind and the device's idle share, and over flat
-   ``torus_ghost()`` 1080p frames.
+   early exit, and through the transposed table) and torus 1080p frames
+   (default and knobs), device time by kernel kind and the device's idle
+   share, and over flat ``torus_ghost()`` 1080p frames.
 8. The ``chain`` path (:func:`phase_chain`; last, because single-call
    profiles taken after graph captures lost kernels): each case of
    CHAIN captures its graphs (a host read or a host-to-device copy
@@ -153,7 +158,8 @@ exits nonzero without printing a result):
    once used, it left each later eager launch of the process slower.
 
 The second-to-last lines are JSON objects of frame times (with the
-chain phase, the A/B, the mt_trace calls and shade_post at 1080p) and
+chain phase, the A/B, the mt_trace calls, shade_post at 1080p and
+mt_trace[closest] on mt_tpose's lists) and
 of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +215,7 @@ PROFILE = (
     ("canyon dma 640x480", "dma", "640x480", 3),
     ("canyon segmented 1920x1080", "segmented", "1920x1080", 2),
     ("canyon segmented early_exit 640x480", "knobs", "canyon 640x480", 3),
+    ("tpose canyon 640x480", "probes", "tpose canyon", 3),
     ("torus 1920x1080", "torus", "1920x1080", 3),
     ("knobs torus 1920x1080", "knobs", "1920x1080", 3),
     ("torus_ghost flat 1920x1080", "flat", "1920x1080", 3),
@@ -451,7 +458,7 @@ class Recorder:
     (the frame path calls them through these module attributes)."""
 
     def __init__(self):
-        from rt_rs_tpu_torch.experiments import tpose_table
+        from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
         from rt_rs_tpu_torch.ops import packet_stream, packet_trace, shade_tile
 
         self.targets = [
@@ -465,6 +472,7 @@ class Recorder:
             (shade_tile, "shade_post"),
             (shade_tile, "shade_bounce"),
             (tpose_table, "mt_tpose"),
+            (mxu_mt, "mt_mxu"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -557,7 +565,6 @@ class TposeCanyon:
 
 def replay(label: str, calls, errs: dict, ulps: dict) -> None:
     """Every recorded kernel call through kernel and twin."""
-    from rt_rs_tpu_torch.experiments import tpose_table as tp
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -580,8 +587,9 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
             errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
-        kern, twin = tp.mt_tpose(*a, **kw), tp.mt_tpose_reference(*a, **kw)
-        errs["mt_tpose"] = max(errs["mt_tpose"], check_equal(f"{label} mt_tpose#{i}", kern, twin))
+        check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
+    for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
+        check_mxu(f"{label} mt_mxu#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_stream"]):
         kern, twin = ps.mt_stream(*a, **kw), ps.mt_stream_reference(*a, **kw)
         errs["mt_stream"] = max(
@@ -773,6 +781,94 @@ def check_skewed_stream(errs: dict, recorded: dict) -> None:
         say(f"[compare] {what} ({n} tiles of 128 rays): mt_stream = twin = split mirror, run twice alike")
 
 
+def check_tpose(what: str, a, kw, errs: dict):
+    """One mt_tpose call: the kernel bit-equal to its twin and to the
+    balanced design's mirror (``mt_tpose_split_reference``), and run twice
+    alike -> the kernel's result."""
+    from rt_rs_tpu_torch.experiments import tpose_table as tp
+
+    kern = tp.mt_tpose(*a, **kw)
+    errs["mt_tpose"] = max(errs["mt_tpose"], check_equal(what, kern, tp.mt_tpose_reference(*a, **kw)))
+    check_equal(f"{what} vs the split mirror", kern, tp.mt_tpose_split_reference(*a, **kw))
+    check_equal(f"{what} run twice", tp.mt_tpose(*a, **kw), kern)
+    return kern
+
+
+def check_mxu(what: str, a, kw, errs: dict):
+    """One mt_mxu call, run twice alike, its mirror
+    (``mt_mxu_split_reference``) bit-equal to its twin.  highest: the
+    kernel bit-equal to both; high and default: the kernel within
+    ``mxu_mt.TF32_BOUNDS`` of highest's kernel on the same lists, on the
+    rays of listed tiles (errs: the largest t difference where the pids
+    agree) -> (pid agreement, t rel err) against highest, and the twin's
+    (its TF32 emulation against the highest twin), or None for
+    highest."""
+    from rt_rs_tpu_torch.experiments import mxu_mt
+
+    b = bind(mxu_mt.mt_mxu_reference, a, kw)
+    name = f"mt_mxu[{b['precision']}]"
+    kern = mxu_mt.mt_mxu(**b)
+    twin = mxu_mt.mt_mxu_reference(**b)
+    check_equal(f"{what} {name} split mirror vs twin", mxu_mt.mt_mxu_split_reference(**b), twin)
+    check_equal(f"{what} {name} run twice", mxu_mt.mt_mxu(**b), kern)
+    if b["precision"] == "highest":
+        errs[name] = max(errs[name], check_equal(f"{what} {name}", kern, twin))
+        return None
+    listed = (b["counts"] > 0)[:, None].expand_as(twin[0])
+    ref = mxu_mt.mt_mxu(**dict(b, precision="highest"))
+    twin_ref = mxu_mt.mt_mxu_reference(**dict(b, precision="highest"))
+    t, pid, t_ref, pid_ref = (x[listed] for x in (*kern, *ref))
+    match, rel = mxu_mt.tf32_agreement(t, pid, t_ref, pid_ref)
+    least, most = mxu_mt.TF32_BOUNDS[b["precision"]]
+    if not (match >= least and rel <= most):
+        raise AssertionError(f"{what} {name} vs highest: pid agreement {match}, t rel err {rel}")
+    same = pid == pid_ref
+    errs[name] = max(errs[name], max_abs(t[same], t_ref[same]))
+    return (match, rel), mxu_mt.tf32_agreement(*(x[listed] for x in (*twin, *twin_ref)))
+
+
+def check_skewed_probes(errs: dict, probe_calls: dict) -> None:
+    """mt_tpose (tc 64) and mt_mxu (each precision) at the two extremes
+    of balance, on 256 tiles of the compare phase's calls (torus_scene's
+    1080p primaries): the busiest tile and 255 spread evenly over the
+    image, so that TF32_BOUNDS, set over an image's rays, applies (on the
+    256 busiest tiles default-precision TF32 agrees with highest on
+    fewer pids: 0.9863).  One tile (the busiest) lists every chunk of the
+    table and every other tile nothing, then every tile lists every
+    chunk.  Checked as every recorded call is (:func:`check_tpose`,
+    :func:`check_mxu`)."""
+    import torch
+
+    for name in ("mt_tpose", "mt_mxu[highest]", "mt_mxu[high]", "mt_mxu[default]"):
+        _, _, (table, rays, ids, counts), kw = probe_calls[name]
+        nc = table.shape[0]
+        busiest = counts.argmax()
+        spread = torch.linspace(0, counts.numel() - 1, 255, device=DEVICE).long()
+        rays = rays[torch.cat([busiest[None], spread])].contiguous()
+        n_tiles = rays.shape[0]
+        ids = torch.arange(nc, dtype=torch.int32, device=DEVICE).expand(n_tiles, nc).contiguous()
+        for shape in ("one tile", "every tile"):
+            if shape == "one tile":
+                counts = torch.zeros(n_tiles, dtype=torch.int32, device=DEVICE)
+                counts[0] = nc
+            else:
+                counts = torch.full((n_tiles,), nc, dtype=torch.int32, device=DEVICE)
+            what = f"skewed {name}, {shape} listing all {nc} chunks ({n_tiles} tiles of {rays.shape[2]} rays)"
+            if name == "mt_tpose":
+                check_tpose(what, (table, rays, ids, counts), kw, errs)
+                extra = "= twin = split mirror"
+            else:
+                agree = check_mxu(what, (table, rays, ids, counts), kw, errs)
+                extra = "= twin = split mirror"
+                if agree is not None:
+                    (match, rel), (t_match, t_rel) = agree
+                    extra = (
+                        f"within TF32_BOUNDS of highest (pid agreement {match:.6f}, t rel err "
+                        f"{rel:.3e}; the twin's emulation {t_match:.6f}, {t_rel:.3e}), split mirror = twin"
+                    )
+            say(f"[compare] {what}: {extra}, run twice alike")
+
+
 def check_against_flat(label: str, calls) -> tuple[int, int]:
     """Each segmented call against one flat call on its flattened table,
     each streamed call against the flat closest hit under the same
@@ -847,6 +943,8 @@ def phase_compare():
                 "torus mt_trace[closest]#0",
                 pt.mt_trace(*a[:4], **kw0), pt.mt_trace_reference(*a[:4], **kw0),
             )
+        if calls["mt_tpose"]:
+            say(f"[compare] {label} mt_tpose calls: " + "; ".join(list_stats(a[3]) for a, _, _ in calls["mt_tpose"]))
         n_seg, n_stream = check_against_flat(label, calls)
         if DEVICE == "cuda":
             torch.cuda.synchronize()
@@ -868,20 +966,21 @@ def phase_compare():
     check_skewed(errs, recorded)
     check_skewed_exit(errs, recorded)
     check_skewed_stream(errs, recorded)
-    recorded["probes"] = compare_probes(errs)
+    recorded["probes"], recorded["tpose lists"] = compare_probes(errs)
+    check_skewed_probes(errs, recorded["probes"])
     return errs, recorded
 
 
-def compare_probes(errs: dict) -> dict:
+def compare_probes(errs: dict) -> tuple[dict, tuple]:
     """The probes' kernels against their twins on the card, at the JAX
     mains' sizes: fma_peak (iters 4096, grid 256; separate bit-equal,
     fused within rtol 1e-6), mt_tpose on the chunk lists of torus_scene's
-    1080p primaries at tc 64 and 128 (bit-equal to its twin and to
-    mt_trace[closest] on the same lists and tc), mt_mxu[highest]
-    (bit-equal to its twin) and mt_mxu[high] / [default] (against
-    highest: pid agreement and t error within mxu_mt.TF32_BOUNDS).  ->
-    name -> (kernel, twin, args, kwargs) of one call each, for the
-    kernel times."""
+    1080p primaries at tc 64 and 128 (:func:`check_tpose`, and bit-equal
+    to mt_trace[closest] on the same lists and tc), mt_mxu at each
+    precision (:func:`check_mxu`; high and default also against highest
+    on the image's rays).  -> (name -> (kernel, twin, args, kwargs) of
+    one call each, for the kernel times; mt_trace[closest]'s (args,
+    kwargs) on mt_tpose's tc = 64 lists)."""
     import torch
 
     from rt_rs_tpu_torch.experiments import mxu_mt, roofline, tpose_table
@@ -917,19 +1016,17 @@ def compare_probes(errs: dict) -> dict:
         tables = tpose_table.build_tri_chunks_t(*p["corners"], tri_chunk=tc, device=DEVICE)
         s = probe_rays(o, d, excl, None, None, tables.bmin, tables.bmax, ray_tile=256, **win)
         args = (tables.comp, s.rays, s.ids, s.counts)
-        kern = tpose_table.mt_tpose(*args, **kw)
-        errs["mt_tpose"] = max(
-            errs["mt_tpose"],
-            check_equal(f"mt_tpose tc={tc}", kern, tpose_table.mt_tpose_reference(*args, **kw)),
-        )
+        kern = check_tpose(f"mt_tpose tc={tc}", args, kw, errs)
         payload = s.rays.permute(1, 0, 2).contiguous()
-        b = pt.mt_trace(p["chunks"][tc].comp, payload, s.ids, s.counts, mode="closest", **kw)
-        check_equal(f"mt_tpose tc={tc} vs mt_trace[closest]", kern, b)
+        same = ((p["chunks"][tc].comp, payload, s.ids, s.counts), dict(mode="closest", **kw))
+        check_equal(f"mt_tpose tc={tc} vs mt_trace[closest]", kern, pt.mt_trace(*same[0], **same[1]))
         if tc == 64:
             calls["mt_tpose"] = (tpose_table.mt_tpose, tpose_table.mt_tpose_reference, args, kw)
+            same_lists = same
         say(
             f"[compare] mt_tpose tc={tc} on the 1080p primaries' lists "
-            f"({int(s.counts.sum())} entries): bit-equal to its twin and to mt_trace[closest]"
+            f"({int(s.counts.sum())} entries): bit-equal to its twin, its split mirror and "
+            "mt_trace[closest], run twice alike"
         )
     o, d, excl = p["rays"][(8, 16)]
     chunks = p["chunks"][64]
@@ -938,14 +1035,15 @@ def compare_probes(errs: dict) -> dict:
     args = (table, s.rays, s.ids, s.counts)
     n = s.n
     best = mxu_mt.mt_mxu(*args, precision="highest", **kw)
-    errs["mt_mxu[highest]"] = check_equal(
-        "mt_mxu[highest]", best, mxu_mt.mt_mxu_reference(*args, precision="highest", **kw)
-    )
     t_ref, pid_ref = (x.reshape(-1)[:n] for x in best)
-    line = f"[compare] mt_mxu on the 1080p primaries' lists ({int(s.counts.sum())} entries): highest bit-equal to its twin"
+    line = (
+        f"[compare] mt_mxu on the 1080p primaries' lists ({int(s.counts.sum())} entries): each "
+        "precision's split mirror bit-equal to its twin and run twice alike; highest bit-equal to its twin"
+    )
     for precision in mxu_mt.PRECISIONS:
         name = f"mt_mxu[{precision}]"
         calls[name] = (mxu_mt.mt_mxu, mxu_mt.mt_mxu_reference, args, dict(precision=precision, **kw))
+        agree = check_mxu("mt_mxu", args, dict(precision=precision, **kw), errs)
         if precision == "highest":
             continue
         t, pid = (x.reshape(-1)[:n] for x in mxu_mt.mt_mxu(*args, precision=precision, **kw))
@@ -953,14 +1051,13 @@ def compare_probes(errs: dict) -> dict:
         least, most = mxu_mt.TF32_BOUNDS[precision]
         if not (match >= least and rel <= most):
             raise AssertionError(f"{name} vs highest: pid agreement {match}, t rel err {rel}")
-        same = pid == pid_ref
-        errs[name] = max_abs(t[same], t_ref[same])
         line += (
             f"; {precision}: pid agreement {match:.6f} (least {least}), t rel err max "
-            f"{rel:.3e} (most {most})"
+            f"{rel:.3e} (most {most}) on the image's rays ({agree[0][0]:.6f}, {agree[0][1]:.3e} on "
+            "listed tiles)"
         )
     say(line)
-    return calls
+    return calls, same_lists
 
 
 def reset_counts() -> None:
@@ -1309,14 +1406,14 @@ def drive_probes(card: str, first: dict) -> tuple[dict, dict]:
             f"pid bit-equal; {card}"
         )
     frame_ms = {"probe calls": call_ms, "practical_peak_tflops": {k: v / 1e12 for k, v in rates.items()}}
-    frame_ms["tpose canyon 640x480"] = tpose_frame(card)
-    return frame_ms, {"rates": rates, "inputs": p}
+    frame_ms["tpose canyon 640x480"], tpose = tpose_frame(card)
+    return frame_ms, {"rates": rates, "inputs": p, "tpose canyon": tpose}
 
 
-def tpose_frame(card: str) -> float:
+def tpose_frame(card: str):
     """The transposed-table canyon (:class:`TposeCanyon`) at TPOSE_FRAME
-    -> ms/frame over its orbit; its first frame against the segmented
-    Renderer's frame of the same camera."""
+    -> (ms/frame over its orbit, the frame's TposeCanyon); its first
+    frame against the segmented Renderer's frame of the same camera."""
     w, h, frames = TPOSE_FRAME
     r = TposeCanyon(w, h)
     seg, mine = r.seg.render_frame(), r.render_frame()
@@ -1330,7 +1427,7 @@ def tpose_frame(card: str) -> float:
     )
     if far > TPOSE_FAR_SHARE * d.numel():
         raise AssertionError(f"tpose canyon frame: {far} values beyond {REF_ATOL}")
-    return orbit_ms(f"tpose canyon {w}x{h}", r, frames, card)
+    return orbit_ms(f"tpose canyon {w}x{h}", r, frames, card), r
 
 
 def phase_paths(card: str):
@@ -1610,8 +1707,9 @@ POST_LIGHT_OPS, POST_TAIL_OPS = 41, 9
 # feature for each of det, u, v and wnum, and the epilogue's sign fold 2
 # and su + sv 1.  On the CUDA cores ("highest") the product needs only
 # the features the table can make non-zero (d, o, o x d, one: 10 of 16);
-# the tensor cores' k8 steps take all 16 (3xTF32: three products).
-MXU_FEATURES = {"highest": 10, "high": 16, "default": 16}
+# the tensor cores' TF32 steps are 8 or 4 deep, so they take 12
+# (3xTF32: three products).
+MXU_FEATURES = {"highest": 10, "high": 12, "default": 12}
 MXU_EPILOGUE_OPS = 3
 
 
@@ -1876,15 +1974,22 @@ def list_stats(counts) -> str:
     )
 
 
-# Device ms of the per-tile walks that the balanced designs of mt_stream
-# and early exit replaced, on the calls phase 6 times (this script's
-# phase 6 at commit 70c240c, NVIDIA H100 80GB HBM3, 700.00 W): printed
-# beside the new times for the record, not rerun.
+# Device ms of the per-tile walks that the balanced designs replaced, on
+# the calls phase 6 times (this script's phase 6, NVIDIA H100 80GB HBM3,
+# 700.00 W; mt_stream and early exit at commit 70c240c, the probes at
+# db77f15): printed beside the new times for the record, not rerun.
 WALK_MS = {
     "mt_stream": 10.1059,
     "mt_trace[closest,early_exit]": 1.3434,
     "mt_trace[rows,early_exit]": 2.1129,
+    "mt_tpose": 2.7122,
+    "mt_mxu[highest]": 8.9724,
+    "mt_mxu[high]": 3.0711,
+    "mt_mxu[default]": 2.1035,
 }
+# Launches per wrapper call of the probes' balanced designs: a prologue
+# and the items (checked against torch.profiler in phase 6).
+PROBE_CALL_LAUNCHES = 2
 
 # Bytes overwritten before each profiled call: five times the H100's
 # 50 MB L2, so a call reads its inputs from HBM, as its bound assumes.
@@ -2024,6 +2129,8 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         times[name] = (k_ms, t_ms, b_ms, by, sep_ms)
         extra = "" if sep_ms is None else f", bound at the separate rate {sep_ms:.4f} ms"
         extra += f", launches per call {sum(launched.values())} {launched}"
+        if name.startswith(("mt_tpose", "mt_mxu")) and sum(launched.values()) != PROBE_CALL_LAUNCHES:
+            raise AssertionError(f"{name}: {launched} launches per call, expected {PROBE_CALL_LAUNCHES}")
         if name.startswith(("mt_trace", "mt_tpose", "mt_mxu")):
             # list entries: (tile, chunk) pairs, each tc x r ray-triangle tests
             n = entries((a, kw))
@@ -2056,6 +2163,14 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             f"back-to-back wrapper calls {ev_ms:.4f}), twin {t_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({by}){extra}; {card}"
         )
+    # mt_trace[closest] on mt_tpose's lists: the time mt_tpose should match.
+    a, kw = recorded["tpose lists"]
+    b_ms = profiled(lambda: pt.mt_trace(*a, **kw))[1]
+    times["mt_trace[closest] on mt_tpose's lists"] = (b_ms, None, *bound("mt_trace[closest]", a, kw), None)
+    say(
+        f"[time] mt_trace[closest] on mt_tpose's tc = 64 lists: kernel {b_ms:.4f} ms (device, "
+        f"profiler); mt_tpose {times['mt_tpose'][0]:.4f} ms, {times['mt_tpose'][0] / b_ms:.3f} of it; {card}"
+    )
     with Recorder() as rec:
         kept["torus"]["1920x1080"].render_frame()
     # shade_post at the torus 1080p frame's shapes (bounce 0's call), where
@@ -2088,6 +2203,8 @@ KINDS = (
     ("mt_trace_items_kernel", "mt_trace"),  # the balanced design: its items
     ("mt_trace_prologue_kernel", "mt_trace prologue"),  # and its scan and set-up
     ("mt_stream_items_kernel", "mt_stream"),
+    ("mt_tpose_items_kernel", "mt_tpose"),
+    ("mt_tpose_prologue_kernel", "mt_tpose prologue"),
     ("mt_stream_prologue_kernel", "mt_stream prologue"),  # the scan and set-up
     ("mt_stream_expand_kernel", "mt_stream prologue"),  # and the words' expansion
     ("refine_cull_kernel", "refine_cull"),
@@ -2191,6 +2308,9 @@ def main(full: bool = True) -> None:
             {
                 "frame_ms": frame_ms, "ab": ab, "mt_calls": mt_calls,
                 "shade_post_1080p": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["shade_post 1920x1080"])),
+                "mt_trace_on_tpose_lists": dict(
+                    zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["mt_trace[closest] on mt_tpose's lists"])
+                ),
                 "card": card,
             }
         )

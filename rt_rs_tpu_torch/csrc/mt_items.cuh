@@ -1,8 +1,21 @@
-// The balanced-items Möller–Trumbore trace shared by kernel B
-// (mt_trace.cu: closest, rows, any-hit and early exit) and kernel E
-// (mt_stream.cu: the streamed block lists, expanded to chunk lists).
+// The balanced-items Möller–Trumbore schedule shared by kernel B
+// (mt_trace.cu: closest, rows, any-hit and early exit), kernel E
+// (mt_stream.cu: the streamed block lists, expanded to chunk lists) and
+// the probes' kernels H (mt_tpose.cu: the transposed table) and I
+// (mt_mxu.cu: the coefficient table, on the CUDA or the tensor cores).
 //
-// Both TPU kernels walk, per ray tile, a list of chunks of tc triangles.
+// The schedule (items_prologue, items_body) is what they share; what
+// differs is a template policy P, which says how chunk c is staged into a
+// ring slot (P::slot_floats, P::stage), where a tile's rays are read
+// (P::load: [8, T, r] or [T, 8, r]), how a staged chunk is tested
+// (P::test) and which ray a thread owns at the end of an item
+// (P::result, P::own_ray: the test may leave a ray's best spread over
+// several threads, and result() gathers it into its owner, which folds
+// it).  ChunkRows below is kernels B and E's policy ([Nc, tc, 9] chunks,
+// [8, T, r] rays, one thread per ray); early exit and any-hit are its
+// modes only.
+//
+// The TPU kernels walk, per ray tile, a list of chunks of tc triangles.
 // On this card a grid of one block per tile lasts as long as its longest
 // list, and the lists are very uneven, so every list is cut into work
 // items (a tile and at most E consecutive entries of its list) run on a
@@ -53,15 +66,16 @@
 //   at t >= ed[t, k]) can win.  Inside an item the entries are not in
 //   pid order, so the update is lexicographic.
 // * Staging: a double-buffered ring of chunks in shared memory, filled
-//   with cp.async, each triangle padded to 12 floats (three 128-bit
-//   loads).  The next chunk, or the first chunk of the block's next item
+//   with cp.async (each thread always copies the same positions of a
+//   slot).  The next chunk, or the first chunk of the block's next item
 //   (taken one item ahead), is in flight while the current one is
 //   tested.  A ring over 32 KiB opts in to Hopper's larger shared memory.
-// * The test checks u before it computes q and v (mt_test_u_first): a
+// * ChunkRows stages each triangle padded to 12 floats (three 128-bit
+//   loads) and checks u before it computes q and v (mt_test_u_first): a
 //   warp whose 32 rays all miss a triangle's u slab skips the rest.
 //
-// What bounds it on this card: f32 arithmetic, ~40 operations per (ray,
-// triangle) pair with the triangle read from shared memory as a
+// What bounds ChunkRows on this card: f32 arithmetic, ~40 operations per
+// (ray, triangle) pair with the triangle read from shared memory as a
 // broadcast; one thread owns one ray.
 #pragma once
 
@@ -96,6 +110,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
+// 16 bytes, both addresses 16-byte aligned (bypassing L1).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
@@ -105,10 +130,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // read it with three 128-bit loads instead of nine 32-bit ones.  Each
 // thread always copies the same positions, so a thread that waits for
 // its own copies may refill them without a barrier.
-__device__ __forceinline__ void stage(float* dst, const float* src, int tc) {
+__device__ __forceinline__ void stage_padded(float* dst, const float* src,
+                                             int tc) {
   for (int i = threadIdx.x; i < tc * 9; i += blockDim.x)
     cp_async4(dst + i + 3 * (i / 9), src + i);  // float k of triangle s -> 12 s + k
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 // mt_test (common.cuh) on a triangle staged as 12 floats (a, e1, e2 and
@@ -148,6 +174,107 @@ __device__ __forceinline__ bool mt_test_u_first(const float4* tri, float ox,
   w = (e2x * qx + e2y * qy + e2z * qz) / det;
   return (w > t_min) && (w < t_max);
 }
+
+// A ray's inputs to mt_test and its running best.
+struct MtRay {
+  float ox, oy, oz, dx, dy, dz, excl, cap;
+};
+struct MtBest {
+  float t;
+  int id;
+};
+
+// Kernels B and E's policy: chunks [Nc, tc, 9] staged as [tc, 12], rays
+// the component-major payload [8, T, r] (ox, oy, oz, dx, dy, dz, excl,
+// cap), one thread per ray (blockDim.x == r).
+struct ChunkRows {
+  using Ray = MtRay;
+  using Best = MtBest;
+
+  static __host__ __device__ int slot_floats(int tc) { return tc * 12; }
+
+  static __device__ __forceinline__ void stage(float* dst, const float* table,
+                                               int c, int tc) {
+    stage_padded(dst, table + (long)c * tc * 9, tc);
+  }
+
+  template <int MODE>
+  static __device__ __forceinline__ Ray load(const float* payload, int tile,
+                                             int n_tiles, int r) {
+    const long plane = (long)n_tiles * r;
+    const long idx = (long)tile * r + threadIdx.x;
+    Ray ray;
+    ray.ox = payload[0 * plane + idx];
+    ray.oy = payload[1 * plane + idx];
+    ray.oz = payload[2 * plane + idx];
+    ray.dx = payload[3 * plane + idx];
+    ray.dy = payload[4 * plane + idx];
+    ray.dz = payload[5 * plane + idx];
+    ray.excl = payload[6 * plane + idx];
+    ray.cap = MODE == MODE_ANYHIT ? payload[7 * plane + idx] : 0.0f;
+    return ray;
+  }
+
+  static __device__ __forceinline__ void reset(Best& best, float miss) {
+    best.t = miss;
+    best.id = 0;
+  }
+
+  // Every triangle of the staged chunk c against the thread's ray.
+  // Any-hit: a blocking hit stores `true` at out_blocked[idx] and stops.
+  template <int MODE, bool EXIT>
+  static __device__ __forceinline__ void test(const float* chunk,
+                                              const Ray& ray, int c, int tc,
+                                              int pid_base, float t_min,
+                                              float t_max, float eps,
+                                              Best& best, bool& blocked,
+                                              bool* out_blocked, long idx) {
+    // The loop runs on locals: with the running best kept in the struct,
+    // nvcc predicated the rare update into every iteration (kernels B and
+    // E measured 9-15% slower on an H100).
+    const float4* tri = reinterpret_cast<const float4*>(chunk);
+    const int pid0 = 1 + pid_base + c * tc;
+    const float ox = ray.ox, oy = ray.oy, oz = ray.oz;
+    const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+    const float excl = ray.excl;
+    float best_t = best.t;
+    int best_id = best.id;
+    for (int s = 0; s < tc; ++s) {
+      float w;
+      if (!mt_test_u_first(tri + s * 3, ox, oy, oz, dx, dy, dz, t_min, t_max,
+                           eps, w))
+        continue;
+      if ((float)(pid0 + s) == excl) continue;
+      if (MODE == MODE_ANYHIT) {
+        if (w < ray.cap) {
+          blocked = true;
+          out_blocked[idx] = true;
+          break;
+        }
+      } else if (EXIT) {
+        // Not in pid order: (t, pid)-lexicographic.
+        if (w < best_t || (w == best_t && pid0 + s < best_id)) {
+          best_t = w;
+          best_id = pid0 + s;
+        }
+      } else if (w < best_t) {
+        best_t = w;
+        best_id = pid0 + s;
+      }
+    }
+    best.t = best_t;
+    best.id = best_id;
+  }
+
+  // The ray (lane of the tile) whose item best this thread folds.
+  static __device__ __forceinline__ int own_ray() { return threadIdx.x; }
+
+  static __device__ __forceinline__ void result(const Best& best, float& t,
+                                                int& id) {
+    t = best.t;
+    id = best.id;
+  }
+};
 
 // The workspace `work` (int32, 4 T + 4 of them): [0] the item counter,
 // [1] unused, offsets[0 .. T] (offsets[t] = the first item of tile t,
@@ -267,11 +394,12 @@ __device__ __forceinline__ float block_max_to_thread0(float v,
   return v;
 }
 
-// The items kernel's body (one thread per ray; blockDim.x == r).
-// Early exit only: `ed` [T, nc] the sorted entry bounds, `lead`
-// [T * r + T] the leads' per-lane best t and, after them, their
-// per-tile worst.
-template <int MODE, int E, bool EXIT>
+// The items kernel's body under policy P (blockDim.x == r threads; P
+// says which ray each thread owns).  Early exit only: `ed` [T, nc] the
+// sorted entry bounds, `lead` [T * r + T] the leads' per-lane best t and,
+// after them, their per-tile worst.  `payload` is the rays and `comp` the
+// table, as P reads them.
+template <class P, int MODE, int E, bool EXIT>
 __device__ __forceinline__ void items_body(
     const float* __restrict__ payload, const float* __restrict__ comp,
     const int* __restrict__ ids, const int* __restrict__ counts,
@@ -281,14 +409,14 @@ __device__ __forceinline__ void items_body(
     bool* __restrict__ out_blocked, unsigned long long* __restrict__ keys,
     int* __restrict__ work, int n_tiles, int r, int nc, int tc, int pid_base,
     float t_min, float t_max, float eps, float miss, int exit_check) {
-  extern __shared__ __align__(16) float ring[];  // 2 x [tc, 12]
+  extern __shared__ __align__(16) float ring[];  // 2 slots of P's chunks
   __shared__ int s_item[2][3];  // (tile or -1 when none is left, k0, entries)
   __shared__ int s_last;
   __shared__ float s_worst;  // early exit: the item's current bound
   __shared__ float warp_max[32];
   const int lane = threadIdx.x;
   const long plane = (long)n_tiles * r;
-  const int csz = tc * 12;  // a staged chunk
+  const int csz = P::slot_floats(tc);  // a staged chunk
   const int* offsets = item_offsets(work);
   const int* rest = rest_offsets(work, n_tiles);
   int* done = tile_done(work, n_tiles);
@@ -333,8 +461,7 @@ __device__ __forceinline__ void items_body(
     }
   };
   auto first_chunk = [&](int slot) {
-    return comp + (long)ids[(long)s_item[slot][0] * nc + s_item[slot][1]] *
-                      tc * 9;
+    return ids[(long)s_item[slot][0] * nc + s_item[slot][1]];
   };
 
   fetch(0);
@@ -342,7 +469,7 @@ __device__ __forceinline__ void items_body(
   if (s_item[0][0] < 0) return;
   int cur = 0;   // s_item slot of the current item
   int slot = 0;  // ring slot holding the chunk to test next
-  stage(ring, first_chunk(0), tc);
+  P::stage(ring, comp, first_chunk(0), tc);
   for (;;) {
     const int tile = s_item[cur][0], k0 = s_item[cur][1];
     int n = s_item[cur][2];
@@ -350,7 +477,7 @@ __device__ __forceinline__ void items_body(
     // item, s_worst.
     if (EXIT) __syncthreads();
     fetch(cur ^ 1);  // one item ahead, for the ring
-    const long idx = (long)tile * r + lane;
+    const long idx = (long)tile * r + P::own_ray();
     const int count = counts[tile];
     const int* list = ids + (long)tile * nc + k0;
     const float* keys_ed = EXIT ? ed + (long)tile * nc + k0 : nullptr;
@@ -368,18 +495,11 @@ __device__ __forceinline__ void items_body(
       __syncthreads();
       if (!(keys_ed[0] <= s_worst)) n = 0;  // skipped whole (uniform)
     }
-    float best_t = miss;
-    int best_id = 0;
+    typename P::Best best;
+    P::reset(best, miss);
     bool next_staged = false;
     if (n > 0) {
-      const float ox = payload[0 * plane + idx];
-      const float oy = payload[1 * plane + idx];
-      const float oz = payload[2 * plane + idx];
-      const float dx = payload[3 * plane + idx];
-      const float dy = payload[4 * plane + idx];
-      const float dz = payload[5 * plane + idx];
-      const float excl = payload[6 * plane + idx];
-      const float cap = MODE == MODE_ANYHIT ? payload[7 * plane + idx] : 0.0f;
+      const typename P::Ray ray = P::template load<MODE>(payload, tile, n_tiles, r);
       // A later item's lane bound: its lead's best t of this lane.
       const float bound = (EXIT && k0 > 0) ? __ldcg(lead_t + idx) : miss;
       // Any-hit: another item of the tile may have blocked the ray already.
@@ -398,43 +518,21 @@ __device__ __forceinline__ void items_body(
           c_next = ids[(long)s_item[cur ^ 1][0] * nc + s_item[cur ^ 1][1]];
           next_staged = true;
         }
-        if (c_next >= 0)
-          stage(ring + (slot ^ 1) * csz, comp + (long)c_next * tc * 9, tc);
-        const float4* chunk =
-            reinterpret_cast<const float4*>(ring + slot * csz);
+        if (c_next >= 0) P::stage(ring + (slot ^ 1) * csz, comp, c_next, tc);
+        const float* chunk = ring + slot * csz;
         slot ^= 1;
-        if (!blocked) {
-          const int c = list[j];
-          const int pid0 = 1 + pid_base + c * tc;
-          for (int s = 0; s < tc; ++s) {
-            float w;
-            if (!mt_test_u_first(chunk + s * 3, ox, oy, oz, dx, dy, dz, t_min,
-                                 t_max, eps, w))
-              continue;
-            if ((float)(pid0 + s) == excl) continue;
-            if (MODE == MODE_ANYHIT) {
-              if (w < cap) {
-                blocked = true;
-                out_blocked[idx] = true;
-                break;
-              }
-            } else if (EXIT) {
-              // Not in pid order: (t, pid)-lexicographic.
-              if (w < best_t || (w == best_t && pid0 + s < best_id)) {
-                best_t = w;
-                best_id = pid0 + s;
-              }
-            } else if (w < best_t) {
-              best_t = w;
-              best_id = pid0 + s;
-            }
-          }
-        }
+        if (!blocked)
+          P::template test<MODE, EXIT>(chunk, ray, list[j], tc, pid_base,
+                                       t_min, t_max, eps, best, blocked,
+                                       out_blocked, idx);
         if (MODE == MODE_ANYHIT && __syncthreads_and(blocked)) break;
-        if (EXIT && (k0 + j) % exit_check == exit_check - 1) {
-          // best_t and bound are never NaN (a miss or an accepted w).
-          const float m = block_max_to_thread0(fminf(best_t, bound), warp_max);
-          if (lane == 0) s_worst = m;  // published by the next barrier
+        if constexpr (EXIT) {
+          if ((k0 + j) % exit_check == exit_check - 1) {
+            // best.t and bound are never NaN (a miss or an accepted w).
+            const float m =
+                block_max_to_thread0(fminf(best.t, bound), warp_max);
+            if (lane == 0) s_worst = m;  // published by the next barrier
+          }
         }
       }
     }
@@ -444,8 +542,13 @@ __device__ __forceinline__ void items_body(
       // The item stopped early or was skipped: its next chunk's copy (if
       // any) is moot, and the next item's first chunk is not staged.
       cp_async_wait_all();
-      if (next_tile >= 0) stage(ring + slot * csz, first_chunk(cur ^ 1), tc);
+      if (next_tile >= 0)
+        P::stage(ring + slot * csz, comp, first_chunk(cur ^ 1), tc);
     }
+    // The item's best of the ray this thread owns.
+    float best_t;
+    int best_id;
+    P::result(best, best_t, best_id);
 
     if (EXIT && k0 == 0 && count > E) {
       // The lead of a tile with later items: its snapshot for them.

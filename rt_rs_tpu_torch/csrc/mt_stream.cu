@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(kLanes) mt_stream_items_kernel(
     unsigned long long* __restrict__ keys, int* __restrict__ work,
     int n_tiles, int nc, int tc, float t_min, float t_max, float eps,
     float miss) {
-  items_body<MODE_CLOSEST, ITEM_STREAM, false>(
+  items_body<ChunkRows, MODE_CLOSEST, ITEM_STREAM, false>(
       payload, table, ids, tile_counts, nullptr, nullptr, nullptr, out_t,
       out_pid, nullptr, nullptr, keys, work, n_tiles, kLanes, nc, tc, 0, t_min,
       t_max, eps, miss, 1);

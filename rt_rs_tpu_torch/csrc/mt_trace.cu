@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(1024) mt_trace_items_kernel(
     bool* __restrict__ out_blocked, unsigned long long* __restrict__ keys,
     int* __restrict__ work, int n_tiles, int r, int nc, int tc, int pid_base,
     float t_min, float t_max, float eps, float miss, int exit_check) {
-  items_body<MODE, item_entries<MODE, EXIT>(), EXIT>(
+  items_body<ChunkRows, MODE, item_entries<MODE, EXIT>(), EXIT>(
       payload, comp, ids, counts, attr, ed, lead, out_t, out_pid, out_rows,
       out_blocked, keys, work, n_tiles, r, nc, tc, pid_base, t_min, t_max, eps,
       miss, exit_check);

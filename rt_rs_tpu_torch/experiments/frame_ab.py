@@ -8,8 +8,11 @@ fresh process that imports ``rt_rs_tpu_torch`` from its checkout
 (building that checkout's kernels there at first use) and renders the
 CASES' orbits eagerly: ``Renderer.render_frame`` and ``orbit`` per frame,
 one sync at the end, CUDA events around the orbit after one warm-up
-frame.  Then it records the CALLS (intersection kernel calls that
-chip_smoke.py's phase 6 times) with its checkout's ``chip_smoke`` and
+frame, then the transposed-table canyon's (TPOSE_CASE, chip_smoke's
+``TposeCanyon``) alike.  Then it records the CALLS (intersection kernel
+calls that chip_smoke.py's phase 6 times) with its checkout's
+``chip_smoke``, makes the PROBE_CALLS (the probes' kernel calls on
+torus_scene's 1080p primaries, as chip_smoke's phase 3 makes them) and
 times each as phase 6 does (torch.profiler device time, the L2 cache
 overwritten before each call).  The turns interleave the two
 (``--order``), so that both see the same host; the result is one JSON
@@ -57,6 +60,77 @@ CALLS = {
         ("renderer", (1920, 1080), True), "mt_trace", "rows",
     ),
 }
+# The transposed-table canyon frame (torus_canyon() in one tc = 64
+# transposed table, through shade.render): name, width, height, orbit
+# frames.
+TPOSE_CASE = ("tpose canyon 640x480", 640, 480, 20)
+# probe call -> (wrapper, tc or precision).  mt_tpose: 256-ray tiles over
+# the tc-triangle transposed table; mt_trace[closest] on mt_tpose's tc =
+# 64 lists (the time mt_tpose should match); mt_mxu: 128-ray tiles over
+# the 64-triangle coefficient table.
+PROBE_CALLS = {
+    "mt_tpose tc=64 torus 1920x1080 primaries": ("mt_tpose", 64),
+    "mt_tpose tc=128 torus 1920x1080 primaries": ("mt_tpose", 128),
+    "mt_trace[closest] on mt_tpose's tc=64 lists": ("mt_trace", 64),
+    "mt_mxu[highest] torus 1920x1080 primaries": ("mt_mxu", "highest"),
+    "mt_mxu[high] torus 1920x1080 primaries": ("mt_mxu", "high"),
+    "mt_mxu[default] torus 1920x1080 primaries": ("mt_mxu", "default"),
+}
+
+
+def probe_times() -> dict[str, float]:
+    """The PROBE_CALLS' device ms, made from the checkout's own
+    chip_smoke.probe_inputs and timed with its profiled."""
+    import chip_smoke as cs
+
+    from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
+    from rt_rs_tpu_torch.experiments.probe_rays import probe_rays
+    from rt_rs_tpu_torch.ops import packet_trace
+
+    p = cs.probe_inputs()
+    win = p["win"]
+    kw = dict(eps=p["eps"], **win)
+    lists = {}
+    o, d, excl = p["rays"][(16, 16)]
+    for tc in (64, 128):
+        tables = tpose_table.build_tri_chunks_t(*p["corners"], tri_chunk=tc, device="cuda")
+        s = probe_rays(o, d, excl, None, None, tables.bmin, tables.bmax, ray_tile=256, **win)
+        lists[tc] = (tables.comp, s)
+    o, d, excl = p["rays"][(8, 16)]
+    chunks = p["chunks"][64]
+    mxu = probe_rays(o, d, excl, None, None, chunks.bmin, chunks.bmax, ray_tile=mxu_mt.TC_RAYS, **win)
+    table = mxu_mt.build_mxu_table(chunks)
+    ms = {}
+    for name, (wrapper, arg) in PROBE_CALLS.items():
+        if wrapper == "mt_tpose":
+            comp, s = lists[arg]
+            call = lambda: tpose_table.mt_tpose(comp, s.rays, s.ids, s.counts, **kw)  # noqa: E731
+        elif wrapper == "mt_trace":
+            s = lists[arg][1]
+            payload = s.rays.permute(1, 0, 2).contiguous()
+            comp = p["chunks"][arg].comp
+            call = lambda: packet_trace.mt_trace(comp, payload, s.ids, s.counts, mode="closest", **kw)  # noqa: E731
+        else:
+            call = lambda: mxu_mt.mt_mxu(table, mxu.rays, mxu.ids, mxu.counts, precision=arg, **kw)  # noqa: E731
+        ms[name] = cs.profiled(call)[1]
+    return ms
+
+
+def orbit_ms(r, frames: int) -> float:
+    """ms/frame of an eager orbit of ``frames`` steps after one warm-up
+    frame (CUDA events, one sync at the end)."""
+    import torch
+
+    r.render_frame()  # warm-up
+    mult = 2.0 * math.pi / frames / 0.0314
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(frames):
+        r.render_frame(block=False)
+        r.orbit(mult)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / frames
 
 
 def call_times() -> dict[str, float]:
@@ -89,7 +163,7 @@ def call_times() -> dict[str, float]:
 def child(root: str) -> None:
     """One turn: the CASES' eager orbits with the port of ``root``."""
     sys.path.insert(0, root)
-    import torch
+    import chip_smoke as cs
 
     from rt_rs_tpu_torch import Config, Renderer, Resolution
     from rt_rs_tpu_torch.scene import presets
@@ -100,17 +174,11 @@ def child(root: str) -> None:
             getattr(presets, preset)(), config=Config(resolution=Resolution.sized(w, h)),
             device="cuda", **kw,
         )
-        r.render_frame()  # warm-up
-        mult = 2.0 * math.pi / frames / 0.0314
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(frames):
-            r.render_frame(block=False)
-            r.orbit(mult)
-        end.record()
-        torch.cuda.synchronize()
-        ms[name] = start.elapsed_time(end) / frames
-    print(json.dumps({"root": root, "ms": ms, "call_ms": call_times()}), flush=True)
+        ms[name] = orbit_ms(r, frames)
+    name, w, h, frames = TPOSE_CASE
+    ms[name] = orbit_ms(cs.TposeCanyon(w, h), frames)
+    call_ms = {**call_times(), **probe_times()}
+    print(json.dumps({"root": root, "ms": ms, "call_ms": call_ms}), flush=True)
 
 
 def main() -> None:
@@ -123,8 +191,8 @@ def main() -> None:
         child(args.child)
         return
     roots = {"A": str(HERE), "B": str(pathlib.Path(args.other).resolve())}
-    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in CASES}
-    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in CALLS}
+    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in (*CASES, TPOSE_CASE[0])}
+    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in (*CALLS, *PROBE_CALLS)}
     for turn in args.order:
         # Run by path, so that the child imports the port of its root only.
         out = subprocess.run(

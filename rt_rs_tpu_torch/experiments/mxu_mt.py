@@ -13,13 +13,17 @@ Ray features ``B [16, r]``: rows 0-2 d, 3-5 o, 6-8 o x d, 9 one, 10-15
 zero.  The table (:func:`build_mxu_table`) holds per chunk ``A [16,
 4 tc]`` with quantity-major columns ``[det | u | v | wnum]``; kernel I
 (``csrc/mt_mxu.cu``, :func:`mt_mxu`) computes ``C = A^T B`` in its own
-body and runs the JAX kernel's epilogue on it.  ``precision`` maps as
-XLA maps it on a GPU: ``"highest"`` f32 on the CUDA cores (bit-equal to
-the twin), ``"high"`` three TF32 tensor-core products (3xTF32),
-``"default"`` one.
+body and runs the JAX kernel's epilogue on it, on balanced work items
+with an exact (t, pid) merge (:func:`mt_mxu_split_reference` mirrors
+it).  ``precision`` maps as XLA maps it on a GPU: ``"highest"`` f32 on
+the CUDA cores (bit-equal to the twin), ``"high"`` three TF32
+tensor-core products (3xTF32), ``"default"`` one; those two read the
+table's TF32 words from a cached table (:func:`tf32_table`).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -29,6 +33,15 @@ from rt_rs_tpu_torch.ops import cuda
 from rt_rs_tpu_torch.ops import packet_trace as pt
 
 F = 16  # padded feature dim
+# Features a ray's B can make non-zero (d, o, o x d, one): "highest"
+# sums these, in order.  Rows 10-15 would add a zero product to each sum
+# (build_mxu_table leaves them zero), which could only turn a -0.0 sum
+# into +0.0: the same verdict, and the same w where t_min >= 0.
+F_USED = 10
+# List entries per work item of kernel I's balanced design, per precision:
+# the kernel's compile-time ITEM_MXU and ITEM_MXU_TC (csrc/mt_mxu.cu),
+# swept on the card (experiments/item_sizes.py).
+MXU_ITEM_SIZES = {"highest": 2, "high": 8, "default": 8}
 PRECISIONS = ("highest", "high", "default")
 TC_RAYS = 128  # the tensor-core variants' ray tile
 # precision -> (least share of rays whose pid agrees with "highest",
@@ -99,16 +112,45 @@ def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32(x - hi)
 
 
+def tf32_table(table: torch.Tensor, precision: str) -> torch.Tensor:
+    """The tensor-core variants' table: ``table``'s words rounded to TF32
+    as ``cvt.rna`` rounds them (:func:`tf32`; ``"default"``: [Nc, 16,
+    4 tc]), or split into hi + lo (:func:`_split`; ``"high"``: [Nc, 2, 16,
+    4 tc], each chunk's hi then its lo), on the table's device.  Cached
+    per table while it lives unchanged, so a kernel call converts
+    nothing."""
+    key = (id(table), precision)
+    hit = _TF32_TABLES.get(key)
+    if hit is not None and hit[0]() is table and hit[1] == table._version:
+        return hit[2]
+    for k in [k for k, v in _TF32_TABLES.items() if v[0]() is None]:
+        del _TF32_TABLES[k]
+    if precision == "default":
+        words = tf32(table)
+    elif precision == "high":
+        words = torch.stack(_split(table), dim=1)
+    else:
+        raise ValueError(f"no TF32 table for precision {precision!r}")
+    _TF32_TABLES[key] = (weakref.ref(table), table._version, words)
+    return words
+
+
+# (id(table), precision) -> (weak reference, version, words)
+_TF32_TABLES: dict[tuple[int, str], tuple] = {}
+
+
 def product(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
     """``C [S, M, r] = A^T B`` for A [S, 16, M], B [S, 16, r]: the sum
-    over the 16 features in order, each product and sum rounded to f32.
-    ``"highest"`` is kernel I's CUDA-core arithmetic op for op; ``"high"``
-    (hi·lo + lo·hi + hi·hi of the TF32 splits) and ``"default"`` (one
-    TF32 product) emulate the tensor cores' input rounding, with f32
-    accumulation in feature order where the hardware's order is its
-    own."""
+    over the features in order, each product and sum rounded to f32.
+    ``"highest"`` is kernel I's CUDA-core arithmetic op for op, over the
+    F_USED features; ``"high"`` (hi·lo + lo·hi + hi·hi of the TF32
+    splits) and ``"default"`` (one TF32 product) emulate the tensor
+    cores' input rounding, with f32 accumulation over the 16 features in
+    order where the hardware's order is its own."""
+    features = F
     if precision == "highest":
         terms = [(a, b)]
+        features = F_USED
     elif precision == "high":
         (ah, al), (bh, bl) = _split(a), _split(b)
         terms = [(ah, bl), (al, bh), (ah, bh)]
@@ -118,7 +160,7 @@ def product(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     acc = None
     for x, y in terms:
-        for f in range(F):
+        for f in range(features):
             p = x[:, f, :, None] * y[:, f, None, :]
             acc = p if acc is None else acc + p
     return acc
@@ -175,6 +217,35 @@ def mt_mxu_reference(
     return best_t, best_id
 
 
+def mt_mxu_split_reference(
+    table: torch.Tensor,
+    rays: torch.Tensor,
+    ids: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    precision: str = "highest",
+    per_item: int | None = None,
+    order: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel I's balanced design (:func:`mt_mxu_reference`'s
+    arguments): every list cut into work items of ``per_item`` entries
+    (None: MXU_ITEM_SIZES[precision], the kernel's),
+    :func:`mt_mxu_reference` on each item alone (its (t, pid)
+    lexicographic best), merged per ray by
+    minimum key in the item order ``order``
+    (``packet_trace.split_closest``).  Equal to the twin bit for bit in
+    every order and at every precision."""
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, precision=precision)
+    return pt.split_closest(
+        lambda tile, item_ids, n: mt_mxu_reference(table, rays[tile], item_ids, n, **kw),
+        ids, counts, rays.shape[2], t_max=t_max,
+        per_item=MXU_ITEM_SIZES[precision] if per_item is None else per_item, order=order,
+    )
+
+
 def mt_mxu(
     table: torch.Tensor,
     rays: torch.Tensor,
@@ -189,7 +260,10 @@ def mt_mxu(
     """Kernel I (csrc/mt_mxu.cu) -> (t [T, r], pid [T, r] int32), counted
     as ``mt_mxu[<precision>]``.  The tensor-core variants need 128-ray
     tiles and ``tc`` a multiple of 16.  CPU tensors run
-    :func:`mt_mxu_reference`; CUDA tensors launch the kernel."""
+    :func:`mt_mxu_reference`; CUDA tensors launch the kernel: balanced
+    work items of MXU_ITEM_SIZES[precision] entries with an exact (t,
+    pid) merge, two launches (see :func:`mt_mxu_split_reference`);
+    ``"high"`` and ``"default"`` read the cached :func:`tf32_table`."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     kw = dict(t_min=t_min, t_max=t_max, eps=eps, precision=precision)
@@ -210,14 +284,30 @@ def mt_mxu(
             f"precision {precision!r} needs {TC_RAYS}-ray tiles and tc a multiple "
             f"of 16 (got r={r}, tc={tc})"
         )
+    # The ring: two chunks of F_USED rows, staged per precision
+    # (csrc/mt_mxu.cu: highest [tc, 40]; hi (and lo) rows of 4 tc + 4).
+    if precision == "highest":
+        slot = tc * 4 * F_USED
+    else:
+        slot = (2 if precision == "high" else 1) * F_USED * (4 * tc + 4)
+    smem = 2 * slot * 4
+    if smem > pt.MT_ITEMS_SMEM:
+        raise ValueError(
+            f"tri_chunk {tc}: {smem} B of shared memory a block, over the "
+            f"{pt.MT_ITEMS_SMEM} B limit"
+        )
+    words = table if precision == "highest" else tf32_table(table, precision)
     out_t = torch.empty((n_tiles, r), dtype=torch.float32, device=dev)
     out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
+    # The balanced design's scratch (csrc/mt_items.cuh), set by the kernel.
+    keys = torch.empty((n_tiles, r), dtype=torch.int64, device=dev)
+    work = torch.empty((4 * n_tiles + 4,), dtype=torch.int32, device=dev)
     cuda.call(
         f"mt_mxu[{precision}]", "rt_mt_mxu",
-        rays.data_ptr(), table.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-        out_t.data_ptr(), out_pid.data_ptr(), n_tiles, r, nc, tc,
-        float(t_min), float(t_max), float(eps), float(np.float32(t_max + 1.0)),
-        PRECISIONS.index(precision),
+        rays.data_ptr(), words.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+        out_t.data_ptr(), out_pid.data_ptr(), keys.data_ptr(), work.data_ptr(),
+        n_tiles, r, nc, tc, float(t_min), float(t_max), float(eps),
+        float(np.float32(t_max + 1.0)), PRECISIONS.index(precision),
     )
     return out_t, out_pid
 

@@ -6,11 +6,12 @@ e1 = b - a, e2 = c - a; xyz) of triangle s of chunk c at ``[c, i, s]``,
 rows 9-15 zero.  :func:`packet_closest_hit_t` is the probe's flat
 closest hit: the interval cull and the compacted chunk lists of
 :mod:`~rt_rs_tpu_torch.experiments.probe_rays`, then kernel H
-(``csrc/mt_tpose.cu``, :func:`mt_tpose`), which stages each listed
-chunk's nine component rows into shared memory with coalesced loads and
-runs ``mt_chunk_test``'s arithmetic in its op order.  Over the same
-lists it equals kernel B's closest-hit mode (``mt_trace[closest]``) bit
-for bit; only the table's layout differs.
+(``csrc/mt_tpose.cu``, :func:`mt_tpose`): kernel B's closest-hit design
+on balanced work items (:func:`mt_tpose_split_reference` mirrors it),
+staging each listed chunk's nine component rows with coalesced loads
+and running ``mt_chunk_test``'s arithmetic in its op order.  Over the
+same lists it equals kernel B's closest-hit mode (``mt_trace[closest]``)
+bit for bit; only the table's layout differs.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ import torch
 from rt_rs_tpu_torch.experiments.probe_rays import probe_rays
 from rt_rs_tpu_torch.ops import cuda
 from rt_rs_tpu_torch.ops import packet_trace as pt
+
+# List entries per work item of kernel H's balanced design: the kernel's
+# compile-time ITEM_TPOSE (csrc/mt_tpose.cu), kernel B's closest mode.
+TPOSE_ITEM_SIZE = 2
 
 
 class TposeTables(NamedTuple):
@@ -89,6 +94,32 @@ def mt_tpose_reference(
     )
 
 
+def mt_tpose_split_reference(
+    table: torch.Tensor,
+    rays: torch.Tensor,
+    ids: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    per_item: int | None = None,
+    order: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel H's balanced design (:func:`mt_tpose_reference`'s
+    arguments): every list cut into work items of ``per_item`` entries
+    (None: TPOSE_ITEM_SIZE, the kernel's), each item's (t, pid)
+    lexicographic best, merged per ray by minimum key in the item order
+    ``order`` (``packet_trace.mt_trace_split_reference`` on the table
+    read as ``[Nc, tc, 9]``).  Equal to the twin bit for bit in every
+    order."""
+    return pt.mt_trace_split_reference(
+        table[:, :9, :].transpose(1, 2), rays.permute(1, 0, 2), ids, counts,
+        t_min=t_min, t_max=t_max, eps=eps, mode="closest",
+        per_item=TPOSE_ITEM_SIZE if per_item is None else per_item, order=order,
+    )
+
+
 def mt_tpose(
     table: torch.Tensor,
     rays: torch.Tensor,
@@ -102,7 +133,9 @@ def mt_tpose(
     """Kernel H (csrc/mt_tpose.cu) -> (t [T, r], pid [T, r] int32): the
     closest hit of each ray over its tile's listed chunks, ties to the
     smallest pid; misses (t_max + 1, 0).  CPU tensors run
-    :func:`mt_tpose_reference`; CUDA tensors launch the kernel."""
+    :func:`mt_tpose_reference`; CUDA tensors launch the kernel: balanced
+    work items of TPOSE_ITEM_SIZE entries with an exact (t, pid) merge,
+    two launches (see :func:`mt_tpose_split_reference`)."""
     kw = dict(t_min=t_min, t_max=t_max, eps=eps)
     if not rays.is_cuda:
         return mt_tpose_reference(table, rays, ids, counts, **kw)
@@ -115,13 +148,22 @@ def mt_tpose(
     cuda.check("counts", counts, torch.int32, (n_tiles,), dev)
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
+    if tc * 24 * 4 > pt.MT_ITEMS_SMEM:
+        raise ValueError(
+            f"tri_chunk {tc}: {tc * 24 * 4} B of shared memory a block, over the "
+            f"{pt.MT_ITEMS_SMEM} B limit"
+        )
     out_t = torch.empty((n_tiles, r), dtype=torch.float32, device=dev)
     out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
+    # The balanced design's scratch (csrc/mt_items.cuh), set by the kernel.
+    keys = torch.empty((n_tiles, r), dtype=torch.int64, device=dev)
+    work = torch.empty((4 * n_tiles + 4,), dtype=torch.int32, device=dev)
     cuda.call(
         "mt_tpose", "rt_mt_tpose",
         rays.data_ptr(), table.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-        out_t.data_ptr(), out_pid.data_ptr(), n_tiles, r, nc, tc,
-        float(t_min), float(t_max), float(eps), float(np.float32(t_max + 1.0)),
+        out_t.data_ptr(), out_pid.data_ptr(), keys.data_ptr(), work.data_ptr(),
+        n_tiles, r, nc, tc, float(t_min), float(t_max), float(eps),
+        float(np.float32(t_max + 1.0)),
     )
     return out_t, out_pid
 

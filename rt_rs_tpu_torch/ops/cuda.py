@@ -56,8 +56,8 @@ SIGNATURES = {
     "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P],
     "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P],
     "rt_fma_peak": [_P, _P, _I, _I, _I, _P],
-    "rt_mt_tpose": [_P] * 6 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
-    "rt_mt_mxu": [_P] * 6 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "rt_mt_tpose": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "rt_mt_mxu": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 

@@ -701,6 +701,39 @@ def _merge_waves(tile: torch.Tensor, order: torch.Tensor | None) -> list[torch.T
     return [order[rank == w] for w in range(int(rank.max()) + 1 if rank.numel() else 0)]
 
 
+def item_positions(ids: torch.Tensor, k0: torch.Tensor, per_item: int) -> torch.Tensor:
+    """[I, per_item]: the list positions of each work item (from ``k0``
+    on, clamped at the lists' width; an item reads only its first ``n``),
+    so that ``ids[tile[:, None], item_positions(...)]`` is its slice."""
+    pos = torch.arange(per_item, device=ids.device)
+    return torch.clamp(k0[:, None] + pos, max=ids.shape[1] - 1)
+
+
+def split_closest(local, ids, counts, r: int, *, t_max: float, per_item: int, order=None):
+    """The balanced designs' closest-hit merge (csrc/mt_items.cuh), for
+    any twin: ``local(tile, ids, n)`` -> (t, pid) [I, r], the twin on each
+    work item alone (:func:`mt_items`: the item's tile's rays against
+    ``ids`` [I, per_item], its slice of the list, ``n`` entries), folded
+    per ray in the item order ``order`` (a permutation of the items; None
+    = item order): the minimum :func:`hit_key` of the items that hit.  A
+    tile of one item takes that item's result as it is, as the kernels
+    write it.  -> (t [T, r], pid [T, r] int32)."""
+    dev = counts.device
+    n_tiles = counts.shape[0]
+    tile, k0, n = mt_items(counts, per_item)
+    t_loc, pid_loc = local(tile, ids[tile[:, None], item_positions(ids, k0, per_item)], n.to(torch.int32))
+    miss = _f32(float(np.float32(t_max + 1.0)), dev)
+    key = hit_key(miss.expand(n_tiles, r), torch.zeros((n_tiles, r), dtype=torch.int32, device=dev))
+    k_loc = torch.where(t_loc < miss, hit_key(t_loc, pid_loc), key[0])
+    for items in _merge_waves(tile, order):
+        key[tile[items]] = torch.minimum(key[tile[items]], k_loc[items])
+    t, pid = hit_key_decode(key)
+    single = (counts[tile] <= per_item).nonzero()[:, 0]
+    t[tile[single]] = t_loc[single]
+    pid[tile[single]] = pid_loc[single]
+    return t, pid
+
+
 def mt_trace_split_reference(
     comp, payload, ids, counts, attr=None, *, t_min, t_max, eps, mode, pid_base=0,
     per_item: int | None = None, order: torch.Tensor | None = None,
@@ -709,37 +742,28 @@ def mt_trace_split_reference(
     arguments, no early exit): the twin on each work item alone (the
     tile's rays against its slice of the list), merged per ray in the
     item order ``order`` (a permutation of :func:`mt_items`; None = item
-    order): the minimum :func:`hit_key` of the items that hit, or the
-    OR of the any-hit verdicts.  A tile of one item takes that item's
-    result as it is, as the kernel writes it.  ``per_item`` None takes
-    the kernel's size for ``mode`` (MT_ITEM_SIZES).  Equal to
-    :func:`mt_trace_reference` bit for bit in every order."""
+    order): the minimum :func:`hit_key` of the items that hit
+    (:func:`split_closest`), or the OR of the any-hit verdicts.
+    ``per_item`` None takes the kernel's size for ``mode``
+    (MT_ITEM_SIZES).  Equal to :func:`mt_trace_reference` bit for bit in
+    every order."""
     per_item = MT_ITEM_SIZES[mode] if per_item is None else per_item
-    dev = payload.device
     n_tiles, r = payload.shape[1], payload.shape[2]
-    tile, k0, n = mt_items(counts, per_item)
-    pos = torch.clamp(k0[:, None] + torch.arange(per_item, device=dev), max=ids.shape[1] - 1)
-    local = mt_trace_reference(
-        comp, payload[:, tile], ids[tile[:, None], pos], n.to(torch.int32),
-        t_min=t_min, t_max=t_max, eps=eps, pid_base=pid_base,
-        mode="anyhit" if mode == "anyhit" else "closest",
-    )
-    waves = _merge_waves(tile, order)
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, pid_base=pid_base)
     if mode == "anyhit":
-        blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=dev)
-        for items in waves:
+        tile, k0, n = mt_items(counts, per_item)
+        local = mt_trace_reference(
+            comp, payload[:, tile], ids[tile[:, None], item_positions(ids, k0, per_item)],
+            n.to(torch.int32), mode="anyhit", **kw,
+        )
+        blocked = torch.zeros((n_tiles, r), dtype=torch.bool, device=payload.device)
+        for items in _merge_waves(tile, order):
             blocked[tile[items]] |= local[items]
         return blocked
-    t_loc, pid_loc = local
-    miss = _f32(float(np.float32(t_max + 1.0)), dev)
-    key = hit_key(miss.expand(n_tiles, r), torch.zeros((n_tiles, r), dtype=torch.int32, device=dev))
-    k_loc = torch.where(t_loc < miss, hit_key(t_loc, pid_loc), key[0])
-    for items in waves:
-        key[tile[items]] = torch.minimum(key[tile[items]], k_loc[items])
-    t, pid = hit_key_decode(key)
-    single = (counts[tile] <= per_item).nonzero()[:, 0]
-    t[tile[single]] = t_loc[single]
-    pid[tile[single]] = pid_loc[single]
+    t, pid = split_closest(
+        lambda tile, item_ids, n: mt_trace_reference(comp, payload[:, tile], item_ids, n, mode="closest", **kw),
+        ids, counts, r, t_max=t_max, per_item=per_item, order=order,
+    )
     if mode == "rows":
         return t, pid, attr[pid.to(torch.int64)].permute(2, 0, 1).contiguous()
     return t, pid
@@ -764,7 +788,7 @@ def _exit_split(
     tile, k0, n = mt_items(rest, per_item)
     if tile.numel():
         k0 = k0 + per_item
-        pos = torch.clamp(k0[:, None] + torch.arange(per_item, device=dev), max=ids.shape[1] - 1)
+        pos = item_positions(ids, k0, per_item)
         (t_loc, pid_loc), tested_loc = _mt_twin(
             comp, payload[:, tile], ids[tile[:, None], pos], n.to(torch.int32), None,
             ed[tile[:, None], pos], worst0=t.amax(dim=1)[tile], bound=t[tile], k_base=k0, **kw,
