@@ -45,11 +45,12 @@
 // running best per ray column it holds; at the end of an item a shuffle
 // reduction over the 8 threads that share a column leaves each ray's
 // best in one of them (the thread whose row group is its column pair),
-// which folds it.  Their table is the wrapper's cached TF32 table
-// (mxu_mt.tf32_table: cvt.rna words of A, and of its low part for
-// 3xTF32), staged with 16-byte cp.async, so a fragment is loaded ready
-// and nothing is converted per entry; only the rays' B fragments are
-// converted, once per item.  The sums inside an mma are the hardware's,
+// which folds it.  Their table is A's TF32 words (cvt.rna words of A,
+// and of its low part for 3xTF32), made by a conversion launch at the
+// start of each call (tf32_table_kernel; mxu_mt.tf32_table is its plain
+// version) and staged with 16-byte cp.async, so a fragment is loaded
+// ready and nothing is converted per entry; only the rays' B fragments
+// are converted, once per item.  The sums inside an mma are the hardware's,
 // so these two are held to `highest` by pid agreement and t error, not
 // bit for bit.
 //
@@ -257,6 +258,25 @@ __device__ __forceinline__ void mma_tf32_k4(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// The tensor cores' table from the f32 table [Nc, 16, 4 tc] (`chunk`
+// floats a chunk): its TF32 words (PARTS 1, default), or each chunk's hi
+// words then its lo words (PARTS 2, high: [Nc, 2, 16, 4 tc]).
+template <int PARTS>
+__global__ void tf32_table_kernel(const float* __restrict__ table,
+                                  uint32_t* __restrict__ words, long n,
+                                  int chunk) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const long c = i / chunk;
+    uint32_t* dst = words + c * PARTS * chunk + (i - c * chunk);
+    if (PARTS == 1) {
+      dst[0] = to_tf32(table[i]);
+    } else {
+      split_tf32(table[i], dst[0], dst[chunk]);
+    }
+  }
 }
 
 constexpr int kWarps = 4;
@@ -501,25 +521,41 @@ int launch(const float* rays, const float* table, const int* ids,
 
 }  // namespace
 
-// `table`: highest the f32 table [Nc, 16, 4 tc]; high and default its
-// TF32 words (mxu_mt.tf32_table), 16-byte aligned.  Scratch the wrapper
-// allocates: `keys` [T * r] u64, `work` [4 T + 4] int32.
-RT_EXPORT int rt_mt_mxu(const float* rays, const float* table, const int* ids,
-                        const int* counts, float* out_t, int* out_pid,
-                        unsigned long long* keys, int* work, int n_tiles,
-                        int r, int nc, int tc, float t_min, float t_max,
-                        float eps, float miss, int precision,
+// `table`: the f32 table [Nc, 16, 4 tc].  Scratch the wrapper allocates:
+// `words` (high and default; 16-byte aligned) the tensor cores' table,
+// [Nc, 2, 16, 4 tc] (high) or [Nc, 16, 4 tc] (default) f32 words; `keys`
+// [T * r] u64, `work` [4 T + 4] int32.  high and default make `words`
+// first (a third launch).
+RT_EXPORT int rt_mt_mxu(const float* rays, const float* table, float* words,
+                        const int* ids, const int* counts, float* out_t,
+                        int* out_pid, unsigned long long* keys, int* work,
+                        int n_tiles, int r, int nc, int tc, float t_min,
+                        float t_max, float eps, float miss, int precision,
                         cudaStream_t stream) {
   if (precision < 0 || precision > 2) return (int)cudaErrorInvalidValue;
   if (precision > 0 &&
-      (r != kTcRays || tc % 16 != 0 || (uintptr_t)table % 16 != 0))
+      (r != kTcRays || tc % 16 != 0 || (uintptr_t)words % 16 != 0))
     return (int)cudaErrorInvalidValue;
   if (n_tiles <= 0) return (int)cudaGetLastError();
-#define RT_LAUNCH(P, THREADS)                                                \
-  launch<P, THREADS>(rays, table, ids, counts, out_t, out_pid, keys, work,   \
+  if (precision > 0) {
+    const int chunk = kFeat * 4 * tc;
+    const long n = (long)nc * chunk;
+    const long want = (n + 255) / 256;
+    const int blocks = (int)(want < 65536 ? want : 65536);
+    uint32_t* w = reinterpret_cast<uint32_t*>(words);
+    if (precision == 1)
+      tf32_table_kernel<2><<<blocks, 256, 0, stream>>>(table, w, n, chunk);
+    else
+      tf32_table_kernel<1><<<blocks, 256, 0, stream>>>(table, w, n, chunk);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+#define RT_LAUNCH(P, THREADS, A)                                           \
+  launch<P, THREADS>(rays, A, ids, counts, out_t, out_pid, keys, work,     \
                      n_tiles, r, nc, tc, t_min, t_max, eps, miss, stream)
-  if (precision == 0) return RT_LAUNCH(MxuCudaCores, 1024);
-  if (precision == 1) return RT_LAUNCH(MxuTensorCores<true>, kWarps * 32);
-  return RT_LAUNCH(MxuTensorCores<false>, kWarps * 32);
+  if (precision == 0) return RT_LAUNCH(MxuCudaCores, 1024, table);
+  if (precision == 1)
+    return RT_LAUNCH(MxuTensorCores<true>, kWarps * 32, words);
+  return RT_LAUNCH(MxuTensorCores<false>, kWarps * 32, words);
 #undef RT_LAUNCH
 }

@@ -148,11 +148,6 @@ def mt_tpose(
     cuda.check("counts", counts, torch.int32, (n_tiles,), dev)
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
-    if tc * 24 * 4 > pt.MT_ITEMS_SMEM:
-        raise ValueError(
-            f"tri_chunk {tc}: {tc * 24 * 4} B of shared memory a block, over the "
-            f"{pt.MT_ITEMS_SMEM} B limit"
-        )
     out_t = torch.empty((n_tiles, r), dtype=torch.float32, device=dev)
     out_pid = torch.empty((n_tiles, r), dtype=torch.int32, device=dev)
     # The balanced design's scratch (csrc/mt_items.cuh), set by the kernel.

@@ -57,7 +57,7 @@ SIGNATURES = {
     "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P],
     "rt_fma_peak": [_P, _P, _I, _I, _I, _P],
     "rt_mt_tpose": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
-    "rt_mt_mxu": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "rt_mt_mxu": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 
@@ -168,9 +168,21 @@ def call(counter: str, name: str, *args) -> None:
     would not report it), and count it under ``counter``."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*args, stream)
+    if err == CUDA_INVALID_CONFIGURATION:
+        raise RuntimeError(
+            f"{name}: CUDA launch failed with error {err} (invalid configuration): no "
+            "block fits on an SM; its shared memory (a ring of two chunks: see the "
+            "kernel's staging policy) or its threads exceed the card's limit "
+            "(227 KiB and 1024 on an H100)"
+        )
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[counter] += 1
+
+
+# cudaErrorInvalidConfiguration, which a launcher also returns when its
+# occupancy query finds no block that fits.
+CUDA_INVALID_CONFIGURATION = 9
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

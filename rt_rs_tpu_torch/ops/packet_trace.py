@@ -86,9 +86,6 @@ UNLISTED_KEY = 3.0e38
 # here only the plain mirrors' defaults.
 MT_ITEM_SIZES = {"closest": 2, "rows": 2, "anyhit": 1}
 MT_EXIT_ITEM_SIZE = 4
-# Shared memory a block of kernel B may take, in bytes: a ring of two
-# [tc, 12] chunks within Hopper's opt-in 227 KiB, less its static slots.
-MT_ITEMS_SMEM = 227 * 1024 - 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -897,11 +894,6 @@ def mt_trace(
             raise ValueError(f"attr: {attr.shape[0]} rows, need at least {need}")
     if r % 32 or r > 1024:
         raise ValueError(f"ray tile {r} must be a multiple of 32 <= 1024")
-    if tc * 24 * 4 > MT_ITEMS_SMEM:
-        raise ValueError(
-            f"tri_chunk {tc}: {tc * 24 * 4} B of shared memory a block, over the "
-            f"{MT_ITEMS_SMEM} B limit"
-        )
     out_t = out_pid = out_rows = out_blocked = None
     if mode == "anyhit":
         out_blocked = torch.empty((n_tiles, r), dtype=torch.bool, device=dev)

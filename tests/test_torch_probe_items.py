@@ -15,7 +15,7 @@ that are all empty, and on a soup whose every triangle is there twice
 (equal t, two pids: the smaller must win).  The twins themselves are
 held to the JAX package's probes in tests/test_torch_probes.py.  Also:
 each mirror's item size is its kernel's, and the tensor-core variants'
-cached TF32 table is ``mxu_mt.tf32`` / ``_split`` of the table.  Inputs
+TF32 table is ``mxu_mt.tf32`` / ``_split`` of the table.  Inputs
 are ``random_soup`` triangles and seeded numpy rays.
 """
 
@@ -219,10 +219,10 @@ def test_item_sizes_mirror_the_kernels(tpose_calls, mxu_calls, monkeypatch, kern
 
 @pytest.mark.parametrize("precision", ["high", "default"])
 def test_tf32_table_is_the_cached_rounding(mxu_calls, precision):
-    """The tensor-core variants' table: mxu_mt.tf32 (default) or the
-    hi / lo of mxu_mt._split (high) of the coefficient table, bit for
-    bit; the same tensor on a second call; made anew once the table
-    changes in place."""
+    """The tensor-core variants' table, the words the kernel stages:
+    mxu_mt.tf32 (default) or the hi / lo of mxu_mt._split (high) of the
+    coefficient table, bit for bit; made from the table as it is at the
+    call, after it changes in place too."""
     table = mxu_calls["culled"][0].clone()
     words = mxu_mt.tf32_table(table, precision)
     if precision == "default":
@@ -234,9 +234,7 @@ def test_tf32_table_is_the_cached_rounding(mxu_calls, precision):
     assert words.shape == want.shape and torch.equal(words.view(torch.int32), want.view(torch.int32))
     assert bool((words.view(torch.int32) & 0x1FFF == 0).all())  # 10 mantissa bits
     assert bool((table != mxu_mt.tf32(table)).any())  # the rounding is really there
-    assert mxu_mt.tf32_table(table, precision) is words
     table[0, 0, 0] += 1.0
-    fresh = mxu_mt.tf32_table(table, precision)
-    assert fresh is not words and fresh.view(-1)[0] != words.view(-1)[0]
+    assert mxu_mt.tf32_table(table, precision).view(-1)[0] != words.view(-1)[0]
     with pytest.raises(ValueError, match="precision"):
         mxu_mt.tf32_table(table, "highest")
