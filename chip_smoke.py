@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Six paths are driven, the frame paths through ``Renderer(...,
+Seven paths are driven, the frame paths through ``Renderer(...,
 device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
@@ -31,9 +31,16 @@ device="cuda")``:
   practical f32 rate, the matrix-product and transposed-table closest
   hits on ``torus_scene``'s 1080p primaries, and the canyon rendered
   through the transposed table;
+* ``bvh``: the default handler ``bvh`` and ``rf_bvh`` with the
+  threaded walk (``handler_kwargs={"backend": "threaded"}``; kernel G,
+  ``csrc/bvh_walk.cu``, in contiguous and payload leaf mode), the gather
+  branch with closest-hit shadows: ``torus_scene`` (both handlers) and
+  ``torus_canyon()`` (``bvh``); and ``bvh`` with ``backend="auto"`` on
+  the torus, which takes the packet kernels on the card;
 * ``chain``: ``Renderer.animate(chain=K)``, one replay of a captured
   CUDA graph of K orbit frames per dispatch, on every frame path above
-  (torus, segmented and dma canyon, knobs, flat, blank, naive).
+  (torus, segmented and dma canyon, knobs, flat, blank, naive, the
+  threaded ``bvh`` torus).
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -48,8 +55,10 @@ exits nonzero without printing a result):
    and with the knobs path's knobs, and the ``torus_canyon()`` frame at
    640x480 with segmented tables, with ``"dma"`` and segmented with
    early exit, the flat path's ``torus_ghost()`` frames at 384x288 and
-   1920x1080, and the canyon through the transposed table at 640x480
-   (every mt_tpose call).  Intersection and refine outputs (t, pid, rows, blocked,
+   1920x1080, the canyon through the transposed table at 640x480
+   (every mt_tpose call), and the threaded ``bvh`` and ``rf_bvh`` torus
+   frames at 384x288 and the threaded ``bvh`` canyon frame at 640x480
+   (every bvh_walk call, also run twice alike).  Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal, and each
    mt_trace, mt_stream, mt_tpose, mt_mxu and refine_cull call, run twice,
    gives the same bits (the balanced designs merge their items with
@@ -116,11 +125,20 @@ exits nonzero without printing a result):
    canyon at 640x480 through ``shade.render`` with the tc = 64
    transposed table, an orbit, and its first frame within atol 2e-5 of
    the segmented Renderer's on all but TPOSE_FAR_SHARE of the values.
+   bvh: the threaded ``bvh`` and ``rf_bvh`` torus frames at 96x72
+   against the JAX package's stored frames
+   (tests/data/torch_port_bvh_torus_96x72.npz, atol 2e-5); the
+   ``backend="auto"`` torus frame at 384x288 bit-equal to the pbvh
+   frame; orbits of the threaded ``bvh`` torus (384x288, 1080p), the
+   ``"auto"`` torus (384x288), the threaded ``bvh`` canyon (640x480,
+   1080p: finite, not black) and the threaded ``rf_bvh`` torus (384x288,
+   1080p), each with its structure's bytes.
 5. The knob A/Bs (experiments/early_exit_ab.py's protocol: the knob
    off and on in interleaved turns): early exit on torus 1080p and
    canyon segmented 640x480 orbits, with the closest-hit list entries of
    one frame against the entries early exit tested; the fused bounce
-   kernel on torus 384x288 orbits.
+   kernel on torus 384x288 orbits; the ``bvh`` handler's packet backend
+   against its threaded walk on torus 384x288 and 1080p orbits.
 6. Kernel times (device time from torch.profiler with the L2 cache
    overwritten before each call, so inputs come from HBM as the bounds
    assume; beside CUDA events around back-to-back calls), each against
@@ -130,7 +148,10 @@ exits nonzero without printing a result):
    torus 1080p early-exit frame's primary call; early-exit calls also
    as the default call over the same lists, the fused shading call also
    as shade_post + shade_pre; the probes' kernels at the compare
-   phase's calls, and mt_trace[closest] on mt_tpose's tc = 64 lists.
+   phase's calls, and mt_trace[closest] on mt_tpose's tc = 64 lists;
+   bvh_walk at the threaded torus frames' primary calls (its bound from
+   the node steps and prim tests its twin counts on the same call; the
+   threaded canyon frame's primary call is also printed).
    Each f32 kernel's bound also at the measured separate-FMA rate, its
    launches per wrapper call (torch.profiler; mt_tpose and mt_mxu must
    make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
@@ -143,7 +164,8 @@ exits nonzero without printing a result):
 7. Where the time goes: torch.profiler over canyon frames (default and
    early exit, and through the transposed table) and torus 1080p frames
    (default and knobs), device time by kernel kind and the device's idle
-   share, and over flat ``torus_ghost()`` 1080p frames.
+   share, over flat ``torus_ghost()`` 1080p frames and over threaded
+   ``bvh`` / ``rf_bvh`` frames (canyon 640x480, torus 1080p).
 8. The ``chain`` path (:func:`phase_chain`; last, because single-call
    profiles taken after graph captures lost kernels): each case of
    CHAIN captures its graphs (a host read or a host-to-device copy
@@ -187,6 +209,7 @@ ROW2_FRAME = ROOT / "tests" / "data" / "torch_port_torus_row2_96x72.npz"
 BAND_FRAME = ROOT / "tests" / "data" / "torch_port_gather_band_32x16.npz"
 GHOST_FRAMES = ROOT / "tests" / "data" / "torch_port_ghost_64x48.npz"
 TORUS_GHOST_FRAME = ROOT / "tests" / "data" / "torch_port_torus_ghost_96x72.npz"
+BVH_FRAMES = ROOT / "tests" / "data" / "torch_port_bvh_torus_96x72.npz"
 # The bound the JAX package holds between its own two frame paths
 # (tests/test_shade_tiled.py).  The stored frames were rendered with
 # XLA:CPU held to SSE4.2, so no FMA contraction (see
@@ -203,6 +226,18 @@ SIZES = {
     "segmented": {"640x480": (640, 480, 16), "1920x1080": (1920, 1080, 12)},
     "dma": {"640x480": (640, 480, 16)},
     "flat": {"384x288": (384, 288, 30), "1920x1080": (1920, 1080, 12)},
+}
+# The bvh path's orbits: name -> (scene, handler, backend, width, height,
+# orbit frames).
+THREADED = {"backend": "threaded"}
+BVH_ORBITS = {
+    "bvh threaded torus 384x288": ("torus", "bvh", "threaded", 384, 288, 16),
+    "bvh threaded torus 1920x1080": ("torus", "bvh", "threaded", 1920, 1080, 8),
+    "bvh auto torus 384x288": ("torus", "bvh", "auto", 384, 288, 16),
+    "bvh threaded canyon 640x480": ("canyon", "bvh", "threaded", 640, 480, 8),
+    "bvh threaded canyon 1920x1080": ("canyon", "bvh", "threaded", 1920, 1080, 4),
+    "rf_bvh threaded torus 384x288": ("torus", "rf_bvh", "threaded", 384, 288, 16),
+    "rf_bvh threaded torus 1920x1080": ("torus", "rf_bvh", "threaded", 1920, 1080, 8),
 }
 # the probes' rays: torus_scene's primaries at this size (the JAX mains')
 PROBE_SIZE = (1920, 1080)
@@ -221,6 +256,9 @@ PROFILE = (
     ("torus 1920x1080", "torus", "1920x1080", 3),
     ("knobs torus 1920x1080", "knobs", "1920x1080", 3),
     ("torus_ghost flat 1920x1080", "flat", "1920x1080", 3),
+    ("bvh threaded canyon 640x480", "bvh", "bvh threaded canyon 640x480", 2),
+    ("bvh threaded torus 1920x1080", "bvh", "bvh threaded torus 1920x1080", 2),
+    ("rf_bvh threaded torus 1920x1080", "bvh", "rf_bvh threaded torus 1920x1080", 2),
 )
 
 # name -> (source, the TPU kernel it replaces)
@@ -271,6 +309,9 @@ KERNELS = {
     "mt_mxu[highest]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[high]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[default]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
+    # hand-written for XLA code (a lax.while_loop), no pallas_call
+    "bvh_walk[bvh]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314"),
+    "bvh_walk[rf]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/rf.py:271"),
 }
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith(("fma_peak", "mt_tpose", "mt_mxu")))
 # path -> the kernels it must launch
@@ -285,10 +326,16 @@ PATHS = {
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
+    # threaded bvh / rf_bvh frames (the gather branch), and bvh "auto"
+    "bvh": (
+        "bvh_walk[bvh]", "bvh_walk[rf]", "shade_pre", "shade_post", "refine_cull",
+        "mt_trace[rows]", "mt_trace[anyhit]",
+    ),
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
         "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]",
         "mt_trace[rows,early_exit]", "mt_stream", "shade_pre", "shade_post", "shade_bounce",
+        "bvh_walk[bvh]",
     ),
 }
 # The knobs path's torus and segmented frames: the fused bounce kernel
@@ -320,6 +367,7 @@ CHAIN = {
     "flat torus_ghost 384x288": (lambda: ghost(384, 288), 16, 16),
     "blank 384x288": (lambda: renderer(384, 288, handler="blank"), 16, 32),
     "naive 96x72": (lambda: renderer(96, 72, handler="naive"), 2, 2),
+    "bvh threaded torus 384x288": (lambda: renderer(384, 288, handler="bvh", **THREADED), 16, 16),
 }
 # cases also timed at chain=4, and whose graphs' device bytes are read
 CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
@@ -461,7 +509,7 @@ class Recorder:
 
     def __init__(self):
         from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
-        from rt_rs_tpu_torch.ops import packet_stream, packet_trace, shade_tile
+        from rt_rs_tpu_torch.ops import bvh_walk, packet_stream, packet_trace, shade_tile
 
         self.targets = [
             (packet_trace, "refine_cull"),
@@ -475,6 +523,7 @@ class Recorder:
             (shade_tile, "shade_bounce"),
             (tpose_table, "mt_tpose"),
             (mxu_mt, "mt_mxu"),
+            (bvh_walk, "bvh_walk"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -567,6 +616,7 @@ class TposeCanyon:
 
 def replay(label: str, calls, errs: dict, ulps: dict) -> None:
     """Every recorded kernel call through kernel and twin."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -588,6 +638,11 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         else:
             errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
+    for i, (a, kw, _) in enumerate(calls["bvh_walk"]):
+        name = bw.walk_name(kw["payload"])
+        kern, twin = bw.bvh_walk(*a, **kw), bw.bvh_walk_reference(*a, **kw)
+        errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
+        check_equal(f"{label} {name}#{i} run twice", bw.bvh_walk(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -928,12 +983,14 @@ def phase_compare():
     """Every kernel call of one torus frame (384x288), default and with
     the knobs path's fused bounce kernel and early exit, of one canyon
     frame (640x480) per canyon mode and with early exit, of the flat
-    path's ``torus_ghost()`` frames (384x288, 1080p) and of the
-    transposed-table canyon frame (640x480), kernel vs twin."""
+    path's ``torus_ghost()`` frames (384x288, 1080p), of the
+    transposed-table canyon frame (640x480) and of the threaded ``bvh``
+    / ``rf_bvh`` torus frames (384x288) and ``bvh`` canyon frame
+    (640x480), kernel vs twin."""
     import torch
 
     from rt_rs_tpu_torch.ops import packet_trace as pt
-    from rt_rs_tpu_torch.scene.presets import torus_ghost
+    from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_ghost
 
     errs = {name: 0.0 for name in KERNELS}
     ulps: dict[str, int] = {}
@@ -947,6 +1004,9 @@ def phase_compare():
         "flat torus_ghost": lambda: renderer(*TORUS_REPLAY, torus_ghost()),
         "flat torus_ghost 1080p": lambda: renderer(*PROBE_SIZE, torus_ghost()),
         "tpose canyon": lambda: TposeCanyon(*TPOSE_FRAME[:2]),
+        "bvh torus": lambda: renderer(*TORUS_REPLAY, handler="bvh", **THREADED),
+        "rf_bvh torus": lambda: renderer(*TORUS_REPLAY, handler="rf_bvh", **THREADED),
+        "bvh canyon": lambda: renderer(*CANYON_REPLAY, torus_canyon(), handler="bvh", **THREADED),
     }
     for label, make in cases.items():
         r = make()
@@ -976,8 +1036,8 @@ def phase_compare():
         )
         say(
             f"[compare] {label} {r.width}x{r.height} frame calls {n}, mt modes "
-            f"{modes}: intersection, refine and mt_tpose bit-equal (mt_trace and "
-            f"refine_cull also run twice alike), shading max ULP {ulps}; "
+            f"{modes}: intersection, refine, mt_tpose and bvh_walk bit-equal (mt_trace, "
+            f"refine_cull and bvh_walk also run twice alike), shading max ULP {ulps}; "
             f"{n_seg} segmented and {n_stream} streamed calls equal the flat "
             f"call; replay {time.perf_counter() - t0:.1f} s"
         )
@@ -1449,6 +1509,41 @@ def tpose_frame(card: str):
     return orbit_ms(f"tpose canyon {w}x{h}", r, frames, card), r
 
 
+def drive_bvh(card: str, first: dict) -> tuple[dict, dict]:
+    """The bvh path: the threaded ``bvh`` and ``rf_bvh`` torus frames at
+    96x72 against the JAX package's stored frames, then BVH_ORBITS: each
+    first frame finite and lit (the ``"auto"`` torus frame bit-equal to
+    the torus path's pbvh frame: on the card it takes the packet
+    kernels; the threaded torus frames' distance from it printed), then
+    its orbit, with the structure's bytes (``Renderer.stats``)."""
+    from rt_rs_tpu_torch.scene.presets import torus_canyon
+
+    for handler in ("bvh", "rf_bvh"):
+        r = renderer(96, 72, handler=handler, **THREADED)
+        check_stored(f"{handler} threaded torus 96x72", r, BVH_FRAMES, key=handler)
+    frame_ms, kept = {}, {}
+    for name, (scene, handler, backend, w, h, frames) in BVH_ORBITS.items():
+        r = renderer(w, h, torus_canyon() if scene == "canyon" else None, handler=handler, backend=backend)
+        f = r.render_frame()
+        check_frame(name, f, w, h)
+        pbvh = first["torus"].get(f"{w}x{h}") if scene == "torus" else None
+        if backend == "auto":
+            if r.accel.chunks is None:
+                raise AssertionError(f"{name}: backend='auto' took the threaded walk on the card")
+            same_bits(f"{name} vs the pbvh frame", f, pbvh)
+            say(f"[frame] {name}: bit-equal to the pbvh frame (the packet kernels)")
+        elif pbvh is not None:
+            d = (f - pbvh).abs()
+            say(
+                f"[frame] {name} vs the pbvh frame: max abs {float(d.max()):.3g}, "
+                f"{int((d > REF_ATOL).sum())} of {d.numel()} values beyond {REF_ATOL}"
+            )
+        label = f"{name} ({r.stats.name}, {r.stats.size} B)"
+        frame_ms[name] = orbit_ms(label, r, frames, card)
+        kept[name] = r
+    return frame_ms, kept
+
+
 def phase_paths(card: str):
     """Each path with the launch counters reset before and read after."""
     import torch
@@ -1464,6 +1559,8 @@ def phase_paths(card: str):
             ms, kept[path] = drive_flat(card, first)
         elif path == "probes":
             ms, kept[path] = drive_probes(card, first)
+        elif path == "bvh":
+            ms, kept[path] = drive_bvh(card, first)
         else:
             ms, first[path], kept[path] = drive_path(path, card)
         counts[path] = read_counts()
@@ -1727,6 +1824,17 @@ POST_LIGHT_OPS, POST_TAIL_OPS = 41, 9
 # make non-zero (d, o, o x d, one: 10 of 16; the tensor cores' k8 + k4
 # steps pad them to 12, which the function does not need), and the
 # epilogue's sign fold 2 and su + sv 1 (3xTF32: three products).
+# bvh_walk: a node step's slab test, 3 axes of wobble (mul, add) and two
+# slab distances (sub, sub, mul); a prim test's tri_intersect_pairs (edges
+# 6, cross(d, e2) 9, o - a 3, cross(t, e1) 9, det / u / v 5 each, u + v
+# 1, the numerator 5, the quotient 1); 3 reciprocals a ray.
+WALK_NODE_OPS = 24
+WALK_PRIM_OPS = 49
+# bytes a walk reads per node stepped (bounds 24, links 8, count 4), per
+# leaf entered (its start 4, or its 8 payload slots 32) and per prim
+# tested (3 corners), and per ray (o, d, excl, valid; t and pid out).
+WALK_NODE_BYTES = 36
+WALK_RAY_BYTES = 29 + 8
 MXU_FEATURES = 10
 MXU_PRODUCT_OPS = 2 * MXU_FEATURES * 4
 MXU_EPILOGUE_OPS = 3
@@ -1812,12 +1920,30 @@ def bounce_halves(a, kw):
     )
 
 
+def walk_work(a, kw):
+    """The work of one recorded bvh_walk call, counted by its twin."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
+
+    w = bw.WalkWork()
+    bw.bvh_walk_reference(*a, **kw, work=w)
+    return w
+
+
 def work(name: str, a, kw) -> tuple[int, int]:
     """-> (f32 operations, bytes) one recorded call needs."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
+    if name.startswith("bvh_walk"):
+        w, n = walk_work(a, kw), a[0].shape[0]
+        ops = w.node_steps * WALK_NODE_OPS + w.prim_tests * WALK_PRIM_OPS + 3 * n
+        leaf_bytes = 32 if kw["payload"] else 4
+        nbytes = (
+            n * WALK_RAY_BYTES + w.nodes_read * WALK_NODE_BYTES + w.leaves_read * leaf_bytes
+            + w.prims_read * 36
+        )
+        return ops, nbytes
     if name.startswith("fma_peak"):
         from rt_rs_tpu_torch.experiments import roofline
 
@@ -1927,8 +2053,9 @@ def without_early_exit(a, kw) -> dict:
 def phase_ab(card: str) -> tuple[dict, dict]:
     """The knob A/Bs: early exit on torus 1080p and on the segmented
     canyon at 640x480, the fused bounce kernel on torus 384x288 (the
-    launch-bound frame); orbits with the knob off and on in interleaved
-    turns (AB_ORDER).  For early exit, one recorded frame's closest-hit
+    launch-bound frame), the bvh handler's packet backend (on) against
+    its threaded walk (off) on torus 384x288 and 1080p; orbits with the
+    knob off and on in interleaved turns (AB_ORDER).  For early exit, one recorded frame's closest-hit
     list entries against the entries its tiles tested.  -> (summary, the
     recorded calls of the torus 1080p early-exit frame)."""
     import torch
@@ -1942,6 +2069,13 @@ def phase_ab(card: str) -> tuple[dict, dict]:
         ),
         "fuse_bounce torus 384x288": (
             lambda on: renderer(384, 288, knobs={"fuse_bounce": on}), 30,
+        ),
+        # off: bvh's threaded walk, on: its packet backend
+        "bvh packet torus 384x288": (
+            lambda on: renderer(384, 288, handler="bvh", backend="packet" if on else "threaded"), 16,
+        ),
+        "bvh packet torus 1920x1080": (
+            lambda on: renderer(1920, 1080, handler="bvh", backend="packet" if on else "threaded"), 8,
         ),
     }
     summary, recorded = {}, {}
@@ -2096,6 +2230,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     1080p frame's primary rows call and the flat ``torus_ghost()`` 1080p
     frame's busiest closest-hit call.  -> (kernel name -> times, call ->
     mt_trace time and bounds)."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -2135,6 +2270,12 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         "shade_bounce": (
             st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
         ),
+        # the threaded torus frames' primary calls
+        "bvh_walk[bvh]": (bw.bvh_walk, bw.bvh_walk_reference, recorded["bvh torus"]["bvh_walk"][0], 1),
+        "bvh_walk[rf]": (bw.bvh_walk, bw.bvh_walk_reference, recorded["rf_bvh torus"]["bvh_walk"][0], 1),
+        "bvh_walk[bvh] canyon 640x480": (
+            bw.bvh_walk, bw.bvh_walk_reference, recorded["bvh canyon"]["bvh_walk"][0], 1,
+        ),
     }
     for name, (kern, twin, a, kw) in recorded["probes"].items():
         picks[name] = (kern, twin, (a, kw, None), 1)
@@ -2146,7 +2287,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         t_ms = time_ms(lambda: twin(*a, **kw), twin_reps)
         b_ms, by = bound(name, a, kw)
         sep_ms = None
-        if name.startswith(("mt_", "refine_cull")) and name not in ("mt_mxu[high]", "mt_mxu[default]"):
+        if name.startswith(("mt_", "refine_cull", "bvh_walk")) and name not in ("mt_mxu[high]", "mt_mxu[default]"):
             sep_ms = work(name, a, kw)[0] / sep_rate * 1e3
         times[name] = (k_ms, t_ms, b_ms, by, sep_ms)
         extra = "" if sep_ms is None else f", bound at the separate rate {sep_ms:.4f} ms"
@@ -2161,6 +2302,12 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
+        if name.startswith("bvh_walk"):
+            w = walk_work(a, kw)
+            extra += (
+                f", {a[0].shape[0]} rays: {w.node_steps} node steps, {w.prim_tests} prim tests "
+                f"({w.nodes_read} nodes, {w.leaves_read} leaves, {w.prims_read} prims read)"
+            )
         if name.endswith("early_exit]"):
             b0 = without_early_exit(a, kw)
             b = bind(pt.mt_trace_reference, a, kw)
@@ -2235,6 +2382,7 @@ KINDS = (
     ("shade_pre_kernel", "shade_pre"),
     ("shade_post_kernel", "shade_post"),
     ("shade_bounce_kernel", "shade_bounce"),
+    ("bvh_walk_kernel", "bvh_walk"),
     ("sort", "sort (compaction)"),
     ("index", "gather / index"),
     ("gather", "gather / index"),
@@ -2322,7 +2470,8 @@ def main(full: bool = True) -> None:
             # No single PyTorch call computes these functions (a masked
             # Möller–Trumbore closest hit over per-tile chunk lists, a
             # per-ray slab cull OR-reduced per tile, the fused shading
-            # passes, 16 chained multiply-adds summed).
+            # passes, 16 chained multiply-adds summed, a stackless BVH
+            # walk).
             "library_ms": None,
         }
         for name, (src, rep) in KERNELS.items()
@@ -2334,6 +2483,10 @@ def main(full: bool = True) -> None:
                 "shade_post_1080p": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["shade_post 1920x1080"])),
                 "mt_trace_on_tpose_lists": dict(
                     zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["mt_trace[closest] on mt_tpose's lists"])
+                ),
+                "bvh_walk_canyon_640x480": dict(
+                    zip(("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_at_separate_rate"),
+                        times["bvh_walk[bvh] canyon 640x480"])
                 ),
                 "card": card,
             }

@@ -1,11 +1,14 @@
 """rt_rs_tpu_torch — the PyTorch + CUDA port of rt_rs_tpu.
 
 A second package beside the JAX reference ``rt_rs_tpu``: the same scene
-formats, the same pbvh frame path (packet chunk culling, Möller–Trumbore
-packet trace with kernel-emitted rows, any-hit shadows, per-ray refine
-cull, tiled shading), with every TPU kernel of that path rewritten as a
-hand-written CUDA kernel for Hopper (``sm_90a``, ``csrc/``).  Each kernel
-has a plain-PyTorch twin, which runs for CPU tensors.
+formats (scene JSON, OBJ, ``*.bvh.json``), the same handlers (``bvh``,
+the default, and ``rf_bvh`` with their threaded walk; ``pbvh`` with
+packet chunk culling, the Möller–Trumbore packet trace with
+kernel-emitted rows, any-hit shadows and the per-ray refine cull;
+``naive``, ``blank``) and frame paths, with every TPU kernel of those
+paths, and the threaded walk, written by hand as CUDA kernels for Hopper
+(``sm_90a``, ``csrc/``).  Each kernel has a plain-PyTorch twin, which
+runs for CPU tensors.
 
 This package imports ``torch`` and never ``jax`` or ``rt_rs_tpu``.
 """

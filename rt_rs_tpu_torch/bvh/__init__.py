@@ -5,9 +5,12 @@ reference's flattened tree (``src/lib/bvh/mod.rs:11-27``), a preorder
 DFS array of nodes ``{fst, snd, item_idx, item_count, bounds}`` plus the
 ``indices`` permutation listing each leaf's prims contiguously.  The
 pbvh handler uses only that permutation (the leaf order of its chunk
-table).  The JAX package's native C++ builder is not ported:
-:func:`build_bvh` runs the NumPy builder, which produces the same tree
-bit for bit.
+table); the ``bvh`` and ``rf_bvh`` handlers walk the tree over its
+escape links (:meth:`BvhData.escape_links`: the preorder flatten gives
+every node's escape a larger index, so a ray carries one node cursor
+and no stack) and its covering bounds (:meth:`BvhData.cover_bounds`).
+The JAX package's native C++ builder is not ported: :func:`build_bvh`
+runs the NumPy builder, which produces the same tree bit for bit.
 """
 
 from __future__ import annotations
@@ -141,6 +144,98 @@ class BvhData:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_json(), f)
+
+    # ------------------------------------------------------------------
+    # Derived structure
+
+    def is_leaf(self) -> np.ndarray:
+        """Leaf <=> item_count > 0 (bvh/mod.rs flatten invariant)."""
+        return self.item_count > 0
+
+    def escape_links(self) -> tuple[np.ndarray, np.ndarray]:
+        """Threaded-traversal links -> (hit_link, miss_link), both [N]
+        int32 with ``num_nodes`` as the END sentinel.
+
+        ``miss_link[i]`` = node to visit when i's box is missed (i's
+        preorder successor skipping its subtree).  ``hit_link[i]`` =
+        node after entering i: ``fst`` for interior nodes, the escape
+        for leaves.
+        """
+        n = self.num_nodes
+        miss = np.full(n, n, dtype=np.int64)
+        leaf = self.is_leaf()
+        # Children of node i escape to: fst -> snd, snd -> miss[i];
+        # children have larger indices, so a preorder stack suffices.
+        stack = [0]
+        while stack:
+            i = stack.pop()
+            if not leaf[i]:
+                f, s = int(self.fst[i]), int(self.snd[i])
+                miss[f] = s
+                miss[s] = miss[i]
+                stack.append(f)
+                stack.append(s)
+        hit = np.where(leaf, miss, self.fst.astype(np.int64))
+        return hit.astype(np.int32), miss.astype(np.int32)
+
+    def cover_bounds(self, scene) -> tuple[np.ndarray, np.ndarray]:
+        """Conservative per-node bounds that truly cover subtree
+        geometry -> (cover_min [N,3], cover_max [N,3]) float32.
+
+        The reference's in-place shrink (aabb.rs:221-229) stores node
+        bounds that may NOT contain their children's geometry; its
+        traversal never culls, ours does, so traversal uses these
+        recomputed bounds: leaf = vertex extrema of its prims, interior
+        = union of child covers.  Stored bounds are untouched
+        (checkpoint-format parity)."""
+        verts = scene.vert_pos.astype(np.float32)
+        idx = scene.prim_indices.astype(np.int64)
+        n = self.num_nodes
+        fmax = np.float32(np.finfo(np.float32).max)
+        cover_min = np.full((n, 3), fmax, dtype=np.float32)
+        cover_max = np.full((n, 3), -fmax, dtype=np.float32)
+        if idx.shape[0]:
+            a, b, c = verts[idx[:, 0]], verts[idx[:, 1]], verts[idx[:, 2]]
+            pmin = np.minimum(np.minimum(a, b), c)
+            pmax = np.maximum(np.maximum(a, b), c)
+            leaf = self.is_leaf()
+            # Preorder => children have larger indices; sweep backwards.
+            for i in range(n - 1, -1, -1):
+                if leaf[i]:
+                    lo = int(self.item_idx[i])
+                    hi = lo + int(self.item_count[i])
+                    prims = self.indices[lo:hi].astype(np.int64)
+                    prims = prims[prims < idx.shape[0]]
+                    if prims.size:
+                        cover_min[i] = pmin[prims].min(axis=0)
+                        cover_max[i] = pmax[prims].max(axis=0)
+                else:
+                    f, s = int(self.fst[i]), int(self.snd[i])
+                    cover_min[i] = np.minimum(cover_min[f], cover_min[s])
+                    cover_max[i] = np.maximum(cover_max[f], cover_max[s])
+        return cover_min, cover_max
+
+    def max_depth(self) -> int:
+        """Maximum tree depth."""
+        depth = np.zeros(self.num_nodes, dtype=np.int64)
+        leaf = self.is_leaf()
+        best = 1
+        stack = [0]
+        while stack:
+            i = stack.pop()
+            if not leaf[i]:
+                f, s = int(self.fst[i]), int(self.snd[i])
+                depth[f] = depth[s] = depth[i] + 1
+                best = max(best, int(depth[f]) + 1)
+                stack.append(f)
+                stack.append(s)
+        return best
+
+    def byte_size(self) -> int:
+        """GPU-footprint parity: 48 B per ``AabbUniform``
+        (bvh/mod.rs:11-17), as reported by ``IntrsStats``
+        (handlers/bvh.rs:160-163)."""
+        return 48 * self.num_nodes
 
 
 def build_bvh(

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch.bvh import BvhData
+from rt_rs_tpu_torch.bvh.rf import RfData
 from rt_rs_tpu_torch.experiments.tpose_table import TposeTables
 from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks, TriChunks
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
@@ -33,6 +35,20 @@ def scene_arrays(src, *, device: str | torch.device) -> SceneArrays:
             bool(v) if f.name == "no_negative_materials" else _tensor(v, device)
         )
     return SceneArrays(**fields)
+
+
+def bvh_data(src) -> BvhData:
+    """The JAX package's ``BvhData`` (same field names) -> the port's,
+    value for value (host NumPy arrays, as in both packages)."""
+    return BvhData(
+        **{f.name: np.array(getattr(src, f.name)) for f in dataclasses.fields(BvhData)}
+    )
+
+
+def rf_data(src) -> RfData:
+    """The JAX package's ``RfData`` -> the port's (its ``[R, 4]``
+    uint32 records)."""
+    return RfData(records=np.array(src.records, dtype=np.uint32))
 
 
 def tri_chunks(

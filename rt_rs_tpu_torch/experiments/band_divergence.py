@@ -55,7 +55,7 @@ def recorded_frame(device: str) -> tuple[np.ndarray, list]:
         setattr(mod, name, rec)
     try:
         r = Renderer(
-            gather_band_torus(), config=Config(resolution=Resolution.sized(*SIZE)), device=device
+            gather_band_torus(), config=Config(resolution=Resolution.sized(*SIZE)), handler="pbvh", device=device
         )
         frame = r.render_frame().cpu().numpy()
     finally:

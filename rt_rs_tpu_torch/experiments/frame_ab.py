@@ -172,7 +172,7 @@ def child(root: str) -> None:
     for name, (preset, w, h, frames, kw) in CASES.items():
         r = Renderer(
             getattr(presets, preset)(), config=Config(resolution=Resolution.sized(w, h)),
-            device="cuda", **kw,
+            handler="pbvh", device="cuda", **kw,
         )
         ms[name] = orbit_ms(r, frames)
     name, w, h, frames = TPOSE_CASE

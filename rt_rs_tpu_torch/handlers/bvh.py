@@ -1,19 +1,49 @@
-"""BVH leaf-order helpers.
+"""BVH backend: flat-array bounding volume hierarchy.
 
-Only :func:`reorder_scene_arrays` of ``rt_rs_tpu/handlers/bvh.py`` is
-ported: the pbvh handler packs its chunk table in the BVH's leaf order.
-The threaded-traversal ``bvh`` handler itself is not ported yet
-(ROADMAP §1 item 4).
+Counterpart of ``rt_rs_tpu/handlers/bvh.py`` (reference: ``BvhIntrs``,
+``src/lib/handlers/bvh.rs``):
+
+* the configuration mirrors ``BvhConfig``: a precomputed checkpoint
+  (``data`` / ``path``), a runtime ``eps``, or the defaults ``eps =
+  0.02``, ``target_item_count = 2`` (``bvh.rs:12-16, 31-39, 82``);
+* the scene's prims are reordered so every leaf's triangles are
+  contiguous (``bvh.rs:103-110``; :func:`reorder_scene_arrays`);
+* ``stats`` reports the 48-byte-per-node footprint (``bvh.rs:160-163``).
+
+Traversal is the JAX package's stackless threaded walk over the
+preorder escape links (:meth:`~rt_rs_tpu_torch.bvh.BvhData.escape_links`)
+on the recomputed covering bounds (``cover_bounds``), as kernel G
+(:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`).  ``backend="packet"``
+routes intersection through the pbvh packet kernels over the same
+leaf-ordered prims instead (the same hits, ids included).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch.bvh import BvhData, build_bvh
+from rt_rs_tpu_torch.config import ComputeConfig
+from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
+from rt_rs_tpu_torch.ops import bvh_walk
+from rt_rs_tpu_torch.ops import packet_trace as pt
+from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
+
+BACKENDS = ("auto", "threaded", "packet")
+REFINE_MODES = ("off", "bounces", "all")
+
+
+def check_modes(backend: str, refine: str) -> None:
+    """Reject a ``backend`` or ``refine`` value no tree handler takes."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if refine not in REFINE_MODES:
+        raise ValueError(f"unknown refine mode {refine!r}")
 
 
 def reorder_scene_arrays(arrays: SceneArrays, indices: np.ndarray) -> SceneArrays:
@@ -33,3 +63,192 @@ def reorder_scene_arrays(arrays: SceneArrays, indices: np.ndarray) -> SceneArray
         nc=arrays.nc[perm_t],
         shade_table=arrays.shade_table[perm_t],
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class BvhArrays:
+    """Device-resident flattened BVH (the group(3) bind equivalent)."""
+
+    node_min: torch.Tensor  # [N, 3] float32 (covering bounds)
+    node_max: torch.Tensor  # [N, 3]
+    hit_link: torch.Tensor  # [N] int32 (leaf -> escape, interior -> fst)
+    miss_link: torch.Tensor  # [N] int32 (escape; num_nodes = END)
+    leaf_start: torch.Tensor  # [N] int32 first prim id (reordered, +1 for null)
+    leaf_count: torch.Tensor  # [N] int32 (0 = interior)
+    num_nodes: int
+    footprint: int
+
+
+def accel_from_bvh_data(data: BvhData, scene: Scene, device: torch.device) -> BvhArrays:
+    """The walk's tensors on ``device``.  Traversal uses the recomputed
+    covering bounds, never the stored ones: the reference's in-place
+    shrink leaves stored bounds that do not cover their subtree
+    (``BvhData.cover_bounds``)."""
+    hit_link, miss_link = data.escape_links()
+    cover_min, cover_max = data.cover_bounds(scene)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return BvhArrays(
+        node_min=dev(cover_min),
+        node_max=dev(cover_max),
+        hit_link=dev(hit_link),
+        miss_link=dev(miss_link),
+        leaf_start=dev(data.item_idx.astype(np.int32) + 1),
+        leaf_count=dev(data.item_count.astype(np.int32)),
+        num_nodes=data.num_nodes,
+        footprint=data.byte_size(),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class BvhAccel:
+    """The node structure plus the packet backend's chunk table (None
+    for the threaded walk); kept here, not on the handler, so one
+    handler can serve several Renderers."""
+
+    nodes: BvhArrays
+    chunks: pt.TriChunks | None = None
+
+
+def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
+    """The ``backend`` rule of both tree handlers.  ``"auto"`` keeps the
+    shape of the JAX package's rule (``handlers/bvh.py:162-173``: the
+    packet kernels on the accelerator when the scene fits the resident
+    table, the threaded walk otherwise): packet on a CUDA device when
+    ``num_prims <= MAX_VMEM_CHUNKS * TRI_CHUNK`` (12,288 triangles),
+    threaded beyond it and on the CPU, as in the JAX package on its CPU
+    backend.  The cap is the JAX package's VMEM byte model, kept so the
+    two packages take the same path; which backend is faster on the card
+    below it is measured by ``chip_smoke.py`` (the ``bvh`` path's
+    orbits), not assumed."""
+    if backend != "auto":
+        return backend == "packet"
+    return device.type == "cuda" and num_prims <= pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
+
+
+class TreeIntrs(IntrsHandler):
+    """The intersect entries both tree handlers share: the threaded walk
+    over the tree :meth:`_tree` gives, with ``payload`` leaves or not;
+    or, where ``accel.chunks`` holds the packet backend's resident table
+    (built in leaf order), the pbvh kernels in closest-hit, emit-rows
+    and any-hit modes, tagged with the ``refine`` policy."""
+
+    block_lanes = pt.TUNED_RAY_TILE  # rays per tile (the walk is order-free)
+    payload: bool
+    refine: str
+
+    def _tree(self, accel) -> tuple:
+        """(node_min, node_max, hit_link, miss_link, leaf_count, leaves)."""
+        raise NotImplementedError
+
+    def intersect_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if accel.chunks is not None:
+            return partial(
+                pt.packet_closest_hit, accel.chunks,
+                t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, ray_tile=pt.TUNED_RAY_TILE,
+            )
+        return walk_fn(self._tree(accel), arrays, cfg, payload=self.payload)
+
+    def _packet(self, accel, cfg: ComputeConfig, **mode):
+        fn = partial(
+            pt.packet_closest_hit_tiled, accel.chunks,
+            t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, **mode,
+        )
+        return pt.tag_refine(fn, self.refine)
+
+    def intersect_tiled_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if accel.chunks is not None:
+            return self._packet(accel, cfg)
+        return super().intersect_tiled_fn(accel, arrays, cfg)
+
+    def intersect_tiled_rows_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        chunks = accel.chunks
+        if chunks is None or chunks.attr is None or not pt.resident_fits(chunks, with_attrs=True):
+            return None
+        return self._packet(accel, cfg, emit_rows=True)
+
+    def intersect_tiled_anyhit_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if accel.chunks is None:
+            return None
+        return self._packet(accel, cfg, any_hit=True)
+
+
+def packet_chunks(arrays: SceneArrays) -> pt.TriChunks:
+    """The packet backend's resident chunk table (with shade rows) over
+    leaf-ordered ``arrays``; raises past the resident cap, as the JAX
+    package's ``build_tri_chunks`` does."""
+    return pt.build_tri_chunks(
+        arrays.pa.cpu().numpy(), arrays.pb.cpu().numpy(), arrays.pc.cpu().numpy(),
+        tri_chunk=pt.TUNED_TRI_CHUNK,
+        shade_rows=arrays.shade_table.cpu().numpy(),
+        device=arrays.device,
+    )
+
+
+class BvhIntrs(TreeIntrs):
+    name = "BVH"
+    payload = False
+
+    def __init__(
+        self,
+        eps: float = 0.02,
+        target_item_count: int = 2,
+        data: BvhData | None = None,
+        path: str | None = None,
+        backend: str = "auto",
+        refine: str = "bounces",
+    ):
+        """``BvhConfig`` parity: ``path`` / ``data`` = ``Bytes`` (a
+        precomputed checkpoint, bvh.rs:54-64), ``eps`` = ``Runtime``,
+        neither = ``Default``.  ``backend``: ``"threaded"`` (kernel G's
+        walk), ``"packet"`` (the pbvh kernels over the same leaf-ordered
+        prims; the BVH still fixes the order) or ``"auto"``
+        (:func:`use_packet`).  ``refine``: the packet backend's per-ray
+        cull policy (see ``PacketBvhIntrs``)."""
+        check_modes(backend, refine)
+        self.eps = eps
+        self.target_item_count = target_item_count
+        self._data = BvhData.load(path) if path is not None else data
+        self.bvh_data: BvhData | None = self._data
+        self.backend = backend
+        self.refine = refine
+
+    def build(self, scene: Scene, arrays: SceneArrays):
+        data = self._data
+        if data is None:
+            data = build_bvh(scene, eps=self.eps, target_item_count=self.target_item_count)
+        self.bvh_data = data
+        nodes = accel_from_bvh_data(data, scene, arrays.device)
+        arrays = reorder_scene_arrays(arrays, data.indices)
+        chunks = None
+        if use_packet(self.backend, scene.num_prims, arrays.device):
+            chunks = packet_chunks(arrays)
+        return BvhAccel(nodes=nodes, chunks=chunks), arrays
+
+    def stats(self, accel: BvhAccel) -> IntrsStats:
+        return IntrsStats(name="BVH", size=accel.nodes.footprint)
+
+    def _tree(self, accel: BvhAccel) -> tuple:
+        n = accel.nodes
+        return (n.node_min, n.node_max, n.hit_link, n.miss_link, n.leaf_count, n.leaf_start)
+
+
+def walk_fn(tree: tuple, arrays: SceneArrays, cfg: ComputeConfig, *, payload: bool):
+    """The threaded walk as an ``intersect_fn`` (``_bvh_intersect`` /
+    ``_rf_intersect``): ``tree`` is (node_min, node_max, hit_link,
+    miss_link, leaf_count, leaves).  ``valid`` None means every ray;
+    ``t_cap`` is accepted and ignored, as in the JAX walk."""
+    pa, pb, pc = (x.contiguous() for x in (arrays.pa, arrays.pb, arrays.pc))
+
+    def walk(o, d, excl, valid=None, t_cap=None):
+        if valid is None:
+            valid = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
+        return bvh_walk.bvh_walk(
+            o.contiguous(), d.contiguous(), excl.to(torch.int32).contiguous(),
+            valid.contiguous(), *tree, pa, pb, pc,
+            payload=payload, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
+        )
+
+    return walk

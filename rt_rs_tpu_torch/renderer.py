@@ -144,7 +144,7 @@ class Renderer:
         self,
         scene: Scene,
         config: Config | None = None,
-        handler: str | IntrsHandler = "pbvh",
+        handler: str | IntrsHandler = "bvh",
         handler_kwargs: dict[str, Any] | None = None,
         size: tuple[int, int] | None = None,
         device: str | torch.device = "cuda",
@@ -156,12 +156,14 @@ class Renderer:
         narrow: int | None = None,
         seg_order: str | tuple[int, ...] | None = "auto",
     ):
-        """``device`` is where every tensor lives and every kernel runs
-        (default ``"cuda"``; there is no fallback to the CPU: pass
-        ``device="cpu"`` to run the plain-PyTorch twins).  Rays are
-        generated in pixel blocks of one ray tile each, shaped by the
-        config's workgroup hint (``block="auto"``: 16x16 for pbvh's
-        256-ray tiles, 8x16 for the streaming kernel's 128); a tuple
+        """``handler`` defaults to ``"bvh"``, as in the JAX package
+        (``handler_kwargs`` pass to it).  ``device`` is where every
+        tensor lives and every kernel runs (default ``"cuda"``; there is
+        no fallback to the CPU: pass ``device="cpu"`` to run the
+        plain-PyTorch twins).  Rays are generated in pixel blocks of one
+        ray tile each, shaped by the config's workgroup hint
+        (``block="auto"``: 16x16 for the 256-ray tiles of pbvh, bvh and
+        rf_bvh, 8x16 for the streaming kernel's 128); a tuple
         fixes the block shape, None keeps raster order.
 
         ``fuse_bounce``, ``shadow_cull``, ``retile`` (None:
@@ -229,8 +231,10 @@ class Renderer:
 
         self.camera = scene.camera
         self.camera_controller = scene.camera_controller
-        if tuple(self.camera.pos) == tuple(self.camera.at):
-            # pos == at normalizes a zero vector into NaN ray directions.
+        if tuple(self.camera.pos) == tuple(self.camera.at) and not scene.is_unloaded:
+            # pos == at normalizes a zero vector into NaN ray directions
+            # (the unloaded placeholder renders black regardless: its NaN
+            # rays all miss the degenerate prim).
             warnings.warn(
                 "camera pos == at: ray directions will be NaN "
                 "(the reference renders garbage here too); set a "
@@ -534,7 +538,7 @@ def _animate_loop(
 
 def run_headless(
     scene_path: str,
-    handler: str = "pbvh",
+    handler: str = "bvh",
     handler_kwargs: dict[str, Any] | None = None,
     config: Config | None = None,
     size: tuple[int, int] | None = None,

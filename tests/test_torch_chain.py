@@ -111,7 +111,7 @@ def test_orbit_f32_matches_jax(mult):
 
 
 def test_chain_matches_loop():
-    make = lambda: Renderer(torus_scene(), config=_config(32, 24), device="cpu")  # noqa: E731
+    make = lambda: Renderer(torus_scene(), config=_config(32, 24), handler="pbvh", device="cpu")  # noqa: E731
     loop = collect(make(), 5, None)
     chained = collect(make(), 5, 2)
     assert not np.array_equal(loop[0], loop[1])  # the orbit moved
@@ -119,7 +119,7 @@ def test_chain_matches_loop():
 
 
 def test_host_camera_canonical_after_partial_chain():
-    make = lambda: Renderer(torus_scene(), config=_config(16, 16), device="cpu")  # noqa: E731
+    make = lambda: Renderer(torus_scene(), config=_config(16, 16), handler="pbvh", device="cpu")  # noqa: E731
     a, b = make(), make()
     a.animate(5, sync_every=2)
     times = b.animate(5, sync_every=2, chain=3)  # 5 % 3 != 0: the last chain is partial
@@ -147,7 +147,7 @@ def jax_chained():
 
 
 def test_chain_matches_jax_chain(jax_chained):
-    ours = collect(Renderer(torus_scene(), config=_config(*JAX_SIZE), device="cpu"), 5, 2)
+    ours = collect(Renderer(torus_scene(), config=_config(*JAX_SIZE), handler="pbvh", device="cpu"), 5, 2)
     assert sorted(jax_chained) == list(range(5))
     np.testing.assert_allclose(ours[0], jax_chained[0], rtol=0, atol=FRAME_ATOL)
     for i in range(1, 5):
@@ -166,7 +166,7 @@ def test_segmented_auto_order_taken_per_dispatch(monkeypatch):
     mult = (math.pi / 4) / ORBIT_RATE
 
     def run(chain):
-        r = Renderer(torus_scene(), config=_config(32, 16, bounces=2), device="cpu")
+        r = Renderer(torus_scene(), config=_config(32, 16, bounces=2), handler="pbvh", device="cpu")
         assert r._seg_centers is not None and len(r.accel.segments) == 4
         orders, render = [], r._render
 
@@ -188,19 +188,19 @@ def _dma_renderer(monkeypatch):
     monkeypatch.setattr(pt, "MAX_VMEM_CHUNKS", FORCED_CAP)
     r = Renderer(
         torus_scene(), config=_config(32, 24), handler_kwargs={"streaming_mode": "dma"},
-        device="cpu",
+        handler="pbvh", device="cpu",
     )
     assert r.handler._streamed(r.accel)
     return r
 
 
 PATHS = {
-    "flat torus_ghost": lambda mp: Renderer(torus_ghost(), config=_config(32, 24), device="cpu"),
+    "flat torus_ghost": lambda mp: Renderer(torus_ghost(), config=_config(32, 24), handler="pbvh", device="cpu"),
     "blank": lambda mp: Renderer(torus_scene(), config=_config(32, 24), handler="blank", device="cpu"),
     "naive": lambda mp: Renderer(torus_scene(), config=_config(32, 24), handler="naive", device="cpu"),
     "dma": _dma_renderer,
     "fuse_bounce": lambda mp: Renderer(
-        torus_scene(), config=_config(32, 24), fuse_bounce=True, device="cpu"
+        torus_scene(), config=_config(32, 24), fuse_bounce=True, handler="pbvh", device="cpu"
     ),
 }
 
@@ -239,7 +239,7 @@ def test_lru_cache():
 
 def test_chain_cache_evicts_and_update_config_clears(monkeypatch):
     monkeypatch.setattr(rmod, "CHAIN_CACHE_LIMIT", 2)
-    r = Renderer(torus_scene(), config=_config(16, 16, bounces=1), device="cpu")
+    r = Renderer(torus_scene(), config=_config(16, 16, bounces=1), handler="pbvh", device="cpu")
     for k in (2, 3, 2, 4):
         r.animate(k, chain=k)
     assert [key[0] for key in r._chains.keys()] == [2, 4]  # K = 3 evicted

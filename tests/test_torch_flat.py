@@ -142,7 +142,7 @@ def test_flat_and_tiled_frames_agree():
     """The two frame paths of one scene: shade.render through the flat
     entry == the Renderer's tiled frame (torus_scene, 48x32)."""
     scene = torus_scene()
-    r = Renderer(scene, config=_config(48, 32), device="cpu")
+    r = Renderer(scene, config=_config(48, 32), handler="pbvh", device="cpu")
     tiled = r.render_frame().numpy()
     flat_fn = r.handler.intersect_fn(r.accel, r.arrays, r.config.compute)
     for block in (None, r.block):
@@ -191,7 +191,7 @@ def test_torus_ghost_matches_stored_jax_frame():
 
 def test_renderer_entries_on_negative_materials():
     """render_image, orbit and animate take the flat path too."""
-    r = Renderer(ghost_scene(-1), config=_config(24, 16), device="cpu")
+    r = Renderer(ghost_scene(-1), config=_config(24, 16), handler="pbvh", device="cpu")
     frame = r.render_frame().numpy()
     img = r.render_image()
     np.testing.assert_array_equal(img, np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8))
@@ -210,14 +210,14 @@ def test_negative_materials_keep_seg_order(monkeypatch):
 
     monkeypatch.setattr(pt, "MAX_VMEM_CHUNKS", 16)
     cfg = _config(32, 16, bounces=2)
-    auto = Renderer(torus_ghost(), config=cfg, device="cpu")
+    auto = Renderer(torus_ghost(), config=cfg, handler="pbvh", device="cpu")
     n = len(auto.accel.segments)
     assert n > 1 and auto.seg_order == "auto"
     assert sorted(auto._frame_handler().seg_order) == list(range(n))
     fixed = tuple(reversed(range(n)))
-    pinned = Renderer(torus_ghost(), config=cfg, device="cpu", seg_order=fixed)
+    pinned = Renderer(torus_ghost(), config=cfg, handler="pbvh", device="cpu", seg_order=fixed)
     assert pinned._frame_handler().seg_order == fixed
-    ref = Renderer(torus_ghost(), config=cfg, device="cpu", seg_order="scene").render_frame()
+    ref = Renderer(torus_ghost(), config=cfg, handler="pbvh", device="cpu", seg_order="scene").render_frame()
     assert float(ref.mean()) > 0.01
     assert torch.equal(auto.render_frame(), ref) and torch.equal(pinned.render_frame(), ref)
 

@@ -154,9 +154,9 @@ def test_naive_negative_material_frame_matches_pbvh():
 def test_registry_and_blank_entries():
     from rt_rs_tpu_torch.handlers import _REGISTRY
 
-    assert sorted(_REGISTRY) == ["blank", "naive", "pbvh"]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_handler("rf_bvh")
+    assert sorted(_REGISTRY) == ["blank", "bvh", "naive", "pbvh", "rf_bvh"]
+    with pytest.raises(NotImplementedError, match="item 6"):
+        get_handler("lbvh")
     with pytest.raises(ValueError, match="unknown handler 'nope'.*naive"):
         get_handler("nope")
     cfg = ComputeConfig()

@@ -38,7 +38,7 @@ ATOL = 2e-5
 def render(scene=None, bounces: int = 4, size=SIZE, handler_kwargs=None, **kw) -> np.ndarray:
     cfg = Config(compute=ComputeConfig(bounces=bounces), resolution=Resolution.sized(*size))
     r = Renderer(
-        torus_scene() if scene is None else scene, config=cfg, device="cpu",
+        torus_scene() if scene is None else scene, config=cfg, handler="pbvh", device="cpu",
         handler_kwargs=handler_kwargs, **kw,
     )
     return r.render_frame().numpy()
@@ -150,7 +150,7 @@ def test_knob_errors():
         render(handler_kwargs={"early_exit": True, "cull_block": 4})
     with pytest.raises(ValueError, match="refine"):
         render(handler_kwargs={"refine": "sometimes"})
-    r = Renderer(torus_scene(), config=Config(resolution=Resolution.sized(16, 16)), device="cpu")
+    r = Renderer(torus_scene(), config=Config(resolution=Resolution.sized(16, 16)), handler="pbvh", device="cpu")
     assert (r.fuse_bounce, r.shadow_cull, r.retile, r.narrow) == (False, True, None, None)
     assert retile_default(1920 * 1080) is False and r.block == (16, 16)
     h = r.handler

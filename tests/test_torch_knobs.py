@@ -423,7 +423,7 @@ def bounce_state():
     branch): post inputs of bounce 0 in both shadow modes, pre inputs of
     bounce 1, and the two bounces' active masks and subgroup flags."""
     cfg = Config(resolution=Resolution.sized(64, 48))
-    r = Renderer(torus_scene(), config=cfg, device="cpu")
+    r = Renderer(torus_scene(), config=cfg, handler="pbvh", device="cpu")
     c = cfg.compute
     pos = torch.tensor(r.camera.pos, dtype=torch.float32)
     payload, valid, _ = shade.camera_ray_tiles(

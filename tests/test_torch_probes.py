@@ -220,7 +220,7 @@ def test_tpose_frame_matches_renderer():
     Renderer's frame of the same camera (torus_scene, 32x24)."""
     scene = torus_scene()
     cfg = Config(resolution=Resolution.sized(32, 24))
-    r = Renderer(scene, config=cfg, device="cpu")
+    r = Renderer(scene, config=cfg, handler="pbvh", device="cpu")
     frame = r.render_frame().numpy()
     tables = tpose_table.build_tri_chunks_t(r.arrays.pa, r.arrays.pb, r.arrays.pc, tri_chunk=64, device="cpu")
     c = cfg.compute

@@ -67,7 +67,7 @@ def jax_frame(scene: Scene, width: int, height: int) -> np.ndarray:
 
 
 def port_frame(scene: Scene, width: int, height: int) -> np.ndarray:
-    return Renderer(scene, config=_config(width, height), device="cpu").render_frame().numpy()
+    return Renderer(scene, config=_config(width, height), handler="pbvh", device="cpu").render_frame().numpy()
 
 
 @pytest.mark.parametrize("size", [(64, 48), (37, 23)])
@@ -95,20 +95,21 @@ def test_run_headless_writes_png(tmp_path):
     img = read_png(str(out))
     assert img.shape == (24, 32, 3) and img.dtype == np.uint8
     assert img.max() > 0
-    assert r.stats.name == "Packet-BVH" and r.stats.size > 0
+    # The default handler is bvh, as in the JAX package: 48 B a node.
+    assert r.stats.name == "BVH" and r.stats.size == 48 * r.handler.bvh_data.num_nodes > 0
     # Two frames rendered, each followed by an orbit step.
     assert r.camera == Scene.load(str(path)).camera.orbited(1.0).orbited(1.0)
 
 
 def test_render_image_is_the_u8_store_of_the_frame():
-    r = Renderer(random_soup(5, 30), config=_config(24, 16), device="cpu")
+    r = Renderer(random_soup(5, 30), config=_config(24, 16), handler="pbvh", device="cpu")
     frame = r.render_frame().numpy()
     expect = np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8)
     np.testing.assert_array_equal(r.render_image(), expect)
 
 
 def test_animate_orbits_and_times():
-    r = Renderer(random_soup(7, 20), config=_config(16, 16), device="cpu")
+    r = Renderer(random_soup(7, 20), config=_config(16, 16), handler="pbvh", device="cpu")
     seen = []
     times = r.animate(3, sync_every=2, on_frame=lambda i, f, dt: seen.append(i))
     assert len(times) == 3 and all(t > 0 for t in times) and seen == [0, 1, 2]
@@ -119,18 +120,18 @@ def test_animate_orbits_and_times():
 
 
 def test_update_config_rebinds_bounces():
-    r = Renderer(torus_scene(), config=_config(16, 16), device="cpu")
+    r = Renderer(torus_scene(), config=_config(16, 16), handler="pbvh", device="cpu")
     four = r.render_frame().numpy()
     r.update_config(ComputeConfig(bounces=1))
     one = r.render_frame().numpy()
     assert not np.array_equal(four, one)
-    expect = Renderer(torus_scene(), config=_config(16, 16, bounces=1), device="cpu")
+    expect = Renderer(torus_scene(), config=_config(16, 16, bounces=1), handler="pbvh", device="cpu")
     np.testing.assert_array_equal(one, expect.render_frame().numpy())
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_handler("bvh")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        get_handler("lbvh")
     with pytest.raises(NotImplementedError, match="item 5"):
         get_handler("pbvh", tri_chunk_fine=16)
     neg = random_soup(1, 10)
@@ -143,7 +144,7 @@ def test_unported_paths_raise():
             torch.zeros(32, 256, dtype=torch.bool), torch.zeros(3),
         )
     # animate(chain=K) is ported: its first frame is render_frame's.
-    r = Renderer(random_soup(2, 10), config=_config(16, 16), device="cpu")
+    r = Renderer(random_soup(2, 10), config=_config(16, 16), handler="pbvh", device="cpu")
     frame = r.render_frame()
     got = []
     r.animate(2, chain=2, on_frame=lambda i, f, dt: got.append(f))
@@ -154,7 +155,7 @@ def test_camera_at_pos_warns():
     scene = random_soup(4, 10)
     scene.camera = type(scene.camera)((1.0, 1.0, 1.0), (1.0, 1.0, 1.0))
     with pytest.warns(UserWarning, match="pos == at"):
-        Renderer(scene, config=_config(16, 16), device="cpu")
+        Renderer(scene, config=_config(16, 16), handler="pbvh", device="cpu")
 
 
 def test_port_never_imports_jax():

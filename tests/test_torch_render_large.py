@@ -73,7 +73,7 @@ def jax_frame(scene, width: int, height: int, bounces: int = 4) -> np.ndarray:
 
 def port_renderer(scene, width: int, height: int, bounces: int = 4, **kw) -> Renderer:
     cfg = Config(compute=ComputeConfig(bounces=bounces), resolution=Resolution.sized(width, height))
-    return Renderer(scene, config=cfg, device="cpu", **kw)
+    return Renderer(scene, config=cfg, handler="pbvh", device="cpu", **kw)
 
 
 @pytest.fixture

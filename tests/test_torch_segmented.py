@@ -243,7 +243,7 @@ def test_chunk_overlap_mask_ray_major_bit_equal(forced):
 def _renderer(monkeypatch, **kw):
     monkeypatch.setattr(pt, "MAX_VMEM_CHUNKS", FORCED_CAP)
     cfg = Config(compute=ComputeConfig(bounces=2), resolution=Resolution.sized(32, 16))
-    return Renderer(torus_scene(), config=cfg, device="cpu", **kw)
+    return Renderer(torus_scene(), config=cfg, handler="pbvh", device="cpu", **kw)
 
 
 def test_renderer_seg_order_modes(monkeypatch):
@@ -266,7 +266,7 @@ def test_renderer_seg_order_modes(monkeypatch):
     with pytest.raises(ValueError, match="seg_order"):
         _renderer(monkeypatch, seg_order="nearest")
     monkeypatch.setattr(pt, "MAX_VMEM_CHUNKS", 1536)
-    resident = Renderer(torus_scene(), config=Config(resolution=Resolution.sized(16, 16)), device="cpu")
+    resident = Renderer(torus_scene(), config=Config(resolution=Resolution.sized(16, 16)), handler="pbvh", device="cpu")
     assert resident.seg_order == "scene" and resident._frame_handler() is resident.handler
 
 

@@ -43,7 +43,7 @@ def frame_state(headlight: float):
         compute=ComputeConfig(camera_light_source=headlight),
         resolution=Resolution.sized(64, 48),
     )
-    r = Renderer(torus_scene(), config=cfg, device="cpu")
+    r = Renderer(torus_scene(), config=cfg, handler="pbvh", device="cpu")
     pos = torch.tensor(r.camera.pos, dtype=torch.float32)
     payload, valid, _ = shade.camera_ray_tiles(
         pos, torch.tensor(r.camera.at, dtype=torch.float32), 64, 48, 256, block=r.block
