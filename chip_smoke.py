@@ -33,10 +33,14 @@ device="cuda")``:
   through the transposed table;
 * ``bvh``: the default handler ``bvh`` and ``rf_bvh`` with the
   threaded walk (``handler_kwargs={"backend": "threaded"}``; kernel G,
-  ``csrc/bvh_walk.cu``, in contiguous and payload leaf mode), the gather
-  branch with closest-hit shadows: ``torus_scene`` (both handlers) and
+  ``csrc/bvh_walk.cu``, over the tree packed 4 wide, in contiguous and
+  payload leaf mode), the gather branch with closest-hit shadows:
+  ``torus_scene`` (both handlers) and
   ``torus_canyon()`` (``bvh``); and ``bvh`` with ``backend="auto"`` on
-  the torus, which takes the packet kernels on the card;
+  the torus, which takes the packet kernels on the card; at 96x72, in
+  both leaf modes, ``deep_chain`` (a tree deeper than the walk's local
+  stack: the scratch kernel) and ``no_prims``, each equal to the packet
+  backend's frame;
 * ``chain``: ``Renderer.animate(chain=K)``, one replay of a captured
   CUDA graph of K orbit frames per dispatch, on every frame path above
   (torus, segmented and dma canyon, knobs, flat, blank, naive, the
@@ -58,7 +62,12 @@ exits nonzero without printing a result):
    1920x1080, the canyon through the transposed table at 640x480
    (every mt_tpose call), and the threaded ``bvh`` and ``rf_bvh`` torus
    frames at 384x288 and the threaded ``bvh`` canyon frame at 640x480
-   (every bvh_walk call, also run twice alike).  Intersection and refine outputs (t, pid, rows, blocked,
+   (every bvh_walk call, also against the wide design's mirror
+   ``bvh_walk_wide_reference`` and run twice alike; then synthetic
+   batches in both leaf modes: axis-parallel, NaN, invalid and excluded
+   rays at the torus, tie rays at two coincident copies of it, and the
+   same rays at ``deep_chain`` and ``no_prims``, which every ray misses).
+   Intersection and refine outputs (t, pid, rows, blocked,
    overlap masks, compacted ids and counts) must be bit-equal, and each
    mt_trace, mt_stream, mt_tpose, mt_mxu and refine_cull call, run twice,
    gives the same bits (the balanced designs merge their items with
@@ -150,8 +159,10 @@ exits nonzero without printing a result):
    as shade_post + shade_pre; the probes' kernels at the compare
    phase's calls, and mt_trace[closest] on mt_tpose's tc = 64 lists;
    bvh_walk at the threaded torus frames' primary calls (its bound from
-   the node steps and prim tests its twin counts on the same call; the
-   threaded canyon frame's primary call is also printed).
+   the node steps and prim tests its twin, the binary walk, counts on
+   the same call; the wide walk's node visits and the packed records'
+   bytes from the mirror; the threaded canyon frame's primary call is
+   also printed).
    Each f32 kernel's bound also at the measured separate-FMA rate, its
    launches per wrapper call (torch.profiler; mt_tpose and mt_mxu must
    make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
@@ -639,10 +650,7 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
             errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["bvh_walk"]):
-        name = bw.walk_name(kw["payload"])
-        kern, twin = bw.bvh_walk(*a, **kw), bw.bvh_walk_reference(*a, **kw)
-        errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
-        check_equal(f"{label} {name}#{i} run twice", bw.bvh_walk(*a, **kw), kern)
+        check_walk(f"{label} {bw.walk_name(a[4].payload)}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -663,6 +671,89 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
             err, ulp = check_ulp(f"{label} {name}#{i}", kern_fn(*a, **kw), twin_fn(*a, **kw))
             errs[name] = max(errs[name], err)
             ulps[name] = max(ulps.get(name, 0), ulp)
+
+
+def check_walk(what: str, a, kw, errs: dict) -> None:
+    """One bvh_walk call: the kernel bit-equal to its twin (the binary
+    lockstep loop) and to the wide design's mirror, and run twice alike."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
+
+    name = bw.walk_name(a[4].payload)
+    kern = bw.bvh_walk(*a, **kw)
+    errs[name] = max(errs[name], check_equal(what, kern, bw.walk_reference(*a, **kw)))
+    check_equal(f"{what} vs the wide mirror", kern, bw.bvh_walk_wide_reference(*a, **kw))
+    check_equal(f"{what} run twice", bw.bvh_walk(*a, **kw), kern)
+
+
+def walk_rays(n: int, seed: int, num_prims: int, nan: int):
+    """Seeded rays for the walk's synthetic batches -> (o, d, excl,
+    valid) on the card: from a sphere of radius 6 toward the middle,
+    with axis-parallel directions (+-0.0 components, rays along +-y),
+    ``nan`` NaN directions, 5% invalid and 20% excluding a prim."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = (6.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = rng.uniform(-1.5, 1.5, (n, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    q = n // 16
+    d[:q, 1] = 0.0
+    d[q : 2 * q, 1] = -0.0
+    d[2 * q : 3 * q, 0] = d[2 * q : 3 * q, 2] = np.float32(-0.0)
+    d[2 * q : 3 * q, 1] = np.where(o[2 * q : 3 * q, 1] > 0, -1.0, 1.0)
+    d[3 * q : 3 * q + nan] = np.nan
+    valid = rng.random(n) > 0.05
+    excl = np.where(rng.random(n) < 0.2, rng.integers(1, num_prims + 1, n), 0).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(DEVICE) for x in (o, d, excl, valid))
+
+
+def edge_scenes() -> dict:
+    """The trees at the walk's edges: name -> (scene, handler kwargs).
+    deep_chain with eps=0 is about 100 levels deep, so its walk needs
+    more stack than kernel G keeps in local memory (the scratch kernel);
+    no_prims packs as one inverted leaf over a copy of the null row."""
+    from rt_rs_tpu_torch.scene.presets import deep_chain, no_prims
+
+    return {"deep chain": (deep_chain(), {"eps": 0.0}), "no prims": (no_prims(), {})}
+
+
+def check_walk_synthetic(errs: dict) -> None:
+    """bvh_walk on synthetic batches in both leaf modes (check_walk):
+    walk_rays at torus_scene (NaN directions included: those rays enter
+    every node), at two coincident copies of the torus, whose duplicated
+    triangles tie at equal t on every hit, and at the edge_scenes (the
+    deep chain's through the scratch kernel; every ray misses the
+    scene with no prims)."""
+    from rt_rs_tpu_torch.bvh import wide
+    from rt_rs_tpu_torch.config import ComputeConfig
+    from rt_rs_tpu_torch.handlers import get_handler
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
+    from rt_rs_tpu_torch.scene.presets import tiled_copies, torus_scene
+
+    cfg = ComputeConfig()
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
+    scenes = {
+        "torus": (torus_scene(), {}, 4), "ties": (tiled_copies(torus_scene(), [(0.0, 0.0, 0.0)] * 2), {}, 0),
+        **{label: (scene, hkw, 4) for label, (scene, hkw) in edge_scenes().items()},
+    }
+    for label, (scene, hkw, nan) in scenes.items():
+        for handler in ("bvh", "rf_bvh"):
+            accel, _ = get_handler(handler, backend="threaded", **hkw).build(scene, scene.pack(device=DEVICE))
+            tree = accel.walk
+            rays = walk_rays(4096, 7, max(scene.num_prims, 1), nan)
+            check_walk(f"synthetic {label} {handler}", (*rays, tree), kw, errs)
+            if label == "deep chain" and not tree.stack > wide.LOCAL_STACK:
+                raise AssertionError(f"{label} {handler}: a stack of {tree.stack}, not past the local stack")
+            if label == "no prims" and bool(bw.bvh_walk(*rays, tree, **kw)[1].any()):
+                raise AssertionError(f"{label} {handler}: a ray hit a scene with no prims")
+            say(
+                f"[compare] synthetic {label} {handler} ({scene.num_prims} tris, {nan} NaN rays of "
+                f"4096, walk stack {tree.stack} of {wide.LOCAL_STACK} local): bvh_walk bit-equal "
+                f"to its twin and the wide mirror, run twice alike"
+            )
+
 
 
 def bind(fn, a, kw) -> dict:
@@ -1042,6 +1133,7 @@ def phase_compare():
             f"call; replay {time.perf_counter() - t0:.1f} s"
         )
         recorded[label] = calls
+    check_walk_synthetic(errs)
     check_skewed(errs, recorded)
     check_skewed_exit(errs, recorded)
     check_skewed_stream(errs, recorded)
@@ -1541,6 +1633,12 @@ def drive_bvh(card: str, first: dict) -> tuple[dict, dict]:
         label = f"{name} ({r.stats.name}, {r.stats.size} B)"
         frame_ms[name] = orbit_ms(label, r, frames, card)
         kept[name] = r
+    for name, (scene, hkw) in edge_scenes().items():
+        for handler in ("bvh", "rf_bvh"):
+            f = {b: renderer(96, 72, scene, handler=handler, backend=b, **hkw).render_frame() for b in ("threaded", "packet")}
+            check_frame(f"{handler} threaded {name} 96x72", f["threaded"], 96, 72, black=name == "no prims")
+            same_bits(f"{handler} threaded {name} 96x72 vs the packet backend's frame", f["threaded"], f["packet"])
+            say(f"[frame] {handler} threaded {name} 96x72: bit-equal to the packet backend's frame")
     return frame_ms, kept
 
 
@@ -1921,11 +2019,12 @@ def bounce_halves(a, kw):
 
 
 def walk_work(a, kw):
-    """The work of one recorded bvh_walk call, counted by its twin."""
+    """The work of one recorded bvh_walk call, counted by its twin (the
+    binary walk: the bound counts its node steps whatever walks them)."""
     from rt_rs_tpu_torch.ops import bvh_walk as bw
 
     w = bw.WalkWork()
-    bw.bvh_walk_reference(*a, **kw, work=w)
+    bw.walk_reference(*a, **kw, work=w)
     return w
 
 
@@ -1938,7 +2037,7 @@ def work(name: str, a, kw) -> tuple[int, int]:
     if name.startswith("bvh_walk"):
         w, n = walk_work(a, kw), a[0].shape[0]
         ops = w.node_steps * WALK_NODE_OPS + w.prim_tests * WALK_PRIM_OPS + 3 * n
-        leaf_bytes = 32 if kw["payload"] else 4
+        leaf_bytes = 32 if a[4].payload else 4
         nbytes = (
             n * WALK_RAY_BYTES + w.nodes_read * WALK_NODE_BYTES + w.leaves_read * leaf_bytes
             + w.prims_read * 36
@@ -2230,6 +2329,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     1080p frame's primary rows call and the flat ``torus_ghost()`` 1080p
     frame's busiest closest-hit call.  -> (kernel name -> times, call ->
     mt_trace time and bounds)."""
+    from rt_rs_tpu_torch.bvh import wide
     from rt_rs_tpu_torch.ops import bvh_walk as bw
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
@@ -2271,10 +2371,10 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
         ),
         # the threaded torus frames' primary calls
-        "bvh_walk[bvh]": (bw.bvh_walk, bw.bvh_walk_reference, recorded["bvh torus"]["bvh_walk"][0], 1),
-        "bvh_walk[rf]": (bw.bvh_walk, bw.bvh_walk_reference, recorded["rf_bvh torus"]["bvh_walk"][0], 1),
+        "bvh_walk[bvh]": (bw.bvh_walk, bw.walk_reference, recorded["bvh torus"]["bvh_walk"][0], 1),
+        "bvh_walk[rf]": (bw.bvh_walk, bw.walk_reference, recorded["rf_bvh torus"]["bvh_walk"][0], 1),
         "bvh_walk[bvh] canyon 640x480": (
-            bw.bvh_walk, bw.bvh_walk_reference, recorded["bvh canyon"]["bvh_walk"][0], 1,
+            bw.bvh_walk, bw.walk_reference, recorded["bvh canyon"]["bvh_walk"][0], 1,
         ),
     }
     for name, (kern, twin, a, kw) in recorded["probes"].items():
@@ -2303,10 +2403,16 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
         if name.startswith("bvh_walk"):
-            w = walk_work(a, kw)
+            w, ww, tree = walk_work(a, kw), bw.WideWork(), a[4]
+            bw.bvh_walk_wide_reference(*a, **kw, work=ww)
+            n = a[0].shape[0]
             extra += (
-                f", {a[0].shape[0]} rays: {w.node_steps} node steps, {w.prim_tests} prim tests "
-                f"({w.nodes_read} nodes, {w.leaves_read} leaves, {w.prims_read} prims read)"
+                f", {n} rays: {w.node_steps} node steps, {w.prim_tests} prim tests "
+                f"({w.nodes_read} nodes, {w.leaves_read} leaves, {w.prims_read} prims read); "
+                f"wide walk: {ww.node_visits} node visits ({ww.node_visits / n:.2f} a ray), "
+                f"{ww.prim_tests} prim tests, stack depth {ww.max_stack} of {tree.stack}; packed "
+                f"records {tree.device_bytes} B ({tree.nodes.shape[0]} nodes of {wide.WIDTH}, "
+                f"{tree.prims.shape[0]} prims)"
             )
         if name.endswith("early_exit]"):
             b0 = without_early_exit(a, kw)
@@ -2470,8 +2576,8 @@ def main(full: bool = True) -> None:
             # No single PyTorch call computes these functions (a masked
             # Möller–Trumbore closest hit over per-tile chunk lists, a
             # per-ray slab cull OR-reduced per tile, the fused shading
-            # passes, 16 chained multiply-adds summed, a stackless BVH
-            # walk).
+            # passes, 16 chained multiply-adds summed, a BVH walk in the
+            # escape links' order).
             "library_ms": None,
         }
         for name, (src, rep) in KERNELS.items()

@@ -1,183 +1,331 @@
-// Kernel G: the threaded BVH walk, closest hit per ray.
+// Kernel G: the threaded BVH walk, closest hit per ray, on a wide tree.
 //
 // Replaces no pallas_call: it is the XLA lax.while_loop of
 // rt_rs_tpu/handlers/bvh.py::_bvh_intersect (contiguous leaves, the
 // bvh handler) and rt_rs_tpu/handlers/rf.py::_rf_intersect (8-slot
 // payload leaves, rf_bvh).  There every step moves the whole ray batch
 // by one unit of work per ray: one prim test of the leaf the ray last
-// entered, or one node step (the slab test of handlers/bvh.py::_node_slab,
-// the cull, the hit or miss link).  Here one thread runs one ray's loop
-// alone.  A ray takes exactly the tests it takes in the lockstep loop,
-// in the same order, so its (t, pid) is the loop's bit for bit: ties
-// keep the first prim found (strict t < best_t).  Rays with valid == 0
-// start at END and return the miss sentinel (t_max + 1, 0).
+// entered, or one node step over the preorder escape links (the slab
+// test of handlers/bvh.py::_node_slab, the cull, the hit or miss link).
+//
+// Here one thread runs one ray over the same tree collapsed into
+// kWidth-wide nodes (rt_rs_tpu_torch/bvh/wide.py packs them once per
+// accel): a node holds its children's slab bounds (the wobble applied)
+// and child words, a prim its corner a, its edges and its id.  At a
+// node the ray tests every child's box, takes the first that passes and
+// pushes the others in reverse preorder with their near on a short
+// stack; a pop re-applies the cull near <= best_t.  The pack checks
+// that the links are a preorder tree and that bounds nest exactly, and
+// every step of the slab test is a monotone f32 operation, so a box
+// that passes implies its ancestors passed at their own, earlier
+// visits: the ray enters exactly the binary walk's leaves, in its
+// order, with its best t, and makes its prim tests in its order.  Its
+// (t, pid) is the loop's bit for bit: ties keep the first prim found
+// (strict t < best_t).  Rays with valid == 0 return the miss sentinel
+// (t_max + 1, 0).
+//
+// The stack a walk needs grows with the tree's depth (about one entry a
+// binary level on a chain; the pack counts it).  Up to kLocalStack
+// entries live in the thread's local memory (bvh_walk_kernel, one
+// thread a ray); a deeper tree's walk keeps its stack in a scratch
+// buffer the wrapper allocates (bvh_walk_scratch_kernel, each thread a
+// strided set of rays), so every tree the binary walk takes is walked.
 //
 // Layouts: o, d [n, 3]; excl [n] i32; valid [n] u8 (torch bool);
-// node_min / node_max [m, 3] (covering bounds), hit_link / miss_link /
-// leaf_count [m] i32 (m = END); leaves = leaf_start [m] (payload == 0)
-// or the payload slots [m * 8] (payload == 1, slot 0 = empty);
-// pa, pb, pc [p, 3] (row 0 = the null sentinel)  ->  t [n], pid [n].
+// nodes [k, 8 * kWidth] i32: lo.x, hi.x, lo.y, hi.y, lo.z, hi.z
+// (kWidth f32 each), then kWidth child words (> 0 a node, ~q a leaf
+// whose prims start at q, 0 empty), padding; prims [q, 12] i32:
+// {a, pid}, {b - a, last}, {c - a, 0}  ->  t [n], pid [n].
 //
-// What bounds it on this card: operations and latency, not bytes.  A ray
-// reads its 7 words and writes 2; the tree (at most a few MB here) and
-// the prims stay in L2 and are read through the read-only cache, while
-// each node step costs ~24 and each prim test ~49 f32 operations on a
-// dependent chain of loads.  The design is the simple one: one thread a
-// ray, 128 a block, no shared memory; the warps diverge where their rays
-// take different paths.  No host read, so a frame that launches it can
-// be captured in a CUDA graph.
+// What bounds it on this card: latency.  A ray reads its 7 words and
+// writes 2, and the tree and prims (a few MB) stay in L2, but each step
+// waits on the load before it.  The binary walk made ~17 dependent node
+// steps a primary ray, each two round trips (the box, then the link);
+// here a node is one 128-byte line of independent 16-byte loads (box and
+// links together), ~4 of them a torus primary ray, and a prim three
+// 16-byte loads.  A call of ~100K rays is one wave and lasts as long as
+// its slowest warp's chain of such loads.
+// The loop is "while-while": nodes until the ray holds a leaf or is
+// done, then the leaf's prims, so a warp whose lanes are in different
+// phases issues each body once per phase change, not every step.  No
+// host read, so a frame that launches it can be captured in a CUDA
+// graph.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSlots = 8;
+constexpr int kWidth = 4;        // children per node (WIDTH in bvh/wide.py)
+constexpr int kLocalStack = 64;  // stack entries in local memory (LOCAL_STACK)
 constexpr int kBlock = 128;
+constexpr int kNodeVecs = 2 * kWidth;  // 16-byte vectors a node
+constexpr int kRowVecs = kWidth / 4;   // vectors a bounds row
 
-// rt_rs_tpu_torch/ops/intersect.py::tri_intersect_pairs for one (ray,
-// prim), op for op: edges from the corners at run time, the two-sided
-// determinant branches, the quotient only where they pass.  Returns
-// whether w lies in [t_min, t_max] and sets w.
-__device__ __forceinline__ bool tri_pair(const float* __restrict__ pa,
-                                         const float* __restrict__ pb,
-                                         const float* __restrict__ pc,
-                                         int pid, float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float t_min, float t_max, float eps,
-                                         float& w) {
-  const float ax = __ldg(pa + 3 * pid), ay = __ldg(pa + 3 * pid + 1),
-              az = __ldg(pa + 3 * pid + 2);
-  const float e1x = __ldg(pb + 3 * pid) - ax;
-  const float e1y = __ldg(pb + 3 * pid + 1) - ay;
-  const float e1z = __ldg(pb + 3 * pid + 2) - az;
-  const float e2x = __ldg(pc + 3 * pid) - ax;
-  const float e2y = __ldg(pc + 3 * pid + 1) - ay;
-  const float e2z = __ldg(pc + 3 * pid + 2) - az;
+// rt_rs_tpu_torch/ops/intersect.py::tri_intersect_edges for one (ray,
+// prim), op for op: the two-sided determinant branches, the quotient
+// only where they pass.  Returns whether w lies in [t_min, t_max] and
+// sets w.
+__device__ __forceinline__ bool tri_edges(float4 a, float4 e1, float4 e2,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, float t_max, float eps,
+                                          float& w) {
   // p = cross(d, e2)
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
+  const float px = dy * e2.z - dz * e2.y;
+  const float py = dz * e2.x - dx * e2.z;
+  const float pz = dx * e2.y - dy * e2.x;
   // tvec = o - a
-  const float tx = ox - ax;
-  const float ty = oy - ay;
-  const float tz = oz - az;
+  const float tx = ox - a.x;
+  const float ty = oy - a.y;
+  const float tz = oz - a.z;
   // q = cross(tvec, e1)
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float det = e1x * px + e1y * py + e1z * pz;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
   const float u = tx * px + ty * py + tz * pz;
   const float v = dx * qx + dy * qy + dz * qz;
   const bool ok =
       (det > eps && u >= 0.0f && u <= det && v >= 0.0f && u + v <= det) ||
       (det < -eps && u <= 0.0f && u >= det && v <= 0.0f && u + v >= det);
   if (!ok) return false;
-  w = (e2x * qx + e2y * qy + e2z * qz) / det;
+  w = (e2.x * qx + e2.y * qy + e2.z * qz) / det;
   return w <= t_max && w >= t_min;
 }
 
-// One axis of _node_slab: the slab distances with the wobble, min and
-// max with NaN propagated (jnp.minimum / jnp.maximum; fminf / fmaxf
-// would drop it), then NaN mapped to -inf / +inf.
-__device__ __forceinline__ void slab_axis(float bmin, float bmax, float o,
-                                          float inv, float& lo, float& hi) {
-  const float wob = 2e-6f + 1e-5f * fmaxf(fabsf(bmin), fabsf(bmax));
-  const float t0 = (bmin - wob - o) * inv;
-  const float t1 = (bmax + wob - o) * inv;
-  const bool nan = (t0 != t0) || (t1 != t1);
-  lo = nan ? -INFINITY : fminf(t0, t1);
-  hi = nan ? INFINITY : fmaxf(t0, t1);
+// min / max that return NaN if either operand is NaN (jnp.minimum,
+// jnp.maximum; fminf / fmaxf would drop it): PTX min.NaN / max.NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-template <bool kPayload>
-__global__ void __launch_bounds__(kBlock)
-    bvh_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const int* __restrict__ excl,
-                    const uint8_t* __restrict__ valid,
-                    const float* __restrict__ node_min,
-                    const float* __restrict__ node_max,
-                    const int* __restrict__ hit_link,
-                    const int* __restrict__ miss_link,
-                    const int* __restrict__ leaf_count,
-                    const int* __restrict__ leaves,
-                    const float* __restrict__ pa, const float* __restrict__ pb,
-                    const float* __restrict__ pc, int n, int end, float t_min,
-                    float t_max, float eps, float miss_t,
-                    float* __restrict__ t_out, int* __restrict__ pid_out) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min;
+};
+
+// One ray's stack of (child word, near) entries.  LocalStack holds
+// kLocalStack of them in the thread's local memory; ScratchStack holds
+// a deeper tree's in the wrapper's scratch buffer, entry e of thread g
+// at e * stride + g (a warp's entries in one line), words then nears.
+struct LocalStack {
+  int w[kLocalStack];
+  float n[kLocalStack];
+  __device__ __forceinline__ void put(int sp, int word, float near) {
+    w[sp] = word;
+    n[sp] = near;
+  }
+  __device__ __forceinline__ int word(int sp) const { return w[sp]; }
+  __device__ __forceinline__ float near(int sp) const { return n[sp]; }
+};
+
+struct ScratchStack {
+  int* w;
+  float* n;
+  size_t stride;
+  __device__ __forceinline__ void put(int sp, int word, float near) {
+    w[(size_t)sp * stride] = word;
+    n[(size_t)sp * stride] = near;
+  }
+  __device__ __forceinline__ int word(int sp) const { return w[(size_t)sp * stride]; }
+  __device__ __forceinline__ float near(int sp) const { return n[(size_t)sp * stride]; }
+};
+
+// The children of node k: the first whose box passes -> its word (0:
+// none) and near; the others that pass pushed in reverse preorder.
+template <class Stack>
+__device__ __forceinline__ int visit_node(const float4* __restrict__ nodes,
+                                          int k, const Ray& r, float best_t,
+                                          Stack& stack, int& sp) {
+  const float4* node = nodes + (size_t)k * kNodeVecs;
+  float b[6][kWidth];
+#pragma unroll
+  for (int row = 0; row < 6; ++row) {
+#pragma unroll
+    for (int v = 0; v < kRowVecs; ++v) {
+      const float4 x = __ldg(node + row * kRowVecs + v);
+      b[row][4 * v] = x.x;
+      b[row][4 * v + 1] = x.y;
+      b[row][4 * v + 2] = x.z;
+      b[row][4 * v + 3] = x.w;
+    }
+  }
+  int word[kWidth];
+#pragma unroll
+  for (int v = 0; v < kRowVecs; ++v) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(node) + 6 * kRowVecs + v);
+    word[4 * v] = x.x;
+    word[4 * v + 1] = x.y;
+    word[4 * v + 2] = x.z;
+    word[4 * v + 3] = x.w;
+  }
+  int next = 0;
+  float next_near = 0.0f;
+#pragma unroll
+  for (int c = kWidth - 1; c >= 0; --c) {
+    // _node_slab: per axis the slab distances' min and max, NaN if
+    // either is NaN; near = the max of the axes' mins with NaN taken as
+    // -inf (fmaxf drops a NaN operand, and -inf ends a row of NaNs),
+    // far = the min of the maxes with NaN as +inf.
+    float t0 = (b[0][c] - r.ox) * r.ix, t1 = (b[1][c] - r.ox) * r.ix;
+    const float lx = min_nan(t0, t1), hx = max_nan(t0, t1);
+    t0 = (b[2][c] - r.oy) * r.iy;
+    t1 = (b[3][c] - r.oy) * r.iy;
+    const float ly = min_nan(t0, t1), hy = max_nan(t0, t1);
+    t0 = (b[4][c] - r.oz) * r.iz;
+    t1 = (b[5][c] - r.oz) * r.iz;
+    const float lz = min_nan(t0, t1), hz = max_nan(t0, t1);
+    const float near = fmaxf(fmaxf(fmaxf(lx, ly), lz), -INFINITY);
+    const float far = fminf(fminf(fminf(hx, hy), hz), INFINITY);
+    if (word[c] != 0 && near <= far && far >= r.t_min && near <= best_t) {
+      if (next != 0) stack.put(sp++, next, next_near);
+      next = word[c];
+      next_near = near;
+    }
+  }
+  return next;
+}
+
+// The next entry whose near is still within best_t -> its word, or 0
+// when the stack runs out (the ray is done).
+template <class Stack>
+__device__ __forceinline__ int pop(const Stack& stack, int& sp, float best_t) {
+  while (sp > 0) {
+    --sp;
+    if (stack.near(sp) <= best_t) return stack.word(sp);
+  }
+  return 0;
+}
+
+// Ray i's walk -> t_out[i], pid_out[i].
+template <class Stack>
+__device__ __forceinline__ void walk_ray(
+    int i, Stack& stack, const float* __restrict__ o,
+    const float* __restrict__ d, const int* __restrict__ excl,
+    const uint8_t* __restrict__ valid, const float4* __restrict__ nodes,
+    const float4* __restrict__ prims, float t_min, float t_max, float eps,
+    float miss_t, float* __restrict__ t_out, int* __restrict__ pid_out) {
+  Ray r;
+  r.ox = o[3 * i];
+  r.oy = o[3 * i + 1];
+  r.oz = o[3 * i + 2];
+  r.dx = d[3 * i];
+  r.dy = d[3 * i + 1];
+  r.dz = d[3 * i + 2];
+  r.ix = 1.0f / r.dx;
+  r.iy = 1.0f / r.dy;
+  r.iz = 1.0f / r.dz;
+  r.t_min = t_min;
   const int ex = excl[i];
-  int idx = valid[i] ? 0 : end;
-  int left = 0, ptr = 0;
   float best_t = miss_t;
   int best_id = 0;
-  while (idx < end || left > 0) {
-    if (left > 0) {
-      // Leaf phase: one prim of the leaf.
-      const int pid = kPayload ? __ldg(leaves + ptr) : ptr;
+  int sp = 0;
+  // cur: > 0 a node, 0 the root first and then done, < 0 a leaf.
+  int cur = 0;
+  bool live = valid[i] != 0;
+  while (live) {
+    // Nodes until the ray holds a leaf or is done.
+    while (cur >= 0) {
+      const int next = visit_node(nodes, cur, r, best_t, stack, sp);
+      cur = next != 0 ? next : pop(stack, sp, best_t);
+      if (cur == 0) break;
+    }
+    if (cur == 0) break;
+    // The leaf's prims, up to the one marked last.
+    for (int p = ~cur;; ++p) {
+      const float4 a = __ldg(prims + 3 * p);
+      const float4 e1 = __ldg(prims + 3 * p + 1);
+      const float4 e2 = __ldg(prims + 3 * p + 2);
+      const int pid = __float_as_int(a.w);
       float w;
-      if (pid != ex && (!kPayload || pid != 0) &&
-          tri_pair(pa, pb, pc, pid, ox, oy, oz, dx, dy, dz, t_min, t_max, eps,
-                   w) &&
+      if (pid != ex &&
+          tri_edges(a, e1, e2, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_min,
+                    t_max, eps, w) &&
           w > t_min && w < t_max && w < best_t) {
         best_t = w;
         best_id = pid;
       }
-      ++ptr;
-      --left;
-    } else {
-      // Node phase: the box test, the cull, the link.
-      float lx, hx, ly, hy, lz, hz;
-      slab_axis(__ldg(node_min + 3 * idx), __ldg(node_max + 3 * idx), ox, ix,
-                lx, hx);
-      slab_axis(__ldg(node_min + 3 * idx + 1), __ldg(node_max + 3 * idx + 1),
-                oy, iy, ly, hy);
-      slab_axis(__ldg(node_min + 3 * idx + 2), __ldg(node_max + 3 * idx + 2),
-                oz, iz, lz, hz);
-      const float near = fmaxf(fmaxf(lx, ly), lz);
-      const float far = fminf(fminf(hx, hy), hz);
-      const bool hit = near <= far && far >= t_min && near <= best_t;
-      if (hit) {
-        const int count = __ldg(leaf_count + idx);
-        if (count > 0) {
-          left = count;
-          ptr = kPayload ? idx * kSlots : __ldg(leaves + idx);
-        }
-        idx = __ldg(hit_link + idx);
-      } else {
-        idx = __ldg(miss_link + idx);
-      }
+      if (__float_as_int(e1.w) != 0) break;
     }
+    cur = pop(stack, sp, best_t);
+    live = cur != 0;
   }
   t_out[i] = best_t;
   pid_out[i] = best_id;
 }
 
+// One thread a ray, its stack in local memory (trees whose walk needs
+// at most kLocalStack entries).
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const int* __restrict__ excl,
+                    const uint8_t* __restrict__ valid,
+                    const float4* __restrict__ nodes,
+                    const float4* __restrict__ prims, int n, float t_min,
+                    float t_max, float eps, float miss_t,
+                    float* __restrict__ t_out, int* __restrict__ pid_out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  LocalStack stack;
+  walk_ray(i, stack, o, d, excl, valid, nodes, prims, t_min, t_max, eps,
+           miss_t, t_out, pid_out);
+}
+
+// Deeper trees: each thread walks rays g, g + threads, ... with its
+// stack of `depth` entries in `scratch` ([2, depth, threads] words).
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_scratch_kernel(const float* __restrict__ o,
+                            const float* __restrict__ d,
+                            const int* __restrict__ excl,
+                            const uint8_t* __restrict__ valid,
+                            const float4* __restrict__ nodes,
+                            const float4* __restrict__ prims,
+                            int* __restrict__ scratch, int n, int depth,
+                            float t_min, float t_max, float eps,
+                            float miss_t, float* __restrict__ t_out,
+                            int* __restrict__ pid_out) {
+  const int g = blockIdx.x * kBlock + threadIdx.x;
+  const size_t threads = (size_t)gridDim.x * kBlock;
+  ScratchStack stack{scratch + g,
+                     reinterpret_cast<float*>(scratch) + depth * threads + g,
+                     threads};
+  for (size_t i = g; i < (size_t)n; i += threads) {
+    walk_ray((int)i, stack, o, d, excl, valid, nodes, prims, t_min, t_max,
+             eps, miss_t, t_out, pid_out);
+  }
+}
+
 }  // namespace
 
+// scratch null: the local-stack kernel (depth <= kLocalStack); else
+// the scratch kernel on threads / kBlock blocks.
 RT_EXPORT int rt_bvh_walk(const float* o, const float* d, const int* excl,
-                          const uint8_t* valid, const float* node_min,
-                          const float* node_max, const int* hit_link,
-                          const int* miss_link, const int* leaf_count,
-                          const int* leaves, const float* pa, const float* pb,
-                          const float* pc, int n, int num_nodes, int payload,
-                          float t_min, float t_max, float eps, float miss_t,
-                          float* t_out, int* pid_out, cudaStream_t stream) {
-  if (n > 0) {
+                          const uint8_t* valid, const int* nodes,
+                          const int* prims, int* scratch, int n, int depth,
+                          int threads, float t_min, float t_max, float eps,
+                          float miss_t, float* t_out, int* pid_out,
+                          cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const float4* nv = reinterpret_cast<const float4*>(nodes);
+  const float4* pv = reinterpret_cast<const float4*>(prims);
+  if (scratch == nullptr) {
+    if (depth > kLocalStack) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    if (payload) {
-      bvh_walk_kernel<true><<<blocks, kBlock, 0, stream>>>(
-          o, d, excl, valid, node_min, node_max, hit_link, miss_link,
-          leaf_count, leaves, pa, pb, pc, n, num_nodes, t_min, t_max, eps,
-          miss_t, t_out, pid_out);
-    } else {
-      bvh_walk_kernel<false><<<blocks, kBlock, 0, stream>>>(
-          o, d, excl, valid, node_min, node_max, hit_link, miss_link,
-          leaf_count, leaves, pa, pb, pc, n, num_nodes, t_min, t_max, eps,
-          miss_t, t_out, pid_out);
-    }
+    bvh_walk_kernel<<<blocks, kBlock, 0, stream>>>(
+        o, d, excl, valid, nv, pv, n, t_min, t_max, eps, miss_t, t_out,
+        pid_out);
+  } else {
+    if (threads <= 0 || threads % kBlock != 0) return (int)cudaErrorInvalidValue;
+    bvh_walk_scratch_kernel<<<(unsigned)(threads / kBlock), kBlock, 0,
+                              stream>>>(o, d, excl, valid, nv, pv, scratch,
+                                        n, depth, t_min, t_max, eps, miss_t,
+                                        t_out, pid_out);
   }
   return (int)cudaGetLastError();
 }

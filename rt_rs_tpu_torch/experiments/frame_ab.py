@@ -1,6 +1,6 @@
 """Eager frame and kernel call times of two checkouts of the port on one card, in turns.
 
-    python3 -m rt_rs_tpu_torch.experiments.frame_ab OTHER_ROOT [--order ABBAAB]
+    python3 -m rt_rs_tpu_torch.experiments.frame_ab OTHER_ROOT [--order ABBAAB] [--match TEXT]
 
 Checkout A holds this file; B is the checkout at ``OTHER_ROOT`` (for
 example an unpacked ``git archive`` of another commit).  Each turn is a
@@ -10,14 +10,17 @@ CASES' orbits eagerly: ``Renderer.render_frame`` and ``orbit`` per frame,
 one sync at the end, CUDA events around the orbit after one warm-up
 frame, then the transposed-table canyon's (TPOSE_CASE, chip_smoke's
 ``TposeCanyon``) alike.  Then it records the CALLS (intersection kernel
-calls that chip_smoke.py's phase 6 times) with its checkout's
-``chip_smoke``, makes the PROBE_CALLS (the probes' kernel calls on
-torus_scene's 1080p primaries, as chip_smoke's phase 3 makes them) and
-times each as phase 6 does (torch.profiler device time, the L2 cache
-overwritten before each call).  The turns interleave the two
-(``--order``), so that both see the same host; the result is one JSON
-line of ms/frame by case and device ms by call and checkout, then the
-card's name and power limit.  Needs one card.
+calls that chip_smoke.py's phase 6 times, and every ``bvh_walk`` call of
+the threaded frames together) with its checkout's ``chip_smoke``, makes
+the PROBE_CALLS (the probes' kernel calls on torus_scene's 1080p
+primaries, as chip_smoke's phase 3 makes them) and times each as phase 6
+does (torch.profiler device time, the L2 cache overwritten before each
+call).  ``--match`` keeps the cases and calls whose names hold the text
+(``--match bvh``: the threaded ``bvh`` / ``rf_bvh`` frames and the walk's
+calls).  The turns interleave the two (``--order``), so that both see
+the same host; the result is one JSON line of ms/frame by case and
+device ms by call and checkout, then the card's name and power limit.
+Needs one card.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[2]
-# case -> (scene preset, width, height, orbit frames, handler kwargs)
+THREADED = {"handler_kwargs": {"backend": "threaded"}}
+# case -> (scene preset, width, height, orbit frames, Renderer kwargs;
+# the handler pbvh unless named)
 CASES = {
     "torus 384x288": ("torus_scene", 384, 288, 30, {}),
     "blank 384x288": ("torus_scene", 384, 288, 30, {"handler": "blank"}),
@@ -41,11 +46,17 @@ CASES = {
     "early_exit canyon segmented 640x480": (
         "torus_canyon", 640, 480, 16, {"handler_kwargs": {"early_exit": True}},
     ),
+    "bvh threaded torus 384x288": ("torus_scene", 384, 288, 30, {"handler": "bvh", **THREADED}),
+    "bvh threaded torus 1920x1080": ("torus_scene", 1920, 1080, 12, {"handler": "bvh", **THREADED}),
+    "rf_bvh threaded torus 1920x1080": ("torus_scene", 1920, 1080, 12, {"handler": "rf_bvh", **THREADED}),
+    "bvh threaded canyon 640x480": ("torus_canyon", 640, 480, 16, {"handler": "bvh", **THREADED}),
 }
 # call -> (its frame: a chip_smoke.py factory, its arguments and early
-# exit on or off; the wrapper; the mode, None for mt_stream).  The call
-# taken is the frame's busiest in that mode (most list entries; mt_stream:
-# most tiles) where the name says so, else its first.
+# exit on or off, or "threaded" and (scene preset, width, height,
+# handler); the wrapper; the mode, None for mt_stream, "primary" or
+# "frame" for bvh_walk).  The call taken is the frame's busiest in that
+# mode (most list entries; mt_stream: most tiles) where the name says so,
+# else its first; bvh_walk "frame" times all of the frame's calls.
 CALLS = {
     "mt_trace[closest] canyon 640x480, busiest": (("canyon", (640, 480, "segmented"), False), "mt_trace", "closest"),
     "mt_trace[rows] torus 384x288 primary": (("renderer", (384, 288), False), "mt_trace", "rows"),
@@ -58,6 +69,18 @@ CALLS = {
     ),
     "mt_trace[rows,early_exit] torus 1920x1080 primary": (
         ("renderer", (1920, 1080), True), "mt_trace", "rows",
+    ),
+    "bvh_walk[bvh] torus 384x288 primary": (("threaded", ("torus_scene", 384, 288, "bvh"), False), "bvh_walk", "primary"),
+    "bvh_walk[rf] torus 384x288 primary": (("threaded", ("torus_scene", 384, 288, "rf_bvh"), False), "bvh_walk", "primary"),
+    "bvh_walk[bvh] canyon 640x480 primary": (("threaded", ("torus_canyon", 640, 480, "bvh"), False), "bvh_walk", "primary"),
+    "bvh_walk[bvh] torus 1920x1080, the frame's calls": (
+        ("threaded", ("torus_scene", 1920, 1080, "bvh"), False), "bvh_walk", "frame",
+    ),
+    "bvh_walk[rf] torus 1920x1080, the frame's calls": (
+        ("threaded", ("torus_scene", 1920, 1080, "rf_bvh"), False), "bvh_walk", "frame",
+    ),
+    "bvh_walk[bvh] canyon 640x480, the frame's calls": (
+        ("threaded", ("torus_canyon", 640, 480, "bvh"), False), "bvh_walk", "frame",
     ),
 }
 # The transposed-table canyon frame (torus_canyon() in one tc = 64
@@ -78,15 +101,18 @@ PROBE_CALLS = {
 }
 
 
-def probe_times() -> dict[str, float]:
-    """The PROBE_CALLS' device ms, made from the checkout's own
-    chip_smoke.probe_inputs and timed with its profiled."""
+def probe_times(match: str) -> dict[str, float]:
+    """The PROBE_CALLS' device ms (those whose names hold ``match``),
+    made from the checkout's own chip_smoke.probe_inputs and timed with
+    its profiled."""
     import chip_smoke as cs
 
     from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
     from rt_rs_tpu_torch.experiments.probe_rays import probe_rays
     from rt_rs_tpu_torch.ops import packet_trace
 
+    if not any(match in name for name in PROBE_CALLS):
+        return {}
     p = cs.probe_inputs()
     win = p["win"]
     kw = dict(eps=p["eps"], **win)
@@ -102,6 +128,8 @@ def probe_times() -> dict[str, float]:
     table = mxu_mt.build_mxu_table(chunks)
     ms = {}
     for name, (wrapper, arg) in PROBE_CALLS.items():
+        if match not in name:
+            continue
         if wrapper == "mt_tpose":
             comp, s = lists[arg]
             call = lambda: tpose_table.mt_tpose(comp, s.rays, s.ids, s.counts, **kw)  # noqa: E731
@@ -133,23 +161,43 @@ def orbit_ms(r, frames: int) -> float:
     return start.elapsed_time(end) / frames
 
 
-def call_times() -> dict[str, float]:
-    """The CALLS' device ms, recorded and timed with the checkout's own
-    chip_smoke.py (its Recorder and profiled)."""
+def frame_of(cs, make: str, a: tuple, early_exit: bool):
+    """A CALLS frame's Renderer, made with the checkout's chip_smoke."""
+    if make == "threaded":
+        from rt_rs_tpu_torch.scene import presets
+
+        preset, w, h, handler = a
+        return cs.renderer(w, h, getattr(presets, preset)(), handler=handler, backend="threaded")
+    return getattr(cs, make)(*a, **({"early_exit": True} if early_exit else {}))
+
+
+def call_times(match: str) -> dict[str, float]:
+    """The CALLS' device ms (those whose names hold ``match``), recorded
+    and timed with the checkout's own chip_smoke.py (its Recorder and
+    profiled)."""
     import chip_smoke as cs
 
-    from rt_rs_tpu_torch.ops import packet_stream, packet_trace
+    from rt_rs_tpu_torch.ops import bvh_walk, packet_stream, packet_trace
 
-    wrappers = {"mt_trace": packet_trace.mt_trace, "mt_stream": packet_stream.mt_stream}
+    wrappers = {
+        "mt_trace": packet_trace.mt_trace, "mt_stream": packet_stream.mt_stream,
+        "bvh_walk": bvh_walk.bvh_walk,
+    }
     recorded: dict[tuple, dict] = {}
     ms = {}
     for name, (frame, wrapper, mode) in CALLS.items():
+        if match not in name:
+            continue
         if frame not in recorded:
-            make, a, early_exit = frame
             with cs.Recorder() as rec:
-                getattr(cs, make)(*a, **({"early_exit": True} if early_exit else {})).render_frame()
+                frame_of(cs, *frame).render_frame()
             recorded[frame] = rec.calls
         calls = recorded[frame][wrapper]
+        if wrapper == "bvh_walk":
+            chosen = calls[:1] if mode == "primary" else calls
+            fn = wrappers[wrapper]
+            ms[name] = cs.profiled(lambda: [fn(*a, **kw) for a, kw, _ in chosen])[1]
+            continue
         if mode is None:
             call = max(calls, key=lambda c: c[0][0].shape[1])
         else:
@@ -160,7 +208,7 @@ def call_times() -> dict[str, float]:
     return ms
 
 
-def child(root: str) -> None:
+def child(root: str, match: str) -> None:
     """One turn: the CASES' eager orbits with the port of ``root``."""
     sys.path.insert(0, root)
     import chip_smoke as cs
@@ -170,14 +218,17 @@ def child(root: str) -> None:
 
     ms = {}
     for name, (preset, w, h, frames, kw) in CASES.items():
+        if match not in name:
+            continue
         r = Renderer(
             getattr(presets, preset)(), config=Config(resolution=Resolution.sized(w, h)),
-            handler="pbvh", device="cuda", **kw,
+            device="cuda", **{"handler": "pbvh", **kw},
         )
         ms[name] = orbit_ms(r, frames)
     name, w, h, frames = TPOSE_CASE
-    ms[name] = orbit_ms(cs.TposeCanyon(w, h), frames)
-    call_ms = {**call_times(), **probe_times()}
+    if match in name:
+        ms[name] = orbit_ms(cs.TposeCanyon(w, h), frames)
+    call_ms = {**call_times(match), **probe_times(match)}
     print(json.dumps({"root": root, "ms": ms, "call_ms": call_ms}), flush=True)
 
 
@@ -185,18 +236,20 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?")
     ap.add_argument("--order", default="ABBAAB")
+    ap.add_argument("--match", default="")
     ap.add_argument("--child")
     args = ap.parse_args()
     if args.child:
-        child(args.child)
+        child(args.child, args.match)
         return
     roots = {"A": str(HERE), "B": str(pathlib.Path(args.other).resolve())}
-    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in (*CASES, TPOSE_CASE[0])}
-    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in (*CALLS, *PROBE_CALLS)}
+    keep = lambda names: [c for c in names if args.match in c]  # noqa: E731
+    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in keep((*CASES, TPOSE_CASE[0]))}
+    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in keep((*CALLS, *PROBE_CALLS))}
     for turn in args.order:
         # Run by path, so that the child imports the port of its root only.
         out = subprocess.run(
-            [sys.executable, __file__, "--child", roots[turn]],
+            [sys.executable, __file__, "--child", roots[turn], "--match", args.match],
             cwd=roots[turn], stdout=subprocess.PIPE, text=True, check=True,
         ).stdout
         res = json.loads(out.strip().splitlines()[-1])
@@ -211,7 +264,7 @@ def main() -> None:
     print(
         json.dumps(
             {
-                "A": roots["A"], "B": roots["B"], "order": args.order, "ms": ms,
+                "A": roots["A"], "B": roots["B"], "order": args.order, "match": args.match, "ms": ms,
                 "call_ms": call_ms, "card": card,
             }
         )

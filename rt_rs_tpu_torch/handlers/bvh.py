@@ -12,8 +12,10 @@ Counterpart of ``rt_rs_tpu/handlers/bvh.py`` (reference: ``BvhIntrs``,
 
 Traversal is the JAX package's stackless threaded walk over the
 preorder escape links (:meth:`~rt_rs_tpu_torch.bvh.BvhData.escape_links`)
-on the recomputed covering bounds (``cover_bounds``), as kernel G
-(:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`).  ``backend="packet"``
+on the recomputed covering bounds (``cover_bounds``); kernel G
+(:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`) walks the same tree
+packed once at build into wide records (:mod:`rt_rs_tpu_torch.bvh.wide`)
+and returns the same hits.  ``backend="packet"``
 routes intersection through the pbvh packet kernels over the same
 leaf-ordered prims instead (the same hits, ids included).
 """
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from rt_rs_tpu_torch.bvh import BvhData, build_bvh
+from rt_rs_tpu_torch.bvh.wide import WalkTree, walk_tree
 from rt_rs_tpu_torch.config import ComputeConfig
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
 from rt_rs_tpu_torch.ops import bvh_walk
@@ -49,8 +52,12 @@ def check_modes(backend: str, refine: str) -> None:
 def reorder_scene_arrays(arrays: SceneArrays, indices: np.ndarray) -> SceneArrays:
     """Apply the leaf-contiguous prim permutation (bvh.rs:103-110),
     keeping the null sentinel at row 0 and accounting for its +1
-    offset."""
+    offset.  Rows past the last clamp to it, as the JAX package's
+    gathers do: a scene with no prims has an unloaded pseudo-leaf that
+    names a prim 0 it does not have, and takes a copy of the null row
+    (a degenerate triangle no ray hits)."""
     perm = np.concatenate([[0], np.asarray(indices, dtype=np.int64) + 1])
+    perm = np.minimum(perm, arrays.pa.shape[0] - 1)
     perm_t = torch.from_numpy(perm).to(arrays.device)
     return dataclasses.replace(
         arrays,
@@ -104,12 +111,13 @@ def accel_from_bvh_data(data: BvhData, scene: Scene, device: torch.device) -> Bv
 
 @dataclasses.dataclass(frozen=True)
 class BvhAccel:
-    """The node structure plus the packet backend's chunk table (None
-    for the threaded walk); kept here, not on the handler, so one
-    handler can serve several Renderers."""
+    """The node structure plus the packet backend's chunk table or the
+    threaded walk's packed tree (the other None); kept here, not on the
+    handler, so one handler can serve several Renderers."""
 
     nodes: BvhArrays
     chunks: pt.TriChunks | None = None
+    walk: WalkTree | None = None
 
 
 def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
@@ -130,18 +138,13 @@ def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
 
 class TreeIntrs(IntrsHandler):
     """The intersect entries both tree handlers share: the threaded walk
-    over the tree :meth:`_tree` gives, with ``payload`` leaves or not;
-    or, where ``accel.chunks`` holds the packet backend's resident table
-    (built in leaf order), the pbvh kernels in closest-hit, emit-rows
-    and any-hit modes, tagged with the ``refine`` policy."""
+    over ``accel.walk`` (contiguous or payload leaves); or, where
+    ``accel.chunks`` holds the packet backend's resident table (built in
+    leaf order), the pbvh kernels in closest-hit, emit-rows and any-hit
+    modes, tagged with the ``refine`` policy."""
 
     block_lanes = pt.TUNED_RAY_TILE  # rays per tile (the walk is order-free)
-    payload: bool
     refine: str
-
-    def _tree(self, accel) -> tuple:
-        """(node_min, node_max, hit_link, miss_link, leaf_count, leaves)."""
-        raise NotImplementedError
 
     def intersect_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
         if accel.chunks is not None:
@@ -149,7 +152,7 @@ class TreeIntrs(IntrsHandler):
                 pt.packet_closest_hit, accel.chunks,
                 t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, ray_tile=pt.TUNED_RAY_TILE,
             )
-        return walk_fn(self._tree(accel), arrays, cfg, payload=self.payload)
+        return walk_fn(accel.walk, cfg)
 
     def _packet(self, accel, cfg: ComputeConfig, **mode):
         fn = partial(
@@ -189,7 +192,6 @@ def packet_chunks(arrays: SceneArrays) -> pt.TriChunks:
 
 class BvhIntrs(TreeIntrs):
     name = "BVH"
-    payload = False
 
     def __init__(
         self,
@@ -222,33 +224,34 @@ class BvhIntrs(TreeIntrs):
         self.bvh_data = data
         nodes = accel_from_bvh_data(data, scene, arrays.device)
         arrays = reorder_scene_arrays(arrays, data.indices)
-        chunks = None
         if use_packet(self.backend, scene.num_prims, arrays.device):
-            chunks = packet_chunks(arrays)
-        return BvhAccel(nodes=nodes, chunks=chunks), arrays
+            return BvhAccel(nodes=nodes, chunks=packet_chunks(arrays)), arrays
+        tree = (
+            nodes.node_min, nodes.node_max, nodes.hit_link, nodes.miss_link, nodes.leaf_count,
+            nodes.leaf_start, *walk_prims(arrays),
+        )
+        return BvhAccel(nodes=nodes, walk=walk_tree(tree, payload=False)), arrays
 
     def stats(self, accel: BvhAccel) -> IntrsStats:
         return IntrsStats(name="BVH", size=accel.nodes.footprint)
 
-    def _tree(self, accel: BvhAccel) -> tuple:
-        n = accel.nodes
-        return (n.node_min, n.node_max, n.hit_link, n.miss_link, n.leaf_count, n.leaf_start)
+
+def walk_prims(arrays: SceneArrays) -> tuple[torch.Tensor, ...]:
+    """The corners (pa, pb, pc) the threaded walk tests, contiguous."""
+    return tuple(x.contiguous() for x in (arrays.pa, arrays.pb, arrays.pc))
 
 
-def walk_fn(tree: tuple, arrays: SceneArrays, cfg: ComputeConfig, *, payload: bool):
+def walk_fn(tree: WalkTree, cfg: ComputeConfig):
     """The threaded walk as an ``intersect_fn`` (``_bvh_intersect`` /
-    ``_rf_intersect``): ``tree`` is (node_min, node_max, hit_link,
-    miss_link, leaf_count, leaves).  ``valid`` None means every ray;
-    ``t_cap`` is accepted and ignored, as in the JAX walk."""
-    pa, pb, pc = (x.contiguous() for x in (arrays.pa, arrays.pb, arrays.pc))
+    ``_rf_intersect``).  ``valid`` None means every ray; ``t_cap`` is
+    accepted and ignored, as in the JAX walk."""
 
     def walk(o, d, excl, valid=None, t_cap=None):
         if valid is None:
             valid = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
         return bvh_walk.bvh_walk(
             o.contiguous(), d.contiguous(), excl.to(torch.int32).contiguous(),
-            valid.contiguous(), *tree, pa, pb, pc,
-            payload=payload, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
+            valid.contiguous(), tree, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
         )
 
     return walk

@@ -8,10 +8,11 @@ records, 8-slot u16 leaf payloads, interleaved), and ``stats`` reports
 ``16 B x records`` (rf.rs:216-219): the memory-against-speed trade the
 reference study measures.
 
-The threaded walk (kernel G in payload mode,
-:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`) runs on what the records
-hold: node bounds unpacked from the f16 values (so their precision loss
-is part of the measured backend) and leaf prims read from the payload
+The threaded walk (kernel G,
+:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`, over the records' tree
+packed into wide records at build) runs on what the records hold: node
+bounds unpacked from the f16 values (so their precision loss is part of
+the measured backend) and leaf prims read from the payload
 slots (0 = empty), in the scene's own prim order, as the reference's RF
 handler leaves ``scene.prims`` untouched.  The packet backend reorders
 the scene arrays to leaf order (its hit ids are rows of the returned
@@ -28,6 +29,7 @@ import torch
 
 from rt_rs_tpu_torch.bvh import BvhData, build_bvh
 from rt_rs_tpu_torch.bvh.rf import RfData, pack_rf, unpack_rf
+from rt_rs_tpu_torch.bvh.wide import WalkTree, walk_tree
 from rt_rs_tpu_torch.handlers.base import IntrsStats
 from rt_rs_tpu_torch.handlers.bvh import (
     TreeIntrs,
@@ -35,6 +37,7 @@ from rt_rs_tpu_torch.handlers.bvh import (
     packet_chunks,
     reorder_scene_arrays,
     use_packet,
+    walk_prims,
 )
 from rt_rs_tpu_torch.ops import packet_trace as pt
 from rt_rs_tpu_torch.scene import Scene
@@ -56,15 +59,15 @@ class RfArrays:
 @dataclasses.dataclass(frozen=True)
 class RfAccel:
     """The records' walk tensors plus the packet backend's chunk table
-    (None for the threaded walk)."""
+    or the threaded walk's packed tree (the other None)."""
 
     records: RfArrays
     chunks: pt.TriChunks | None = None
+    walk: WalkTree | None = None
 
 
 class RfBvhIntrs(TreeIntrs):
     name = "RF-BVH"
-    payload = True
 
     def __init__(
         self,
@@ -114,17 +117,20 @@ class RfBvhIntrs(TreeIntrs):
             num_nodes=data.num_nodes,
             footprint=rf.byte_size(),
         )
-        chunks = None
         if use_packet(self.backend, scene.num_prims, dev):
             # Leaf order, internal to the packet path: the kernel's ids
             # are then the returned arrays' rows, with no remap.
             arrays = reorder_scene_arrays(arrays, data.indices)
-            chunks = packet_chunks(arrays)
-        return RfAccel(records=records, chunks=chunks), arrays
+            return RfAccel(records=records, chunks=packet_chunks(arrays)), arrays
+        if scene.num_prims == 0:
+            # The unloaded pseudo-leaf's payload names prim 1: a copy of
+            # the null row (see reorder_scene_arrays).
+            arrays = reorder_scene_arrays(arrays, data.indices)
+        tree = (
+            records.node_min, records.node_max, records.hit_link, records.miss_link,
+            records.leaf_count, records.payload, *walk_prims(arrays),
+        )
+        return RfAccel(records=records, walk=walk_tree(tree, payload=True)), arrays
 
     def stats(self, accel: RfAccel) -> IntrsStats:
         return IntrsStats(name="RF-BVH", size=accel.records.footprint)
-
-    def _tree(self, accel: RfAccel) -> tuple:
-        r = accel.records
-        return (r.node_min, r.node_max, r.hit_link, r.miss_link, r.leaf_count, r.payload)

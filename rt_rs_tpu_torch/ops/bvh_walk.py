@@ -16,14 +16,20 @@ Two leaf modes share the walk:
 * **payload** (``rf_bvh``): the leaf's prims are read from 8 slots per
   node, ``payload[node * 8 + k]``; a slot of 0 is empty and skipped.
 
-:func:`bvh_walk` runs kernel G (``csrc/bvh_walk.cu``) on a CUDA tensor,
-one thread per ray, each running the loop body alone: a ray takes the
-same tests in the same order as in the lockstep loop, so its ``(t,
-pid)`` is the loop's bit for bit (ties keep the first prim found).  The
-kernel reads nothing on the host, so a frame that calls it can be
-captured in a CUDA graph.  :func:`bvh_walk_reference` is the lockstep
-loop in plain PyTorch (rays that have finished are dropped from the
-batch, which changes no ray's tests); it runs for CPU tensors.
+:func:`bvh_walk` runs kernel G (``csrc/bvh_walk.cu``) on a CUDA tensor
+over the tree's packed wide records (:mod:`rt_rs_tpu_torch.bvh.wide`):
+one thread a ray, a stack (in local memory, or in a scratch buffer for
+a tree deeper than ``wide.LOCAL_STACK`` entries), the same leaves entered in the same
+order with the same best t, so the same prim tests in the same order
+and the loop's ``(t, pid)`` bit for bit (ties keep the first prim
+found).  The kernel reads nothing on the host, so a frame that calls it
+can be captured in a CUDA graph.  :func:`bvh_walk_reference` is the
+lockstep loop in plain PyTorch (rays that have finished are dropped from
+the batch, which changes no ray's tests), the twin that runs for CPU
+tensors; :func:`walk_reference` calls it with the wrapper's arguments.
+:func:`bvh_walk_wide_reference` is the plain mirror of the kernel's
+design (the wide nodes, the stack, the packed prims), for the tests and
+the card's checks, never the main path.
 """
 
 from __future__ import annotations
@@ -33,11 +39,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch.bvh import wide
+from rt_rs_tpu_torch.bvh.wide import SLOTS, WalkTree
 from rt_rs_tpu_torch.ops import cuda
-from rt_rs_tpu_torch.ops.intersect import tri_intersect_pairs
+from rt_rs_tpu_torch.ops.intersect import tri_intersect_edges, tri_intersect_pairs
 from rt_rs_tpu_torch.ops.packet_trace import _f32
-
-SLOTS = 8  # payload slots per node (the RF leaf record, rf.rs:105-117)
 
 
 @dataclasses.dataclass
@@ -168,58 +174,197 @@ def bvh_walk_reference(
     return out_t, out_id
 
 
+def walk_reference(o, d, excl, valid, tree: WalkTree, *, t_min: float, t_max: float, eps: float, work=None):
+    """:func:`bvh_walk_reference` on ``tree``'s binary tree, with
+    :func:`bvh_walk`'s arguments."""
+    return bvh_walk_reference(
+        o, d, excl, valid, *tree.binary, payload=tree.payload, t_min=t_min, t_max=t_max,
+        eps=eps, work=work,
+    )
+
+
+@dataclasses.dataclass
+class WideWork:
+    """What one wide walk did, counted by :func:`bvh_walk_wide_reference`:
+    wide nodes loaded, prim tests (excluded prims skipped), the most
+    stack entries any ray held, and, if ``order`` is a list, each ray's
+    tested pids in order (``order[i]``, appended to)."""
+
+    node_visits: int = 0
+    prim_tests: int = 0
+    max_stack: int = 0
+    order: list | None = None
+
+
+def bvh_walk_wide_reference(
+    o: torch.Tensor,
+    d: torch.Tensor,
+    excl: torch.Tensor,
+    valid: torch.Tensor,
+    tree: WalkTree,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    work: WideWork | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of kernel G's design, rays in lockstep: each ray
+    runs the kernel's loop over ``tree.nodes`` and ``tree.prims``.  At a
+    wide node it tests every child's box (``near <= far``, ``far >=
+    t_min``, ``near <= best_t``), takes the first that passes and pushes
+    the others in reverse with their near; in a leaf it tests one prim
+    a step until the one marked last; then it pops until an entry's
+    near is still ``<= best_t``."""
+    dev = o.device
+    if tree.nodes is None or tree.prims is None:
+        raise ValueError("tree: no packed records (wide.pack_walk packs them)")
+    n, w = o.shape[0], wide.WIDTH
+    miss_t = _f32(t_max + 1.0, dev)
+    out_t = miss_t.expand(n).clone()
+    out_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    box = tree.nodes[:, : 6 * w].view(torch.float32).reshape(-1, 3, 2, w)  # [K, axis, lo/hi, child]
+    words = tree.nodes[:, 6 * w : 7 * w].long()
+    prims = torch.cat([tree.prims, tree.prims.new_zeros((1, wide.PRIM_WORDS))])  # a spare row for rays not in a leaf
+    corner = prims.view(torch.float32).reshape(-1, 3, 4)[:, :, :3]  # a, e1, e2
+    prim_id = prims[:, 3]
+    last = prims[:, 7] != 0
+
+    rows = torch.nonzero(valid).flatten()
+    o, d, ex = o[rows], d[rows], excl[rows].to(torch.int32)
+    inv_d = _f32(1.0, dev) / d
+    r = rows.shape[0]
+    cur = torch.zeros((r,), dtype=torch.long, device=dev)  # wide node, or ~prim in a leaf
+    sw = torch.zeros((r, max(tree.stack, 1)), dtype=torch.long, device=dev)
+    sn = torch.zeros((r, max(tree.stack, 1)), dtype=torch.float32, device=dev)
+    sp = torch.zeros((r,), dtype=torch.long, device=dev)
+    best_t = miss_t.expand(r).clone()
+    best_id = torch.zeros((r,), dtype=torch.int32, device=dev)
+    ar = torch.arange(r, device=dev)
+    while r:
+        pop = torch.zeros((r,), dtype=torch.bool, device=dev)
+
+        # Leaf phase: one prim each.
+        leafing = cur < 0
+        ptr = torch.where(leafing, ~cur, 0)
+        pid = prim_id[ptr]
+        on = leafing & (pid != ex)
+        a, e1, e2 = (corner[ptr, k] for k in range(3))
+        t = tri_intersect_edges(o, d, a, e1, e2, t_min=t_min, t_max=t_max, eps=eps)
+        better = on & (t > t_min) & (t < t_max) & (t < best_t)
+        best_t = torch.where(better, t, best_t)
+        best_id = torch.where(better, pid, best_id)
+        done_leaf = leafing & last[ptr]
+        pop |= done_leaf
+        cur = torch.where(leafing & ~done_leaf, cur - 1, cur)  # ~(ptr + 1)
+        if work is not None:
+            work.prim_tests += int(on.sum())
+            if work.order is not None:
+                for i, p in zip(rows[on].tolist(), pid[on].tolist()):
+                    work.order[i].append(p)
+
+        # Node phase: every child's box, the first that passes taken.
+        at = ~leafing
+        k = torch.where(at, cur, 0)
+        lo_hi = box[k]  # [r, 3, 2, w]
+        t0 = (lo_hi[:, :, 0] - o[:, :, None]) * inv_d[:, :, None]
+        t1 = (lo_hi[:, :, 1] - o[:, :, None]) * inv_d[:, :, None]
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        lo = torch.where(torch.isnan(lo), -torch.inf, lo).amax(dim=1)  # [r, w]
+        hi = torch.where(torch.isnan(hi), torch.inf, hi).amin(dim=1)
+        word = words[k]
+        ok = at[:, None] & (word != 0) & (lo <= hi) & (hi >= t_min) & (lo <= best_t[:, None])
+        nxt = torch.zeros((r,), dtype=torch.long, device=dev)  # 0: none yet
+        nxt_near = torch.zeros((r,), dtype=torch.float32, device=dev)
+        for c in range(w - 1, -1, -1):
+            push = ok[:, c] & (nxt != 0)
+            sw[ar[push], sp[push]] = nxt[push]
+            sn[ar[push], sp[push]] = nxt_near[push]
+            sp = sp + push.long()
+            nxt = torch.where(ok[:, c], word[:, c], nxt)
+            nxt_near = torch.where(ok[:, c], lo[:, c], nxt_near)
+        cur = torch.where(at & (nxt != 0), nxt, cur)
+        pop |= at & (nxt == 0)
+        if work is not None:
+            work.node_visits += int(at.sum())
+            work.max_stack = max(work.max_stack, int(sp.max()))
+
+        # Pop until an entry's near is still within best t.
+        finished = torch.zeros((r,), dtype=torch.bool, device=dev)
+        while bool(pop.any()):
+            empty = pop & (sp == 0)
+            finished |= empty
+            pop &= ~empty
+            sp = sp - pop.long()
+            keep = pop & (sn[ar, sp] <= best_t)
+            cur = torch.where(keep, sw[ar, sp], cur)
+            pop &= ~keep
+
+        if bool(finished.any()):
+            out_t[rows[finished]] = best_t[finished]
+            out_id[rows[finished]] = best_id[finished]
+            alive = ~finished
+            state = (rows, o, d, inv_d, ex, cur, sw, sn, sp, best_t, best_id)
+            rows, o, d, inv_d, ex, cur, sw, sn, sp, best_t, best_id = (x[alive] for x in state)
+            r = rows.shape[0]
+            ar = torch.arange(r, device=dev)
+    return out_t, out_id
+
+
+BLOCK = 128  # threads a block (kBlock in csrc/bvh_walk.cu)
+SCRATCH_BYTES = 256 << 20  # the most a deep tree's scratch stacks take
+
+
+def scratch_threads(n: int, stack: int) -> int:
+    """Threads of the scratch kernel for ``n`` rays whose walk needs
+    ``stack`` entries (8 bytes each): one a ray where
+    ``SCRATCH_BYTES`` holds their stacks, else as many as it holds
+    (each then walks several rays); a multiple of ``BLOCK``."""
+    fit = SCRATCH_BYTES // (8 * stack) // BLOCK * BLOCK
+    return max(BLOCK, min(-(-n // BLOCK) * BLOCK, fit))
+
+
 def bvh_walk(
     o: torch.Tensor,
     d: torch.Tensor,
     excl: torch.Tensor,
     valid: torch.Tensor,
-    node_min: torch.Tensor,
-    node_max: torch.Tensor,
-    hit_link: torch.Tensor,
-    miss_link: torch.Tensor,
-    leaf_count: torch.Tensor,
-    leaves: torch.Tensor,
-    pa: torch.Tensor,
-    pb: torch.Tensor,
-    pc: torch.Tensor,
+    tree: WalkTree,
     *,
-    payload: bool,
     t_min: float,
     t_max: float,
     eps: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel G (csrc/bvh_walk.cu): the threaded walk of rays ``o``,
     ``d`` [N, 3] (``excl`` [N] int32 prim to skip, ``valid`` [N] bool;
-    an invalid ray walks nothing) over a tree of M nodes -> (t [N] f32,
-    pid [N] int32), the miss sentinel ``(t_max + 1, 0)`` where nothing
-    is hit.  ``leaves`` is ``leaf_start`` [M] (contiguous mode) or the
-    payload slots [M * 8] (``payload=True``)."""
+    an invalid ray walks nothing) over ``tree`` -> (t [N] f32, pid [N]
+    int32), the miss sentinel ``(t_max + 1, 0)`` where nothing is hit.
+    A tree whose walk needs more than ``wide.LOCAL_STACK`` stack entries
+    takes the scratch kernel, with a ``[2, tree.stack,
+    scratch_threads(N, tree.stack)]`` int32 buffer allocated here.  On
+    CPU tensors, the twin on ``tree``'s binary tree."""
     if not o.is_cuda:
-        return bvh_walk_reference(
-            o, d, excl, valid, node_min, node_max, hit_link, miss_link, leaf_count,
-            leaves, pa, pb, pc, payload=payload, t_min=t_min, t_max=t_max, eps=eps,
-        )
-    n, m, p = o.shape[0], node_min.shape[0], pa.shape[0]
-    dev = o.device
+        return walk_reference(o, d, excl, valid, tree, t_min=t_min, t_max=t_max, eps=eps)
+    n, dev = o.shape[0], o.device
     cuda.check("o", o, torch.float32, (n, 3), dev)
     cuda.check("d", d, torch.float32, (n, 3), dev)
     cuda.check("excl", excl, torch.int32, (n,), dev)
     cuda.check("valid", valid, torch.bool, (n,), dev)
-    cuda.check("node_min", node_min, torch.float32, (m, 3), dev)
-    cuda.check("node_max", node_max, torch.float32, (m, 3), dev)
-    for name, x in (("hit_link", hit_link), ("miss_link", miss_link), ("leaf_count", leaf_count)):
-        cuda.check(name, x, torch.int32, (m,), dev)
-    cuda.check("leaves", leaves, torch.int32, (m * SLOTS if payload else m,), dev)
-    for name, x in (("pa", pa), ("pb", pb), ("pc", pc)):
-        cuda.check(name, x, torch.float32, (p, 3), dev)
+    if tree.nodes is None or tree.prims is None:
+        raise ValueError("tree: no packed records (wide.walk_tree packs them on a CUDA device)")
+    cuda.check("nodes", tree.nodes, torch.int32, (tree.nodes.shape[0], wide.NODE_WORDS), dev)
+    cuda.check("prims", tree.prims, torch.int32, (tree.prims.shape[0], wide.PRIM_WORDS), dev)
+    scratch, threads = None, 0
+    if tree.stack > wide.LOCAL_STACK:
+        threads = scratch_threads(n, tree.stack)
+        scratch = torch.empty((2, tree.stack, threads), dtype=torch.int32, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     pid = torch.empty((n,), dtype=torch.int32, device=dev)
     cuda.call(
-        walk_name(payload), "rt_bvh_walk",
+        walk_name(tree.payload), "rt_bvh_walk",
         o.data_ptr(), d.data_ptr(), excl.data_ptr(), valid.data_ptr(),
-        node_min.data_ptr(), node_max.data_ptr(), hit_link.data_ptr(), miss_link.data_ptr(),
-        leaf_count.data_ptr(), leaves.data_ptr(), pa.data_ptr(), pb.data_ptr(), pc.data_ptr(),
-        n, m, int(payload), float(t_min), float(t_max), float(eps),
+        tree.nodes.data_ptr(), tree.prims.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        n, tree.stack, threads, float(t_min), float(t_max), float(eps),
         float(np.float32(t_max + 1.0)), t.data_ptr(), pid.data_ptr(),
     )
     return t, pid

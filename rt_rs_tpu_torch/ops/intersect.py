@@ -91,11 +91,24 @@ def tri_intersect_pairs(
 ) -> torch.Tensor:
     """Elementwise Möller–Trumbore: ray i against triangle i -> t [N],
     with :func:`tri_intersect`'s semantics."""
+    return tri_intersect_edges(o, d, pa, pb - pa, pc - pa, t_min=t_min, t_max=t_max, eps=eps)
+
+
+def tri_intersect_edges(
+    o: torch.Tensor,  # [N, 3]
+    d: torch.Tensor,  # [N, 3]
+    a: torch.Tensor,  # [N, 3] corner a
+    e1: torch.Tensor,  # [N, 3] b - a
+    e2: torch.Tensor,  # [N, 3] c - a
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+) -> torch.Tensor:
+    """:func:`tri_intersect_pairs` from the triangles' edges."""
     c = lambda x: (x[:, 0], x[:, 1], x[:, 2])  # noqa: E731
-    e1 = pb - pa
-    e2 = pc - pa
     p = _cross(*c(d), *c(e2))
-    tvec = c(o - pa)
+    tvec = c(o - a)
     q = _cross(*tvec, *c(e1))
     det = _dot(*c(e1), *p)
     u = _dot(*tvec, *p)

@@ -25,6 +25,12 @@ scene.to_json())`` (the f32 values round-trip exactly).
 * :func:`random_soup` — the ``_random_scene`` pattern of the fuzz
   tests (normal-distributed vertices, one white material) plus a
   camera and a light so it renders.
+* :func:`no_prims` — a camera, a light and a material but no prims:
+  its frame is traced, through the unloaded pseudo-leaf, and is black.
+* :func:`deep_chain` — triangles shrinking toward the origin by 2.2x
+  each, so a midpoint-split BVH built with ``eps=0`` is a chain about
+  one level a triangle deep: the degenerate tree whose walk needs a
+  deep stack.
 """
 
 from __future__ import annotations
@@ -265,6 +271,43 @@ def random_soup(seed: int, n: int, scale: float = 5.0) -> Scene:
     scene.prim_material = np.zeros(n, dtype=np.int32)
     scene.light_pos = np.array([LIGHT_POS[0]], dtype=np.float32)
     scene.light_strength = np.array([LIGHT_STRENGTH[0]], dtype=np.float32)
+    scene.mat_color = np.array([[1.0, 1.0, 1.0]], np.float32)
+    scene.mat_albedo = np.array([[1.0, 0.0, 0.0]], np.float32)
+    scene.mat_spec = np.array([1.0], np.float32)
+    return scene
+
+
+def deep_chain(n: int = 102) -> Scene:
+    """``n`` triangles ``x_k * {(1, 0, 0), (2, 0, 0), (1, 1, 0)}``
+    with ``x_k = 2.2**-k`` in the plane z = 0, facing a camera at z = -3
+    under one light.  Each midpoint split of their node (longest axis x)
+    puts the largest triangle alone in its second child: with
+    ``eps=0`` (no split stops for a small node) the BVH is a chain of
+    about ``n`` levels, the smallest triangles about 1e-34 across."""
+    scene = Scene.empty(
+        camera=CameraUniform((0.8, 0.3, -3.0), (0.8, 0.3, 0.0)),
+        camera_controller=CameraController("Orbit"),
+    )
+    x = 2.2 ** -np.arange(n, dtype=np.float64)
+    tri = np.array([[1.0, 0.0, 0.0], [2.0, 0.0, 0.0], [1.0, 1.0, 0.0]])
+    scene.vert_pos = (x[:, None, None] * tri[None]).reshape(-1, 3).astype(np.float32)
+    scene.vert_norm = np.tile(np.array([[0, 0, -1]], np.float32), (3 * n, 1))
+    scene.prim_indices = np.arange(3 * n, dtype=np.uint32).reshape(-1, 3)
+    scene.prim_material = np.zeros(n, dtype=np.int32)
+    scene.light_pos = np.array([[0.8, 2.0, -3.0]], dtype=np.float32)
+    scene.light_strength = np.array([1.5], dtype=np.float32)
+    scene.mat_color = np.array([[1.0, 1.0, 1.0]], np.float32)
+    scene.mat_albedo = np.array([[1.0, 0.0, 0.0]], np.float32)
+    scene.mat_spec = np.array([1.0], np.float32)
+    return scene
+
+
+def no_prims() -> Scene:
+    """A scene with no prims but a camera, one light and one material,
+    so that a Renderer traces its frame (black)."""
+    scene = Scene.empty(camera=CameraUniform((0.0, 0.0, -4.0), (0.0, 0.0, 2.0)))
+    scene.light_pos = np.array([[0.0, 2.0, -3.0]], dtype=np.float32)
+    scene.light_strength = np.array([1.0], dtype=np.float32)
     scene.mat_color = np.array([[1.0, 1.0, 1.0]], np.float32)
     scene.mat_albedo = np.array([[1.0, 0.0, 0.0]], np.float32)
     scene.mat_spec = np.array([1.0], np.float32)
