@@ -5,16 +5,18 @@ formats (scene JSON, OBJ, ``*.bvh.json``), the same handlers (``bvh``,
 the default, and ``rf_bvh`` with their threaded walk; ``pbvh`` with
 packet chunk culling, the Möller–Trumbore packet trace with
 kernel-emitted rows, any-hit shadows and the per-ray refine cull;
-``naive``, ``blank``) and frame paths, with every TPU kernel of those
-paths, and the threaded walk, written by hand as CUDA kernels for Hopper
-(``sm_90a``, ``csrc/``).  Each kernel has a plain-PyTorch twin, which
+``lbvh`` over a chunk table built on the device; ``naive``,
+``blank``), ``Renderer`` and ``DynamicRenderer`` (animated geometry,
+rebuilt on the device every frame) and their frame paths, with every
+TPU kernel of those paths, and the threaded walk, written by hand as
+CUDA kernels for Hopper (``sm_90a``, ``csrc/``).  Each kernel has a plain-PyTorch twin, which
 runs for CPU tensors.
 
 This package imports ``torch`` and never ``jax`` or ``rt_rs_tpu``.
 """
 
 from rt_rs_tpu_torch.config import ComputeConfig, Config, Resolution
-from rt_rs_tpu_torch.renderer import Renderer, run_headless
+from rt_rs_tpu_torch.renderer import DynamicRenderer, Renderer, run_headless
 from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.camera import CameraController, CameraUniform
 
@@ -28,5 +30,6 @@ __all__ = [
     "CameraUniform",
     "CameraController",
     "Renderer",
+    "DynamicRenderer",
     "run_headless",
 ]

@@ -17,7 +17,7 @@ import torch
 from rt_rs_tpu_torch.bvh import BvhData
 from rt_rs_tpu_torch.bvh.rf import RfData
 from rt_rs_tpu_torch.experiments.tpose_table import TposeTables
-from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks, TriChunks
+from rt_rs_tpu_torch.ops.packet_trace import DualTriChunks, SegmentedTriChunks, TriChunks
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
 
@@ -114,6 +114,19 @@ def segmented_chunks(src, *, device: str | torch.device) -> SegmentedTriChunks:
     if tuple(bases) != tuple(int(b) for b in src.prim_base):
         raise ValueError(f"prim_base {tuple(src.prim_base)} != chunk offsets {tuple(bases)}")
     return SegmentedTriChunks(segments=tuple(parts), prim_base=tuple(bases))
+
+
+def dual_chunks(src, *, device: str | torch.device) -> DualTriChunks:
+    """The JAX package's ``DualTriChunks`` -> the port's: each of its
+    ``coarse`` and ``fine`` tables carried across as a resident table
+    (:func:`tri_chunks`) or a segmented one (:func:`segmented_chunks`)."""
+
+    def table(t):
+        if hasattr(t, "segments"):
+            return segmented_chunks(t, device=device)
+        return tri_chunks(t.comp, t.bmin, t.bmax, t.num_chunks, attr_t=t.attr_t, device=device)
+
+    return DualTriChunks(coarse=table(src.coarse), fine=table(src.fine))
 
 
 def mxu_table(table, *, device: str | torch.device) -> torch.Tensor:

@@ -43,7 +43,11 @@ them, and traced segment by segment with a prim-id base and a (t, pid)
 merge (:func:`packet_closest_hit_segmented_tiled`).  Hopper has no
 VMEM cap to honour: a segment is an API and merge layer whose result
 equals one flat call on :func:`flatten_segments` bit for bit.  All
-segments share the one global rows table.
+segments share the one global rows table.  Flat ray batches take
+:func:`packet_closest_hit_segmented`, the same merge over flat calls.
+A :class:`DualTriChunks` holds two tables over one leaf order at two
+chunk heights (pbvh's ``tri_chunk_fine``); prim ids are the same in
+both, so which one a call sweeps never shows in its result.
 """
 
 from __future__ import annotations
@@ -111,6 +115,21 @@ class TriChunks:
         return int(self.comp.shape[1])
 
 
+@dataclasses.dataclass(frozen=True)
+class DualTriChunks:
+    """Two chunk tables over the same leaf order at two chunk heights:
+    ``coarse`` (the table the coherent primaries sweep) and ``fine`` (a
+    smaller ``tc`` that the per-ray cull of divergent bounce and shadow
+    batches prunes tighter).  Packing is dense, so a triangle's global
+    prim id ``1 + c * tc + s`` is its leaf index plus 1 in both tables,
+    and the per-(ray, triangle) arithmetic does not depend on ``tc``:
+    which table a call sweeps never shows in its output.  Either table
+    may be segmented; only ``coarse`` carries the rows table."""
+
+    coarse: "TriChunks | SegmentedTriChunks"
+    fine: "TriChunks | SegmentedTriChunks"
+
+
 def resident_fits(chunks: TriChunks, with_attrs: bool = False) -> bool:
     """Whether the table is within the JAX package's resident budget
     (12,288 triangles, or 8,192 with the rows table, at tc = 64).
@@ -121,6 +140,18 @@ def resident_fits(chunks: TriChunks, with_attrs: bool = False) -> bool:
     per_tri = 512 + ((32 * LANES * 4) // tc if with_attrs else 0)
     budget = MAX_VMEM_CHUNKS * TRI_CHUNK * 512  # bytes
     return tris * per_tri <= budget
+
+
+def rows_budget_ok(n_tris: int, tri_chunk: int) -> bool:
+    """Whether an ``n_tris``-triangle table at this chunk height, padded
+    to CHUNK_ALIGN chunks as the builders pad it, keeps its rows table
+    within the resident budget: :func:`resident_fits` with the rows
+    table, decided before the table is built (8,192 triangles at tc =
+    64, 4,096 at tc = 16)."""
+    nc = -(-max(1, n_tris) // tri_chunk)
+    nc = -(-nc // CHUNK_ALIGN) * CHUNK_ALIGN
+    per_chunk = tri_chunk * 512 + 32 * LANES * 4
+    return nc * per_chunk <= MAX_VMEM_CHUNKS * TRI_CHUNK * 512
 
 
 def build_tri_chunks(
@@ -1246,6 +1277,53 @@ def packet_closest_hit_segmented_tiled(
             for o, b in zip(out, best)
         )
     return best
+
+
+def packet_closest_hit_segmented(
+    seg: SegmentedTriChunks,
+    o: torch.Tensor,  # [N, 3]
+    d: torch.Tensor,  # [N, 3]
+    excl: torch.Tensor,  # [N] int32, global prim ids
+    valid: torch.Tensor | None = None,  # [N] bool
+    t_cap: torch.Tensor | None = None,  # [N] (culling only)
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    cull_block: int = CULL_BLOCK,
+    ray_tile: int = LANES,
+    refine: bool | int = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit of a flat ray batch over a segmented table -> (t [N],
+    pid [N] int32): one :func:`packet_closest_hit` per segment in scene
+    order, merged.
+
+    Each call tests the exclusion in segment-local ids (a ray whose
+    exclusion lies in another segment gets an id that matches nothing)
+    and its hits are shifted back to global ids.  The running best caps
+    the next segment's cull.  The merge keeps the smaller t, and on a
+    tie the earlier segment, whose prim ids are the smaller: the result
+    equals :func:`packet_closest_hit_segmented_tiled` in scene order on
+    the same rays, bit for bit."""
+    _check_total_prims_f32(seg)
+    best_t = best_id = None
+    for base, part in zip(seg.prim_base, seg.segments):
+        cap_s = t_cap
+        if best_t is not None:
+            cap_s = best_t if cap_s is None else torch.minimum(cap_s, best_t)
+        t_s, id_s = packet_closest_hit(
+            part, o, d, excl - base, valid, cap_s,
+            t_min=t_min, t_max=t_max, eps=eps, cull_block=cull_block,
+            ray_tile=ray_tile, refine=refine,
+        )
+        id_s = torch.where(id_s > 0, id_s + base, 0).to(torch.int32)
+        if best_t is None:
+            best_t, best_id = t_s, id_s
+        else:
+            better = t_s < best_t
+            best_t = torch.where(better, t_s, best_t)
+            best_id = torch.where(better, id_s, best_id)
+    return best_t, best_id
 
 
 # ----------------------------------------------------------------------

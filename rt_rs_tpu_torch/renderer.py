@@ -16,7 +16,12 @@ advanced in f32 between them: on a CUDA device one replay of a captured
 CUDA graph, on the CPU the same frames eagerly.  ``render_frame`` stays
 eager.
 
-Not ported yet: ``DynamicRenderer`` (ROADMAP §1 item 6).
+``DynamicRenderer`` renders animated geometry: each frame gathers the
+prims' corners from new vertex tensors, rebuilds the chunk table on the
+device (a Morton sort, or, with ``refit=True``, new bounds over the
+rest pose's order) and traces it through the same kernels.  Its
+``animate(chain=K)`` captures K such steps, rebuild included, in one
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import copy
 import dataclasses
 import time
 import warnings
+from functools import partial
 from typing import Any, Callable, Hashable
 
 import numpy as np
@@ -34,8 +40,12 @@ import torch
 from rt_rs_tpu_torch.config import ComputeConfig, Config
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
+from rt_rs_tpu_torch.handlers.lbvh import build_accel_device, chunk_footprint, device_chunks
 from rt_rs_tpu_torch.ops import cuda, shade
+from rt_rs_tpu_torch.ops import packet_trace as pt
+from rt_rs_tpu_torch.ops.lbvh import centroid_codes, morton_order
 from rt_rs_tpu_torch.scene import Scene
+from rt_rs_tpu_torch.scene.arrays import intersect_indices
 from rt_rs_tpu_torch.scene.camera import orbit_f32
 
 # Chains kept per Renderer, least recently used evicted first: one per
@@ -45,12 +55,19 @@ from rt_rs_tpu_torch.scene.camera import orbit_f32
 # K, and their intermediates by all graphs in one memory pool, so an
 # entry adds little device memory of its own (PERF.md §6).
 CHAIN_CACHE_LIMIT = 32
+# Chunk height of DynamicRenderer's per-frame tables, the JAX package's:
+# at 64 a 6,320-triangle scene still fits the rows table's budget
+# (8,192 triangles; 4,096 at 16).
+DYNAMIC_TRI_CHUNK = 64
 
 
 def _segmented_parts(accel):
-    """The accel's segments if it is a segmented table, else None."""
-    from rt_rs_tpu_torch.ops.packet_trace import SegmentedTriChunks
+    """The accel's segments if it is (or a dual table's coarse table
+    is) a segmented table, else None."""
+    from rt_rs_tpu_torch.ops.packet_trace import DualTriChunks, SegmentedTriChunks
 
+    if isinstance(accel, DualTriChunks):
+        accel = accel.coarse
     return accel.segments if isinstance(accel, SegmentedTriChunks) else None
 
 
@@ -80,6 +97,13 @@ def device_sync(x: torch.Tensor) -> None:
     """Wait until the device has finished ``x`` (a no-op on the CPU)."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+def _host_f32(v, device: torch.device) -> torch.Tensor:
+    """Host values as an f32 CPU tensor, pinned when ``device`` is a
+    card, so that copying it there does not wait for the device."""
+    t = torch.as_tensor(np.asarray(v, dtype=np.float32))
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 class LruCache:
@@ -129,6 +153,15 @@ class _ChainIO:
 
 
 @dataclasses.dataclass
+class _DynamicIO(_ChainIO):
+    """:class:`_ChainIO` with the K frames' vertex positions and
+    normals [K, V, 3] (filled before each dispatch)."""
+
+    vert_pos: torch.Tensor
+    vert_norm: torch.Tensor
+
+
+@dataclasses.dataclass
 class _Chain:
     """A cache entry: on a CUDA device the captured graph of K frames
     and the kernel launches each replay makes; on the CPU no graph."""
@@ -137,7 +170,89 @@ class _Chain:
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
 
-class Renderer:
+def _capture_graph(
+    device: torch.device, warm_up: Callable[[], Any], body: Callable[[], None], pool
+) -> _Chain:
+    """Capture ``body`` in a CUDA graph in memory pool ``pool``.  The
+    kernels are built and ``warm_up`` (one eager frame) runs on a side
+    stream first, so that nothing is set up lazily inside the capture.
+    The launches the capture records are counted at each replay, not
+    here; a capture that fails raises."""
+    cuda.library()
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        warm_up()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+
+    return _Chain(graph, cuda.captured_launches(capture))
+
+
+class _ChainDispatch:
+    """The dispatch of ``animate(chain=K)``, shared by :class:`Renderer`
+    and :class:`DynamicRenderer`, which set ``device``, ``camera``,
+    ``_chains`` (an :class:`LruCache` of :class:`_Chain`) and
+    ``_graph_pool`` (None until the first capture)."""
+
+    def _dispatch(self, key: Hashable, io: _ChainIO, orbit_mult: float, warm_up, body) -> None:
+        """Fill ``io``'s camera from the host camera (which it does not
+        move) and run ``body``, K frames into ``io``: on a card one
+        replay of the graph cached under ``key``, captured at the key's
+        first dispatch (:func:`_capture_graph`); on the CPU eagerly."""
+        io.pos.copy_(_host_f32(self.camera.pos, self.device), non_blocking=True)
+        io.at.copy_(_host_f32(self.camera.at, self.device), non_blocking=True)
+        io.mult.fill_(orbit_mult)
+        if self.device.type != "cuda":
+            self._chains.get(key, _Chain)
+            body()
+            return
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        chain = self._chains.get(
+            key, lambda: _capture_graph(self.device, warm_up, body, self._graph_pool)
+        )
+        chain.graph.replay()
+        cuda.LAUNCHES.update(chain.launches)
+
+
+def _chained_loop(frames, k, orbit_mult, orbit, dispatch, on_frame, sync_every) -> list[float]:
+    """The ``animate(chain=k)`` loop (the JAX package's
+    ``_animate_chained``): ``dispatch(done)`` renders the K frames from
+    frame ``done`` into the chains' buffers [K, H, W, 3]; the kept ones
+    are copied out before the next dispatch, and the host camera takes
+    one f64 orbit step per kept frame."""
+    times: list[float] = []
+    pending: list[torch.Tensor] = []  # [m, H, W, 3] per dispatch
+    done = 0
+    t0 = time.perf_counter()
+    while done < frames:
+        m = min(k, frames - done)
+        stacked = dispatch(done)[:m].clone()
+        pending.append(stacked)
+        for _ in range(m):
+            orbit(orbit_mult)
+        done += m
+        n_pend = sum(p.shape[0] for p in pending)
+        if n_pend >= sync_every or done >= frames:
+            device_sync(stacked)
+            dt = (time.perf_counter() - t0) / n_pend
+            times.extend([dt] * n_pend)
+            if on_frame is not None:
+                base = done - n_pend
+                for i, f in enumerate(f for p in pending for f in p):
+                    on_frame(base + i, f, dt)
+            pending = []
+            t0 = time.perf_counter()
+    return times
+
+
+class Renderer(_ChainDispatch):
     """Owns the packed scene, the accel tensors and the frame entries."""
 
     def __init__(
@@ -300,14 +415,8 @@ class Renderer:
             self._entries[id(h)] = entries
         return entries
 
-    def _host_f32(self, v) -> torch.Tensor:
-        """A host vector as an f32 CPU tensor, pinned when the device is
-        a card, so that copying it there does not wait for the device."""
-        t = torch.tensor(v, dtype=torch.float32)
-        return t.pin_memory() if self.device.type == "cuda" else t
-
     def _camera_tensor(self, v) -> torch.Tensor:
-        return self._host_f32(v).to(self.device, non_blocking=True)
+        return _host_f32(v, self.device).to(self.device, non_blocking=True)
 
     def _render(self, h: IntrsHandler, pos: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
         """One frame through ``h``'s entries from the f32 camera tensors
@@ -402,7 +511,10 @@ class Renderer:
         order, config, knobs); a capture that fails raises.  On the CPU
         the frames run eagerly."""
         if chain is not None and chain > 1:
-            return self._animate_chained(frames, orbit_mult, on_frame, sync_every, chain)
+            return _chained_loop(
+                frames, chain, orbit_mult, self.orbit,
+                lambda done: self._run_chain(chain, orbit_mult)[0], on_frame, sync_every,
+            )
         return _animate_loop(
             lambda i: self.render_frame(block=False),
             self.orbit, frames, orbit_mult, on_frame, sync_every,
@@ -437,28 +549,6 @@ class Renderer:
             io.poses[j].copy_(pos)
             pos = orbit_f32(pos, io.at, io.mult)
 
-    def _capture(self, h: IntrsHandler, k: int, io: _ChainIO) -> _Chain:
-        """Capture :meth:`_chain_frames` in a CUDA graph.  The kernels
-        are built and one eager frame runs on a side stream first, so
-        that nothing is set up lazily inside the capture.  The launches
-        the capture records are counted at each replay, not here."""
-        cuda.library()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._render(h, io.pos, io.at)
-        current.wait_stream(side)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(graph, pool=self._graph_pool):
-                self._chain_frames(h, k, io)
-
-        return _Chain(graph, cuda.captured_launches(capture))
-
     def _run_chain(self, k: int, orbit_mult: float) -> tuple[torch.Tensor, torch.Tensor, IntrsHandler]:
         """One dispatch of K frames from the host camera (which it does
         not move) -> (frames [K, H, W, 3], their f32 camera positions
@@ -466,45 +556,339 @@ class Renderer:
         fixed buffers: the next dispatch of this K overwrites them."""
         h = self._frame_handler()
         io = self._io(k)
-        io.pos.copy_(self._host_f32(self.camera.pos), non_blocking=True)
-        io.at.copy_(self._host_f32(self.camera.at), non_blocking=True)
-        io.mult.fill_(orbit_mult)
-        if self.device.type == "cuda":
-            chain = self._chains.get(self._chain_key(k, h), lambda: self._capture(h, k, io))
-            chain.graph.replay()
-            cuda.LAUNCHES.update(chain.launches)
-        else:
-            self._chains.get(self._chain_key(k, h), _Chain)
-            self._chain_frames(h, k, io)
+        self._dispatch(
+            self._chain_key(k, h), io, orbit_mult,
+            lambda: self._render(h, io.pos, io.at),
+            lambda: self._chain_frames(h, k, io),
+        )
         return io.frames, io.poses, h
 
-    def _animate_chained(self, frames, orbit_mult, on_frame, sync_every, k) -> list[float]:
-        """:meth:`animate` with ``chain=k`` (the JAX package's
-        ``_animate_chained``): the kept frames of each dispatch are
-        copied out of the chains' buffers before the next one."""
-        times: list[float] = []
-        pending: list[torch.Tensor] = []  # [m, H, W, 3] per dispatch
-        done = 0
-        t0 = time.perf_counter()
-        while done < frames:
-            m = min(k, frames - done)
-            stacked = self._run_chain(k, orbit_mult)[0][:m].clone()
-            pending.append(stacked)
-            for _ in range(m):
-                self.orbit(orbit_mult)
-            done += m
-            n_pend = sum(p.shape[0] for p in pending)
-            if n_pend >= sync_every or done >= frames:
-                device_sync(stacked)
-                dt = (time.perf_counter() - t0) / n_pend
-                times.extend([dt] * n_pend)
-                if on_frame is not None:
-                    base = done - n_pend
-                    for i, f in enumerate(f for p in pending for f in p):
-                        on_frame(base + i, f, dt)
-                pending = []
-                t0 = time.perf_counter()
-        return times
+
+class DynamicRenderer(_ChainDispatch):
+    """Animated geometry with a per-frame rebuild on the device.
+
+    Counterpart of the JAX package's ``DynamicRenderer``.  One frame
+    step gathers the prims' corners from the frame's vertex positions
+    and normals, rebuilds the shade table, builds the chunk table on the
+    device (:func:`~rt_rs_tpu_torch.handlers.lbvh.build_accel_device`,
+    or :func:`~rt_rs_tpu_torch.handlers.lbvh.device_chunks` over the
+    rest pose's order with ``refit=True``) and renders through the
+    packet kernels: the tiled path with rows and any-hit shadows, or the
+    flat one for a scene with a real ``material = -1`` prim.  Every
+    host decision (the rows gate, the path) is taken at construction, so
+    a step reads nothing back from the device and a CUDA graph can
+    capture it (``animate(chain=K)``).
+
+    The table is bounded by the JAX package's 12,288 triangles: a larger
+    scene raises ``ValueError`` at its first frame."""
+
+    def __init__(
+        self,
+        scene: Scene,
+        config: Config | None = None,
+        size: tuple[int, int] | None = None,
+        refit: bool = False,
+        force_rows: bool | None = None,
+        tri_chunk: int | None = None,
+        refine: bool = True,
+        device: str | torch.device = "cuda",
+    ):
+        """``device`` as for :class:`Renderer` (default ``"cuda"``).
+
+        ``refit=True`` sorts once, at the rest pose, and bakes that
+        order into the corner gathers; each frame then only rebuilds the
+        table's bounds and contents.  A stale order loosens the chunks'
+        bounds but never changes a result: re-create the renderer when
+        the geometry drifts far from the rest pose.
+
+        ``force_rows`` overrides the kernel-emitted-rows default (on):
+        rows need a scene without negative materials, a finite shade
+        table at the rest pose and a rows table within
+        :func:`~rt_rs_tpu_torch.ops.packet_trace.rows_budget_ok` at the
+        chunk height ``tri_chunk`` (None: DYNAMIC_TRI_CHUNK).  With
+        rows on, :meth:`render_frame` refuses non-finite vertex data
+        (NumPy arrays every frame, tensors on the first frame only), as
+        the JAX package does; ``force_rows=False`` renders it on the
+        gather branch.  ``refine`` (default True) lets bounce and shadow
+        batches take the per-ray cull."""
+        self.scene = scene
+        self.device = torch.device(device)
+        self.config = config or Config()
+        self.width, self.height = (
+            size if size is not None else self.config.resolution.size()
+        )
+        self.camera = scene.camera
+        base = scene.pack(device=self.device)
+        # The static pack's duplicate-triple collapse: topology is fixed,
+        # so each frame's gathers inherit its self-exclusion semantics.
+        prim_idx = torch.from_numpy(
+            np.asarray(intersect_indices(scene.prim_indices), dtype=np.int64).reshape(-1, 3)
+        ).to(self.device)
+        if refit:
+            order = morton_order(centroid_codes(base.pa[1:], base.pb[1:], base.pc[1:])).long()
+            prim_idx = prim_idx[order]
+            perm = torch.cat([order.new_zeros(1), order + 1])
+            base = dataclasses.replace(base, prim_mat=base.prim_mat[perm])
+        # One chunk height for the rows gate and every build.
+        tc = DYNAMIC_TRI_CHUNK if tri_chunk is None else tri_chunk
+        finite_rest = bool(torch.isfinite(base.shade_table).all())
+        self._use_rows = bool(
+            (True if force_rows is None else force_rows)
+            and base.no_negative_materials
+            and finite_rest
+            and pt.rows_budget_ok(base.pa.shape[0] - 1, tc)
+        )
+        self._inputs_checked = False
+        self._base = base
+        self._prim_idx = prim_idx
+        self._tri_chunk = tc
+        self._refit = refit
+        self._refine = refine
+        self._block = self.config.resolution.block(pt.TUNED_RAY_TILE)
+        self._rest_norm = torch.from_numpy(
+            np.asarray(scene.vert_norm, dtype=np.float32)
+        ).to(self.device)
+        self._stats: IntrsStats | None = None
+        self._chains = LruCache(CHAIN_CACHE_LIMIT)
+        self._chain_io: dict[int, _DynamicIO] = {}
+        self._graph_pool = None
+
+    def _frame_arrays(self, vert_pos, vert_norm):
+        """The scene tensors of one frame's geometry [V, 3]: the prims'
+        corners gathered (with the sentinel row 0) and the shade table
+        rebuilt from them."""
+        idx = self._prim_idx
+
+        def corner(arr, c):
+            return torch.cat([arr.new_zeros((1, 3)), arr[idx[:, c]]])
+
+        return dataclasses.replace(
+            self._base,
+            pa=corner(vert_pos, 0), pb=corner(vert_pos, 1), pc=corner(vert_pos, 2),
+            na=corner(vert_norm, 0), nb=corner(vert_norm, 1), nc=corner(vert_norm, 2),
+        ).rebuild_shade_table()
+
+    def _build(self, arrays):
+        """One frame's table -> (accel, arrays to shade): the rebuild
+        (sort, permute, chunk) or, with ``refit``, the chunk table over
+        the rest pose's order."""
+        tc = self._tri_chunk
+        if self._refit:
+            accel = device_chunks(
+                arrays.pa, arrays.pb, arrays.pc, tri_chunk=tc,
+                shade_rows=arrays.shade_table if self._use_rows else None,
+            )
+            return accel, arrays
+        return build_accel_device(arrays, tri_chunk=tc, with_attrs=self._use_rows)
+
+    def _step(self, vert_pos, vert_norm, pos, at) -> torch.Tensor:
+        """One frame of the geometry ``vert_pos`` / ``vert_norm`` [V, 3]
+        from the f32 camera tensors ``pos`` / ``at`` [3] -> [H, W, 3]."""
+        accel, arrays = self._build(self._frame_arrays(vert_pos, vert_norm))
+        cfg = self.config.compute
+        win = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
+        if not arrays.no_negative_materials:
+            # A real negative-material prim: the flat path, whose shadow
+            # test gathers the material.
+            intersect = partial(pt.packet_closest_hit, accel, ray_tile=pt.TUNED_RAY_TILE, **win)
+            return shade.render(
+                arrays, intersect, cfg, pos, at, self.width, self.height, block=self._block
+            )
+        kern = partial(pt.packet_closest_hit_tiled, accel, **win)
+        kern.supports_refine = self._refine
+        rows_fn = anyhit_fn = None
+        if self._use_rows:
+            rows_fn = partial(kern, emit_rows=True)
+            anyhit_fn = partial(kern, any_hit=True)
+            rows_fn.supports_refine = anyhit_fn.supports_refine = self._refine
+        return shade.render_tiled(
+            arrays, kern, cfg, pos, at, self.width, self.height,
+            ray_tile=pt.TUNED_RAY_TILE, block=self._block,
+            intersect_rows_fn=rows_fn, intersect_anyhit_fn=anyhit_fn,
+        )
+
+    @property
+    def stats(self) -> IntrsStats:
+        """The chunk table's device bytes (its shapes do not change from
+        frame to frame), named ``LBVH-rebuild`` or ``LBVH-refit``."""
+        if self._stats is None:
+            base = self._base
+            accel = device_chunks(
+                base.pa, base.pb, base.pc, tri_chunk=self._tri_chunk,
+                shade_rows=base.shade_table if self._use_rows else None,
+            )
+            self._stats = IntrsStats(
+                name=f"LBVH-{'refit' if self._refit else 'rebuild'}",
+                size=chunk_footprint(accel),
+            )
+        return self._stats
+
+    def orbit(self, mult: float) -> None:
+        """Advance the orbit camera by ``0.0314 * mult`` radians
+        (camera.rs:177-189)."""
+        self.camera = self.camera.orbited(mult)
+
+    def _device_f32(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return _host_f32(x, self.device).to(self.device, non_blocking=True)
+
+    def _check_inputs(self, vert_pos, vert_norm, norm_defaulted: bool) -> None:
+        """With rows on, refuse non-finite vertex data: a NaN in the
+        per-frame rows table would reach every ray that hits its prim's
+        chunk in the JAX package's rows matmul, so both packages refuse
+        it.  NumPy arrays are checked every frame; tensors (and the
+        defaulted normals, the rest pose's) only on the first frame."""
+        check_pos = isinstance(vert_pos, np.ndarray)
+        check_norm = not norm_defaulted and isinstance(vert_norm, np.ndarray)
+        if not (check_pos or check_norm or not self._inputs_checked):
+            return
+        first = not self._inputs_checked
+        self._inputs_checked = True
+
+        def finite(x) -> bool:
+            if isinstance(x, torch.Tensor):
+                return bool(torch.isfinite(x).all())
+            return bool(np.isfinite(np.asarray(x)).all())
+
+        pos_ok = finite(vert_pos) if (check_pos or first) else True
+        norm_ok = finite(vert_norm) if (check_norm or (first and not norm_defaulted)) else True
+        if not (pos_ok and norm_ok):
+            raise ValueError(
+                "non-finite vertex positions/normals with kernel-emitted rows "
+                "enabled; pass force_rows=False to render degenerate geometry "
+                "on the gather path"
+            )
+
+    def render_frame(self, vert_pos=None, vert_norm=None, block: bool = True) -> torch.Tensor:
+        """Render one frame of the given geometry (NumPy arrays or
+        tensors [V, 3]; None: the rest pose) -> [H, W, 3] float32 tensor
+        on the device.  ``block`` waits for the device to finish it."""
+        if vert_pos is None:
+            vert_pos = self.scene.vert_pos
+        norm_defaulted = vert_norm is None
+        if norm_defaulted:
+            vert_norm = self._rest_norm
+        if self._use_rows:
+            self._check_inputs(vert_pos, vert_norm, norm_defaulted)
+        out = self._step(
+            self._device_f32(vert_pos),
+            self._device_f32(vert_norm),
+            self._device_f32(self.camera.pos),
+            self._device_f32(self.camera.at),
+        )
+        if block:
+            device_sync(out)
+        return out
+
+    def render_image(self, vert_pos=None, vert_norm=None) -> np.ndarray:
+        """One frame as uint8 RGB (see :meth:`Renderer.render_image`)."""
+        frame = self.render_frame(vert_pos, vert_norm, block=False).cpu().numpy()
+        return np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+    def animate(
+        self,
+        frames: int,
+        orbit_mult: float = 1.0,
+        on_frame: Callable[[int, torch.Tensor, float], None] | None = None,
+        sync_every: int = 20,
+        vertex_fn: Callable[[int], Any] | None = None,
+        chain: int | None = None,
+    ) -> list[float]:
+        """Render ``frames`` orbit steps with a rebuild (or refit) per
+        frame -> per-frame seconds, in :meth:`Renderer.animate`'s
+        protocol.  ``vertex_fn(i)`` gives frame ``i``'s geometry as
+        ``vert_pos`` or ``(vert_pos, vert_norm)`` (None: the rest pose;
+        the table is rebuilt every frame all the same).
+
+        ``chain`` (K > 1) renders K frames per dispatch, the contract of
+        :meth:`Renderer.animate`: the K frames' vertex arrays are stacked
+        to [K, V, 3] and copied into the chains' fixed buffers, and the
+        K steps, rebuild included, run with the orbit advanced in f32
+        between them; a last dispatch repeats the last frame's geometry
+        and keeps the frames it needs (``vertex_fn`` is never called
+        past ``frames - 1``).  On a CUDA device a dispatch is one replay
+        of a CUDA graph captured at the first dispatch of its K; on the
+        CPU the frames run eagerly."""
+        if chain is not None and chain > 1:
+            return self._animate_chained(frames, orbit_mult, on_frame, sync_every, chain, vertex_fn)
+
+        def render_one(i: int) -> torch.Tensor:
+            v = vertex_fn(i) if vertex_fn is not None else None
+            vp, vn = v if isinstance(v, tuple) else (v, None)
+            return self.render_frame(vp, vn, block=False)
+
+        return _animate_loop(render_one, self.orbit, frames, orbit_mult, on_frame, sync_every)
+
+    def _io(self, k: int) -> _DynamicIO:
+        io = self._chain_io.get(k)
+        if io is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            v = np.asarray(self.scene.vert_pos).shape[0]
+            io = _DynamicIO(
+                pos=torch.zeros(3, **f32),
+                at=torch.zeros(3, **f32),
+                mult=torch.zeros((), **f32),
+                frames=torch.zeros((k, self.height, self.width, 3), **f32),
+                poses=torch.zeros((k, 3), **f32),
+                vert_pos=torch.zeros((k, v, 3), **f32),
+                vert_norm=torch.zeros((k, v, 3), **f32),
+            )
+            self._chain_io[k] = io
+        return io
+
+    def _chain_frames(self, k: int, io: _DynamicIO) -> None:
+        """The K frames of one dispatch from ``io``'s geometry and camera
+        into ``io.frames`` / ``io.poses``: the body of a captured graph."""
+        pos = io.pos
+        for j in range(k):
+            io.frames[j].copy_(self._step(io.vert_pos[j], io.vert_norm[j], pos, io.at))
+            io.poses[j].copy_(pos)
+            pos = orbit_f32(pos, io.at, io.mult)
+
+    def _run_chain(self, k: int, orbit_mult: float, vert_pos, vert_norm):
+        """One dispatch of K frames of the stacked geometry [K, V, 3]
+        from the host camera (which it does not move) -> (frames [K, H,
+        W, 3], their f32 camera positions [K, 3]): the chains' fixed
+        buffers, which the next dispatch of this K overwrites."""
+        io = self._io(k)
+        io.vert_pos.copy_(_host_f32(vert_pos, self.device), non_blocking=True)
+        io.vert_norm.copy_(_host_f32(vert_norm, self.device), non_blocking=True)
+        self._dispatch(
+            k, io, orbit_mult,
+            lambda: self._step(io.vert_pos[0], io.vert_norm[0], io.pos, io.at),
+            lambda: self._chain_frames(k, io),
+        )
+        return io.frames, io.poses
+
+    def _animate_chained(self, frames, orbit_mult, on_frame, sync_every, k, vertex_fn) -> list[float]:
+        rest_pos = np.asarray(self.scene.vert_pos, dtype=np.float32)
+        rest_norm = np.asarray(self.scene.vert_norm, dtype=np.float32)
+
+        def host(x, rest):
+            if x is None:
+                return rest
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu()
+            return np.asarray(x, dtype=np.float32)
+
+        def frame_verts(i: int):
+            v = vertex_fn(i) if vertex_fn is not None else None
+            vp, vn = v if isinstance(v, tuple) else (v, None)
+            return host(vp, rest_pos), host(vn, rest_norm)
+
+        def dispatch(done: int) -> torch.Tensor:
+            pairs = [frame_verts(min(done + i, frames - 1)) for i in range(k)]
+            vp = np.stack([p[0] for p in pairs])
+            vn = np.stack([p[1] for p in pairs])
+            if self._use_rows and not (np.isfinite(vp).all() and np.isfinite(vn).all()):
+                raise ValueError(
+                    "non-finite vertex positions/normals with kernel-emitted rows "
+                    "enabled; pass force_rows=False"
+                )
+            return self._run_chain(k, orbit_mult, vp, vn)[0]
+
+        return _chained_loop(frames, k, orbit_mult, self.orbit, dispatch, on_frame, sync_every)
 
 
 def _animate_loop(

@@ -143,3 +143,32 @@ class SceneArrays:
             shade_table=dev(table),
             no_negative_materials=bool((prim_mat[1:] >= 0).all()) if p else True,
         )
+
+    def rebuild_shade_table(self) -> "SceneArrays":
+        """Recompute ``shade_table`` from the (possibly updated) per-prim
+        tensors on their device, as ``from_scene`` lays it out: the
+        dynamic path's per-frame table."""
+        mat_id = torch.clamp_min(self.prim_mat, 0).long()
+        p1 = self.prim_mat.shape[0]
+        table = torch.cat(
+            [
+                self.pa, self.pb, self.pc,
+                self.na, self.nb, self.nc,
+                self.mat_color[mat_id],
+                self.mat_albedo[mat_id],
+                self.mat_spec[mat_id][:, None],
+                self.prim_mat.to(torch.float32)[:, None],
+                self.pa.new_zeros((p1, 6)),
+            ],
+            dim=1,
+        )
+        return dataclasses.replace(self, shade_table=table)
+
+    def byte_size(self) -> int:
+        """The bytes of every tensor field (geometry, lights, materials,
+        shade table), for ``IntrsStats``-style reporting."""
+        return sum(
+            t.numel() * t.element_size()
+            for t in (getattr(self, f.name) for f in dataclasses.fields(self))
+            if isinstance(t, torch.Tensor)
+        )

@@ -152,11 +152,13 @@ def test_naive_negative_material_frame_matches_pbvh():
 
 
 def test_registry_and_blank_entries():
+    from rt_rs_tpu.handlers import available as jax_available
     from rt_rs_tpu_torch.handlers import _REGISTRY
+    from rt_rs_tpu_torch.handlers.lbvh import LbvhIntrs
 
-    assert sorted(_REGISTRY) == ["blank", "bvh", "naive", "pbvh", "rf_bvh"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_handler("lbvh")
+    # every handler of the JAX package, lbvh included
+    assert sorted(_REGISTRY) == ["blank", "bvh", "lbvh", "naive", "pbvh", "rf_bvh"] == jax_available()
+    assert isinstance(get_handler("lbvh"), LbvhIntrs)
     with pytest.raises(ValueError, match="unknown handler 'nope'.*naive"):
         get_handler("nope")
     cfg = ComputeConfig()
@@ -166,3 +168,35 @@ def test_registry_and_blank_entries():
     assert t.shape == (32, 128) and (t == MISS).all() and (pid == 0).all()
     t, pid = h.intersect_fn(None, None, cfg)(torch.zeros(5, 3), torch.zeros(5, 3), torch.zeros(5, dtype=torch.int32))
     assert t.shape == (5,) and (t == MISS).all() and pid.dtype == torch.int32
+
+
+def test_register_adds_and_replaces_handlers(monkeypatch):
+    """``register(name, factory)``, the JAX package's extension point: a
+    registered factory is what ``get_handler`` and ``Renderer(handler=)``
+    build, and a later call replaces an earlier one, in both packages."""
+    import rt_rs_tpu.handlers as jh
+
+    from rt_rs_tpu_torch import Config, Renderer, Resolution
+    from rt_rs_tpu_torch import handlers
+    from rt_rs_tpu_torch.handlers import register
+    from rt_rs_tpu_torch.handlers.blank import BlankIntrs
+    from rt_rs_tpu_torch.handlers.naive import BasicIntrs
+
+    monkeypatch.setattr(handlers, "_REGISTRY", dict(handlers._REGISTRY))
+    monkeypatch.setattr(jh, "_REGISTRY", dict(jh._REGISTRY))
+    made = []
+
+    class Custom(BlankIntrs):
+        def __init__(self, tag="x"):
+            made.append(tag)
+
+    register("custom", Custom)
+    assert isinstance(get_handler("custom", tag="a"), Custom) and made == ["a"]
+    r = Renderer(torus_scene(), config=Config(resolution=Resolution.sized(16, 16)), handler="custom", device="cpu")
+    assert isinstance(r.handler, Custom) and made == ["a", "x"]
+    assert not r.render_frame().any()  # Custom is blank: every ray misses
+    register("custom", BasicIntrs)
+    assert isinstance(get_handler("custom"), BasicIntrs) and "custom" in handlers.available()
+    jh.register("custom", jh.get_handler("blank").__class__)
+    jh.register("custom", jh.get_handler("naive").__class__)
+    assert type(jh.get_handler("custom")).__name__ == type(get_handler("custom")).__name__ == "BasicIntrs"

@@ -33,7 +33,15 @@ import pytest
 import torch
 
 import rt_rs_tpu
-from rt_rs_tpu_torch import Config, ComputeConfig, Renderer, Resolution, Scene, run_headless
+from rt_rs_tpu_torch import (
+    Config,
+    ComputeConfig,
+    DynamicRenderer,
+    Renderer,
+    Resolution,
+    Scene,
+    run_headless,
+)
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.ops import shade
 from rt_rs_tpu_torch.scene.presets import random_soup, torus_scene
@@ -130,10 +138,15 @@ def test_update_config_rebinds_bounces():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_handler("lbvh")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        get_handler("pbvh", tri_chunk_fine=16)
+    # The lbvh handler, pbvh's dual tables and DynamicRenderer are ported
+    # (tests/test_torch_lbvh.py, test_torch_dual.py, test_torch_dynamic.py).
+    assert get_handler("lbvh").name == "LBVH"
+    r = Renderer(
+        random_soup(3, 10), config=_config(16, 16), handler="pbvh",
+        handler_kwargs={"tri_chunk_fine": 16}, device="cpu",
+    )
+    assert r.accel.fine.tri_chunk == 16 and r.render_frame().shape == (16, 16, 3)
+    assert DynamicRenderer(random_soup(3, 10), config=_config(16, 16), device="cpu").render_frame().shape == (16, 16, 3)
     neg = random_soup(1, 10)
     neg.prim_material[0] = -1
     # Negative materials take the flat path; the tiled one refuses them,
