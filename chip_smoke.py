@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Ten paths are driven, the frame paths through ``Renderer(...,
+Eleven paths are driven, the frame paths through ``Renderer(...,
 device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
@@ -52,6 +52,18 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   ``device_chunks``) held to the same code on the CPU;
 * ``dual``: pbvh with ``tri_chunk_fine=16`` (the refined batches sweep
   a second, tc = 16 table), resident torus and segmented canyon;
+* ``tools``: the user-facing layer, in a temporary directory
+  (:func:`phase_tools`): ``tools.construct`` from an OBJ of
+  ``torus_scene`` and ``tools.load --handler-pbvh`` on its scene JSON;
+  ``tools.precompute --device`` (the LBVH of ``torus_row(2)`` built on
+  the card) and ``tools.load --handler-bvh PATH`` on it (12,642
+  triangles: the threaded walk); the study's protocol (``load
+  --benchmark``, ``run_benchmark_protocol``: 200 frames over 5 orbits)
+  for pbvh, ``bvh`` (``"auto"``: the packet kernels on the torus; the
+  threaded walk's Renderer timed directly) and DynamicRenderer; ``load
+  --profile`` in a child process; the web viewer (``web.make_server``)
+  and ``utils.animation.render_orbit_gif``; then the card-built
+  checkpoint's frame and two viewer frames replayed call by call;
 * ``chain``: ``Renderer.animate(chain=K)``, one replay of a captured
   CUDA graph of K orbit frames per dispatch, on every frame path above
   (torus, segmented and dma canyon, knobs, flat, blank, naive, the
@@ -171,6 +183,23 @@ exits nonzero without printing a result):
    frames at 384x288 and 1080p.  dual: the torus at 384x288 and 1080p and
    the segmented canyon at 640x480 bit-equal to their single-table
    frames, an orbit of the torus at 384x288.
+   tools (:func:`phase_tools`, after the paths and before the first
+   torch.profiler phase; launches counted over its in-process steps):
+   construct -> load's PNG (decoded by :func:`decode_png`, the standard
+   library) equal to ``render_image`` after the same orbit steps; the
+   card's ``precompute --device`` checkpoint equal to the CPU's, 0
+   violations in ``debug_tree.check_tree``, its threaded frame within
+   REF_ATOL of the host build's (bit-equality printed); the protocol's
+   average ms per frame for each case of PROTOCOL beside phase 4's eager
+   orbit of the same frames, every per-frame time finite and positive,
+   one per frame (without matplotlib, BenchScheduler.render_chart is
+   replaced by a no-op for the phase, and the script says so);
+   ``load --profile``'s trace naming mt_trace's and shade_post's
+   kernels; the viewer's ``/frame.png`` equal to ``render_image`` after
+   start, a config update, a viewport change and a scene switch, a bad
+   scene name keeping the scene and writing the note; the orbit GIF
+   equal to ``write_gif`` of the ``render_image`` sequence (where PIL is
+   installed).
 5. The knob A/Bs (experiments/early_exit_ab.py's protocol: the knob
    off and on in interleaved turns): early exit on torus 1080p and
    canyon segmented 640x480 orbits, with the closest-hit list entries of
@@ -197,7 +226,9 @@ exits nonzero without printing a result):
    make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
    calls in one table: the three above, the torus 1080p primary rows
    call and the flat ``torus_ghost()`` 1080p frame's busiest closest
-   call.  shade_post also at the torus 1080p frame's shapes.  mt_stream,
+   call.  shade_post also at the torus 1080p frame's shapes, and its
+   launch floor at both shapes: an empty kernel on its grid
+   (``FLOOR_SRC``, built here), timed the same way.  mt_stream,
    the early-exit calls and the probes' MT kernels also print the
    per-tile walks' times they replaced (WALK_MS, constants) and, for
    early exit, the entries the per-tile rule and the items test.
@@ -227,7 +258,8 @@ exits nonzero without printing a result):
    once used, it left each later eager launch of the process slower.
 
 The second-to-last lines are JSON objects of frame times (with the
-chain phase, the A/B, the mt_trace calls, shade_post at 1080p,
+chain phase, the A/B, the mt_trace calls, shade_post at 1080p and its
+launch floor, the tools phase's protocol,
 mt_trace[closest] on mt_tpose's lists and the dynamic build) and
 of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -239,6 +271,7 @@ import collections
 import inspect
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -400,6 +433,12 @@ PATHS = {
     "dual": (
         "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre",
         "shade_post",
+    ),
+    # the tools, the study's protocol, the viewer and the GIF (phase_tools):
+    # pbvh frames, and the threaded walk on the checkpoints precompute writes
+    "tools": (
+        "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post",
+        "bvh_walk[bvh]",
     ),
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
@@ -1966,7 +2005,7 @@ def phase_paths(card: str):
 
     counts, frame_ms, first, kept = {}, {}, {}, {}
     for path, needed in PATHS.items():
-        if path == "chain":  # phase_chain
+        if path in ("chain", "tools"):  # phase_chain, phase_tools
             continue
         reset_counts()
         if path == "knobs":
@@ -1998,6 +2037,401 @@ def phase_paths(card: str):
         )
     say("[frame] canyon 640x480: segmented and dma frames bit-equal")
     return counts, frame_ms, kept
+
+
+# ----------------------------------------------------------------------
+# the tools phase: the user-facing layer (tools, timing, web, GIF)
+
+# the study's protocol (the JAX package's timing.run_benchmark_protocol):
+# case -> (load flags, width, height, frames over 5 orbits).  None: a
+# Renderer of the threaded walk, timed directly, since load's
+# --handler-bvh takes the packet kernels for the torus (within 12,288
+# triangles) on the card.
+PROTOCOL = {
+    "pbvh torus 384x288": (["--handler-pbvh"], 384, 288, 200),
+    "bvh auto torus 384x288": (["--handler-bvh"], 384, 288, 200),
+    "bvh threaded torus 384x288": (None, 384, 288, 200),
+    "bvh auto torus 1920x1080": (["--handler-bvh"], 1920, 1080, 48),
+    "bvh threaded torus 1920x1080": (None, 1920, 1080, 48),
+    "dynamic rebuild torus 384x288": (["--dynamic"], 384, 288, 50),
+    "dynamic refit torus 384x288": (["--refit"], 384, 288, 50),
+}
+# each protocol case beside phase 4's eager orbit of the same frames
+PROTOCOL_ORBITS = {
+    "pbvh torus 384x288": "torus 384x288",
+    "bvh auto torus 384x288": "bvh auto torus 384x288",
+    "bvh threaded torus 384x288": "bvh threaded torus 384x288",
+    "bvh threaded torus 1920x1080": "bvh threaded torus 1920x1080",
+}
+TOOLS_SIZE = (384, 288)
+VIEWER_SIZE = (320, 240)
+GIF_FRAMES = 24
+
+
+def decode_png(data: bytes):
+    """A PNG of the port's writer (8-bit RGB, filter 0 on every row) as
+    an [H, W, 3] uint8 array, with the standard library only."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+    w, h, depth, color = head[:4]
+    if (depth, color) != (8, 2):
+        raise AssertionError(f"PNG bit depth {depth}, colour type {color}: expected 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("PNG rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def write_obj(scene, path: str) -> None:
+    """A scene's mesh as OBJ text: positions, normals, faces v//vn."""
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in scene.vert_pos.astype(float).tolist()]
+    lines += [f"vn {x!r} {y!r} {z!r}" for x, y, z in scene.vert_norm.astype(float).tolist()]
+    lines += ["f " + " ".join(f"{i + 1}//{i + 1}" for i in tri) for tri in scene.prim_indices.tolist()]
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+def check_png_equal(what: str, path: str, image) -> None:
+    import numpy as np
+
+    got = decode_png(pathlib.Path(path).read_bytes())
+    if got.shape != image.shape or not np.array_equal(got, image):
+        d = np.abs(got.astype(int) - image.astype(int)) if got.shape == image.shape else None
+        raise AssertionError(
+            f"{what}: PNG {got.shape} != render_image {image.shape}"
+            + ("" if d is None else f", {int((d > 0).sum())} values differ, max {int(d.max())}")
+        )
+    say(f"[tools] {what}: the PNG equals render_image byte for byte ({image.shape})")
+
+
+def tools_construct_load() -> None:
+    """construct -> load --handler-pbvh: the PNG equals render_image of
+    the same scene after the same orbit steps."""
+    from rt_rs_tpu_torch import Renderer, Scene
+    from rt_rs_tpu_torch.tools import construct, load
+
+    w, h = TOOLS_SIZE
+    rc = construct.main([
+        "--out", "built.json", "--model", "torus.obj", "default",
+        "--light", "30", "40", "-20", "1.6", "--light", "-25", "30", "25", "1.2",
+        "--camera-pos", "0", "3", "-9", "0", "0", "0", "--camera-orbit",
+    ])
+    if rc != 0:
+        raise AssertionError(f"construct exited {rc}")
+    rc = load.main([
+        "--path", "built.json", "--handler-pbvh", "--width", str(w), "--height", str(h),
+        "--frames", "3", "--out", "load.png", "--device", DEVICE,
+    ])
+    if rc != 0:
+        raise AssertionError(f"load exited {rc}")
+    r = Renderer(Scene.load("built.json"), handler="pbvh", size=(w, h), device=DEVICE)
+    r.orbit(1.0)
+    r.orbit(1.0)
+    check_png_equal(f"construct -> load --handler-pbvh {w}x{h}, frame 3", "load.png", r.render_image())
+
+
+def tools_precompute() -> list:
+    """precompute --device on the card = on the CPU; check_tree; the
+    card-built tree rendered by load --handler-bvh PATH against the host
+    build's frame.  The scene is two tori in a row (12,642 triangles),
+    past the packet kernels' 12,288, so load's --handler-bvh takes the
+    threaded walk (kernel G) on the card.  -> the card-built frame's
+    kernel calls, for the replay."""
+    import io
+
+    import numpy as np
+
+    from rt_rs_tpu_torch import Renderer, Scene
+    from rt_rs_tpu_torch.bvh import BvhData
+    from rt_rs_tpu_torch.ops import cuda
+    from rt_rs_tpu_torch.tools import load, precompute
+    from rt_rs_tpu_torch.tools.debug_tree import check_tree
+
+    t0 = time.perf_counter()
+    precompute.main(["--scene", "row.json", "--out", "card.bvh.json", "--device", "--torch-device", DEVICE])
+    card_s = time.perf_counter() - t0
+    precompute.main(["--scene", "row.json", "--out", "cpu.bvh.json", "--device", "--torch-device", "cpu"])
+    precompute.main(["--scene", "row.json", "--out", "host.bvh.json", "--item-count", "2"])
+    card, cpu = (pathlib.Path(p).read_text() for p in ("card.bvh.json", "cpu.bvh.json"))
+    if card != cpu:
+        raise AssertionError("precompute --device: the card's checkpoint != the CPU's")
+    say(f"[tools] precompute --device (two tori, 12,642 triangles): the card's checkpoint = the CPU's "
+        f"({len(card)} bytes of JSON; {card_s:.3f} s)")
+    scene = Scene.load("row.json")
+    report = io.StringIO()
+    bad = check_tree(BvhData.load("card.bvh.json"), scene, out=report)
+    if bad:
+        raise AssertionError(f"check_tree on the card-built checkpoint: {bad} violations\n{report.getvalue()}")
+    say(f"[tools] debug_tree check_tree on the card-built checkpoint: {report.getvalue().strip().replace(chr(10), '; ')}")
+
+    w, h = TOOLS_SIZE
+    size = ["--width", str(w), "--height", str(h), "--device", DEVICE]
+    for ckpt in ("card.bvh.json", "host.bvh.json"):
+        before = cuda.LAUNCHES["bvh_walk[bvh]"]
+        rc = load.main(["--path", "row.json", "--handler-bvh", ckpt, *size, "--out", f"{ckpt}.png"])
+        if rc != 0:
+            raise AssertionError(f"load --handler-bvh {ckpt} exited {rc}")
+        if cuda.LAUNCHES["bvh_walk[bvh]"] == before:
+            raise AssertionError(f"load --handler-bvh {ckpt}: the threaded walk never launched")
+    frames, calls = {}, None
+    for name in ("card", "host"):
+        r = Renderer(scene, handler="bvh", handler_kwargs={"path": f"{name}.bvh.json"}, size=(w, h), device=DEVICE)
+        if r.accel.walk is None:
+            raise AssertionError(f"{name} checkpoint: the renderer took the packet kernels, not the walk")
+        with Recorder() as rec:
+            frames[name] = r.render_frame().cpu().numpy()
+        calls = calls or rec.calls
+        check_png_equal(f"load --handler-bvh {name} checkpoint (threaded walk) {w}x{h}", f"{name}.bvh.json.png", r.render_image())
+    d = np.abs(frames["card"] - frames["host"])
+    if not d.max() <= REF_ATOL:
+        raise AssertionError(f"the card-built tree's frame vs the host build's: max {d.max()}")
+    say(
+        f"[tools] the card-built tree's frame vs the host build's (threaded, {w}x{h}): max abs "
+        f"{d.max():.3g} (atol {REF_ATOL}), {'bit-equal' if not d.any() else f'{int((d > 0).sum())} values differ'}"
+    )
+    return [(f"tools card-built checkpoint bvh {w}x{h}", calls)]
+
+
+def tools_protocol(frame_ms: dict, card: str) -> tuple[dict[str, float], bool]:
+    """The study's protocol through load --benchmark, and directly
+    through run_benchmark_protocol for its per-frame times (the threaded
+    walk's cases directly only) -> (case -> mean ms per frame, whether
+    the chart ran)."""
+    import importlib.util
+
+    from rt_rs_tpu_torch import Renderer, Scene, timing
+    from rt_rs_tpu_torch.tools import load
+
+    saved = timing.BenchScheduler.render_chart
+    if importlib.util.find_spec("matplotlib") is None:
+        say("[tools] matplotlib is not installed here: the chart does not run; chip_smoke.py "
+            "replaces BenchScheduler.render_chart with a no-op for this phase (the times do not "
+            "depend on it)")
+        timing.BenchScheduler.render_chart = lambda self: None
+        chart = False
+    else:
+        chart = True
+    out = {}
+    try:
+        for name, (flags, w, h, frames) in PROTOCOL.items():
+            if flags is None:
+                r = Renderer(
+                    Scene.load("torus.json"), handler="bvh", handler_kwargs={"backend": "threaded"},
+                    size=(w, h), device=DEVICE,
+                )
+            else:
+                argv = ["--path", "torus.json", *flags, "--width", str(w), "--height", str(h), "--device", DEVICE]
+                rc = load.main([*argv, "--benchmark", "--bench-frames", str(frames)])
+                if rc != 0:
+                    raise AssertionError(f"load --benchmark {name} exited {rc}")
+                r = load.make_renderer(load.build_parser().parse_args(argv))
+            sched, mean_ms = timing.run_benchmark_protocol(r, frames=frames)
+            t = sched.times_ms
+            if len(t) != frames or not all(math.isfinite(x) and x > 0 for x in t):
+                raise AssertionError(f"protocol {name}: {len(t)} times of {frames}, or not finite and positive")
+            beside = PROTOCOL_ORBITS.get(name)
+            orbit = f"; phase 4's eager orbit of the same frames {frame_ms[beside]:.3f} ms/frame" if beside in frame_ms else ""
+            say(
+                f"[protocol] {name}: {mean_ms:.3f} ms/frame averaged over {frames} frames, 5 orbits "
+                f"({len(t)} frame times, all finite and > 0; {r.stats.name} {r.stats.size} B){orbit}; {card}"
+            )
+            out[name] = mean_ms
+    finally:
+        timing.BenchScheduler.render_chart = saved
+    say(f"[tools] the chart {'ran' if chart else 'did not run (no matplotlib)'}")
+    return out, chart
+
+
+def tools_profile() -> None:
+    """load --profile in a child process (its profiler would slow the
+    later eager launches of this one): the trace names mt_trace's and
+    shade_post's kernels."""
+    w, h = TOOLS_SIZE
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rt_rs_tpu_torch.tools.load", "--path", "torus.json", "--handler-pbvh",
+         "--width", str(w), "--height", str(h), "--frames", "2", "--profile", "prof", "--device", DEVICE],
+        capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"load --profile exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    trace = json.loads(pathlib.Path("prof/trace.json").read_text())
+    kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    for want in ("mt_trace", "shade_post"):
+        if not any(want in k for k in kernels):
+            raise AssertionError(f"load --profile: no {want} kernel in the trace's {len(kernels)} kernel names")
+    named = sorted(
+        {
+            re.sub(r"^void |\(anonymous namespace\)::", "", k).split("(")[0].split("<")[0]
+            for k in kernels
+            if "mt_trace" in k or "shade_post" in k
+        }
+    )
+    say(
+        f"[tools] load --profile (a child process, {time.perf_counter() - t0:.1f} s): the trace names "
+        f"{len(kernels)} kernels, among them {named}"
+    )
+
+
+def tools_viewer() -> list:
+    """The viewer on the card: frames equal render_image; a config, a
+    viewport and a scene switch each show in the next frame; a bad scene
+    keeps the old one and writes the note.  -> the kernel calls of the
+    first frame (320x240) and of the scene switch's (256x192, the second
+    torus), for the replay."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from rt_rs_tpu_torch.web import WebState, make_server
+
+    state = WebState("torus.json", handler="pbvh", size=VIEWER_SIZE, device=DEVICE)
+    server = make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            return resp.read()
+
+    def post(path: str, body: bytes = b"{}") -> None:
+        req = urllib.request.Request(base + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            resp.read()
+
+    recorded = []
+
+    def frame(what: str, record: str | None = None):
+        if record is None:
+            got = decode_png(get("/frame.png"))
+        else:
+            with Recorder() as rec:  # the server thread calls the patched wrappers
+                got = decode_png(get("/frame.png"))
+            recorded.append((record, rec.calls))
+        with state.lock:
+            ref = state.renderer.render_image()
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError(f"viewer {what}: /frame.png != render_image")
+        return got
+
+    try:
+        first = frame("first frame", f"tools viewer pbvh {VIEWER_SIZE[0]}x{VIEWER_SIZE[1]}")
+        post("/config", json.dumps({"bounces": 1}).encode())
+        f = frame("after a config update")
+        if state.renderer.config.compute.bounces != 1 or np.array_equal(f, first):
+            raise AssertionError("viewer: the config update did not show in the next frame")
+        post("/viewport", json.dumps({"width": 256, "height": 192}).encode())
+        f = frame("after a viewport change")
+        if f.shape != (192, 256, 3):
+            raise AssertionError(f"viewer: viewport change gave a frame of {f.shape}")
+        prims = state.renderer.scene.num_prims
+        post("/scene?name=second")
+        f = frame("after a scene switch", "tools viewer pbvh 256x192 second torus")
+        if state.renderer.scene.num_prims == prims or state.renderer.device != torch.device(DEVICE):
+            raise AssertionError("viewer: the scene switch did not take, or left the card")
+        prims = state.renderer.scene.num_prims
+        post("/scene?name=missing")
+        frame("after a bad scene name")
+        note = json.loads(get("/status"))["note"]
+        if state.renderer.scene.num_prims != prims or "failed to load scene" not in note:
+            raise AssertionError(f"viewer: a bad scene name replaced the scene or wrote no note ({note!r})")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("viewer: the server thread did not stop")
+    say(
+        f"[tools] viewer ({VIEWER_SIZE[0]}x{VIEWER_SIZE[1]}, pbvh, {DEVICE}): /frame.png = render_image "
+        f"after start, a config update (bounces 1), a viewport change (256x192), a scene switch "
+        f"({prims} prims); a bad scene name kept the scene, note {note!r}"
+    )
+    return recorded
+
+
+def tools_gif() -> bool:
+    """render_orbit_gif: its file equals write_gif of the render_image
+    sequence at the same cameras -> whether it ran (it needs PIL)."""
+    import importlib.util
+
+    from rt_rs_tpu_torch import Renderer, Scene
+    from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
+    from rt_rs_tpu_torch.utils.animation import render_orbit_gif, write_gif
+
+    if importlib.util.find_spec("PIL") is None:
+        say("[tools] PIL is not installed here: the GIF does not run")
+        return False
+    make = lambda: Renderer(Scene.load("torus.json"), handler="pbvh", size=VIEWER_SIZE, device=DEVICE)  # noqa: E731
+    times = render_orbit_gif(make(), "orbit.gif", frames=GIF_FRAMES)
+    ref, seq = make(), []
+    for _ in range(GIF_FRAMES):
+        seq.append(ref.render_image())
+        ref.orbit(2.0 * math.pi / GIF_FRAMES / ORBIT_RATE)
+    write_gif("ref.gif", seq)
+    if pathlib.Path("orbit.gif").read_bytes() != pathlib.Path("ref.gif").read_bytes():
+        raise AssertionError("render_orbit_gif != write_gif of the render_image sequence")
+    say(
+        f"[tools] the GIF ran: render_orbit_gif {GIF_FRAMES} frames at {VIEWER_SIZE[0]}x{VIEWER_SIZE[1]} "
+        f"= write_gif of the render_image sequence byte for byte (avg {sum(times) / len(times) * 1e3:.3f} ms "
+        "a frame, the copy to the host included)"
+    )
+    return True
+
+
+def phase_tools(card: str, frame_ms: dict, errs: dict) -> tuple[dict[str, int], dict]:
+    """The user-facing layer on the card, in a temporary directory:
+    construct -> load, precompute --device -> load --handler-bvh PATH,
+    the study's protocol, load --profile (a child process), the viewer
+    and the orbit GIF; then every kernel call of the card-built
+    checkpoint's frame and of two viewer frames replayed through kernel
+    and twin (into ``errs``).  -> (launches of the in-process steps,
+    results)."""
+    import contextlib
+    import tempfile
+
+    from rt_rs_tpu_torch.scene.presets import torus_row, torus_scene
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        scene = torus_scene()
+        scene.save("torus.json")
+        torus_scene(segments=(40, 20)).save("second.json")
+        torus_row(2).save("row.json")
+        write_obj(scene, "torus.obj")
+        reset_counts()
+        tools_construct_load()
+        recorded = tools_precompute()
+        protocol_ms, chart_ran = tools_protocol(frame_ms, card)
+        in_process = read_counts()
+        tools_profile()
+        reset_counts()
+        recorded += tools_viewer()
+        gif_ran = tools_gif()
+        counts = {k: in_process[k] + v for k, v in read_counts().items()}
+    ulps: dict[str, int] = {}
+    for label, calls in recorded:  # after the counts: these launches compare
+        replay(label, calls, errs, ulps)
+        n = {k: len(v) for k, v in calls.items() if v}
+        say(f"[compare] {label}: every kernel call bit-equal to its twin {n}; shading ulps {ulps}")
+    seconds = time.perf_counter() - t0
+    say(f"[tools] phase done in {seconds:.1f} s")
+    return counts, dict(protocol_ms=protocol_ms, chart_ran=chart_ran, gif_ran=gif_ran, seconds=seconds)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -2655,6 +3089,58 @@ def mt_call_ms(label: str, call, sep_rate: float, card: str) -> dict[str, float]
     return dict(ms=ms, bound_ms=b_ms, sep_ms=sep_ms)
 
 
+# shade_post's launch floor: an empty kernel on the grid rt_shade_post
+# launches (one thread a ray, blocks of 256).  It computes nothing, so it
+# has no plain version, and no frame path launches it: it lives here, not
+# in the package.
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+
+__global__ void shade_post_floor_kernel() {}
+
+extern "C" int rt_shade_post_floor(int n_tiles, int r, cudaStream_t stream) {
+  const long n = (long)n_tiles * r;
+  if (n > 0) {
+    const int threads = 256;
+    const long blocks = (n + threads - 1) / threads;
+    shade_post_floor_kernel<<<(unsigned)blocks, threads, 0, stream>>>();
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def floor_launcher():
+    """FLOOR_SRC built with the port's nvcc flags -> fn(t) launching the
+    empty kernel on shade_post's grid for rays shaped like ``t`` [T, r]."""
+    import ctypes
+
+    import torch
+
+    from rt_rs_tpu_torch.ops import cuda
+
+    out = cuda.BUILD / "shade_post_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "shade_post_floor.cu", out / "libshade_post_floor.so"
+    src.write_text(FLOOR_SRC)
+    proc = subprocess.run(
+        [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed on the floor kernel:\n" + proc.stdout + proc.stderr)
+    fn = ctypes.CDLL(str(lib)).rt_shade_post_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(t) -> None:
+        err = fn(*t.shape, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rt_shade_post_floor: CUDA launch failed with error {err}")
+
+    return launch
+
+
 def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str):
     """Kernel vs twin vs bound: at the 384x288 torus frame's shapes (the
     primary rows call, bounce 0's shadow batch and its refine cull,
@@ -2807,6 +3293,22 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         f"ms (device, profiler), twin {t_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
         f"{b_ms / k_ms:.2f} of the bound; {card}"
     )
+    # shade_post's launch floor: an empty kernel on its grid, timed as
+    # shade_post is, at the 1080p call's shapes and the 384x288 call's.
+    floors, floor = {}, floor_launcher()
+    for label, t_in in (("1920x1080", a[2]), ("384x288", picks["shade_post"][2][0][2])):
+        floors[label] = profiled(lambda: floor(t_in))[1]
+    times["shade_post floor"] = (floors["1920x1080"], floors["384x288"])
+    for label, (ms_, bound_ms) in (
+        ("384x288", (times["shade_post"][0], times["shade_post"][2])),
+        ("1920x1080", (k_ms, b_ms)),
+    ):
+        floor = floors[label]
+        say(
+            f"[time] shade_post's launch floor at {label} (an empty kernel on its grid, device, "
+            f"profiler): {floor:.4f} ms; shade_post {ms_:.4f} ms, bound {bound_ms:.4f} ms, bound + floor "
+            f"{bound_ms + floor:.4f} ms, {(bound_ms + floor) / ms_:.2f} of shade_post's time; {card}"
+        )
     ghost = recorded["flat torus_ghost 1080p"]["mt_trace"]
     mt_calls = {
         "mt_trace[closest] canyon segmented 640x480, busiest call": picks["mt_trace[closest]"][2],
@@ -2944,6 +3446,7 @@ def phase_dynamic_build(kept, card: str) -> dict:
 def main(full: bool = True) -> None:
     import torch
 
+    t0 = time.perf_counter()
     phase_device()
     card = card_line()
     phase_build()
@@ -2951,6 +3454,7 @@ def main(full: bool = True) -> None:
     if not full:
         return
     counts, frame_ms, kept = phase_paths(card)
+    counts["tools"], tools = phase_tools(card, frame_ms, errs)
     ab, torus_1080_ee = phase_ab(card)
     times, mt_calls = phase_kernel_times(
         recorded, torus_1080_ee, kept, kept["probes"]["rates"]["separate"], card
@@ -2987,7 +3491,10 @@ def main(full: bool = True) -> None:
         json.dumps(
             {
                 "frame_ms": frame_ms, "ab": ab, "mt_calls": mt_calls,
-                "shade_post_1080p": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["shade_post 1920x1080"])),
+                "shade_post_1080p": {
+                    **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["shade_post 1920x1080"])),
+                    **dict(zip(("floor_ms", "floor_ms_384x288"), times["shade_post floor"])),
+                },
                 "mt_trace_on_tpose_lists": dict(
                     zip(("ms", "plain_ms", "bound_ms", "bound_by"), times["mt_trace[closest] on mt_tpose's lists"])
                 ),
@@ -2996,10 +3503,12 @@ def main(full: bool = True) -> None:
                         times["bvh_walk[bvh] canyon 640x480"])
                 ),
                 "dynamic_build": builds,
+                "tools": tools,
                 "card": card,
             }
         )
     )
+    say(f"[total] chip_smoke.py ran for {time.perf_counter() - t0:.1f} s; {card}")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(

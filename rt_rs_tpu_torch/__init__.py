@@ -10,7 +10,9 @@ kernel-emitted rows, any-hit shadows and the per-ray refine cull;
 rebuilt on the device every frame) and their frame paths, with every
 TPU kernel of those paths, and the threaded walk, written by hand as
 CUDA kernels for Hopper (``sm_90a``, ``csrc/``).  Each kernel has a plain-PyTorch twin, which
-runs for CPU tensors.
+runs for CPU tensors.  Around them: the CLI tools (``tools/``), the
+study's benchmark protocol (``timing/``), the web viewer (``web/``) and
+the image and orbit-GIF helpers (``utils/``).
 
 This package imports ``torch`` and never ``jax`` or ``rt_rs_tpu``.
 """

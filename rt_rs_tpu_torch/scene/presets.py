@@ -31,6 +31,10 @@ scene.to_json())`` (the f32 values round-trip exactly).
   each, so a midpoint-split BVH built with ``eps=0`` is a chain about
   one level a triangle deep: the degenerate tree whose walk needs a
   deep stack.
+* :data:`MESH_VIEWS`, :func:`mesh_scene`, :func:`tiled_teapots` and
+  :func:`golden_set` — the JAX package's presets over the reference's
+  bundled OBJ meshes and scene JSON files, read from the directories
+  the caller names.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 
 from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.camera import CameraController, CameraUniform
+from rt_rs_tpu_torch.scene.obj import load_obj
 
 # The JAX package's mesh-preset lights (rt_rs_tpu/scene/presets.py:65-68).
 LIGHT_POS = ((30.0, 40.0, -20.0), (-25.0, 30.0, 25.0))
@@ -312,3 +317,57 @@ def no_prims() -> Scene:
     scene.mat_albedo = np.array([[1.0, 0.0, 0.0]], np.float32)
     scene.mat_spec = np.array([1.0], np.float32)
     return scene
+
+
+# The presets below read the reference's bundled meshes and scenes
+# (rt_rs_tpu/scene/presets.py:40-160).  The directories are required
+# arguments: the port assumes no reference checkout on its host.
+
+# mesh -> (camera position, bounces); the camera frames the whole model.
+MESH_VIEWS = {
+    "dodecahedron": ((0.0, 0.0, -6.0), 2),
+    "magnolia": ((0.0, 0.0, -180.0), 2),
+    "shuttle": ((0.0, 6.0, -25.0), 4),
+    "cessna": ((0.0, 10.0, -60.0), 4),
+}
+
+
+def mesh_scene(name: str, meshes_dir: str, lights: bool = True) -> tuple[Scene, int]:
+    """``meshes_dir/<name>.obj`` (a mesh of MESH_VIEWS) under two lights
+    -> (scene, bounces)."""
+    campos, bounces = MESH_VIEWS[name]
+    scene = Scene.empty(
+        camera=CameraUniform(campos, (0.0, 0.0, 0.0)),
+        camera_controller=CameraController("Orbit"),
+    )
+    scene.mat_color = np.array([[0.5, 0.1, 0.1]], dtype=np.float32)
+    scene.mat_albedo = np.array([[0.9, 0.1, 0.3]], dtype=np.float32)
+    scene.mat_spec = np.array([10.0], dtype=np.float32)
+    if lights:
+        scene.light_pos = np.array(LIGHT_POS, dtype=np.float32)
+        scene.light_strength = np.array(LIGHT_STRENGTH, dtype=np.float32)
+    scene.add_mesh(load_obj(f"{meshes_dir}/{name}.obj"), 0)
+    return scene, bounces
+
+
+def tiled_teapots(n: int, scenes_dir: str) -> Scene:
+    """``n`` copies of ``scenes_dir/teatime.json`` in a row, 8 apart:
+    n = 3 gives 18,960 prims, past the resident table's 12,288, so pbvh
+    takes segmented tables."""
+    base = Scene.load(f"{scenes_dir}/teatime.json")
+    offsets = [((i - (n - 1) / 2.0) * 8.0, 0.0, 0.0) for i in range(n)]
+    return tiled_copies(base, offsets)
+
+
+def golden_set(meshes_dir: str, scenes_dir: str) -> dict[str, tuple[Scene, int]]:
+    """name -> (scene, bounces) for every golden of the JAX package
+    beyond the two shipped JSON scenes (those load from ``scenes_dir``):
+    cessna (degenerate faces: NaN normals), shuttle, the ghost scene
+    (a ``material = -1`` prim: the flat path) and three teapots
+    (segmented tables)."""
+    return {
+        "cessna": mesh_scene("cessna", meshes_dir),
+        "shuttle": mesh_scene("shuttle", meshes_dir),
+        "ghost": (ghost_scene(-1), 4),
+        "teapots3": (tiled_teapots(3, scenes_dir), 4),
+    }
