@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Eleven paths are driven, the frame paths through ``Renderer(...,
+Twelve paths are driven, the frame paths through ``Renderer(...,
 device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
@@ -64,6 +64,13 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   --profile`` in a child process; the web viewer (``web.make_server``)
   and ``utils.animation.render_orbit_gif``; then the card-built
   checkpoint's frame and two viewer frames replayed call by call;
+* ``parallel``: multi-device rendering (``rt_rs_tpu_torch.parallel``,
+  :func:`phase_parallel`): ``make_sharded_render`` on ranks started by
+  ``run_ranks``, four ranks sharing the card over gloo with every case
+  of PARALLEL (image bands of pbvh, of the threaded ``bvh`` walk and of
+  the flat path; scene shards of the torus, of the canyon (each shard
+  past the resident cap, so segmented) and of a padded table), and one
+  rank over NCCL; with the native builder's and parser's checks;
 * ``chain``: ``Renderer.animate(chain=K)``, one replay of a captured
   CUDA graph of K orbit frames per dispatch, on every frame path above
   (torus, segmented and dma canyon, knobs, flat, blank, naive, the
@@ -183,8 +190,22 @@ exits nonzero without printing a result):
    frames at 384x288 and 1080p.  dual: the torus at 384x288 and 1080p and
    the segmented canyon at 640x480 bit-equal to their single-table
    frames, an orbit of the torus at 384x288.
+   parallel (:func:`phase_parallel`, after the paths): the native
+   library built in this process first, ``build_bvh`` on the canyon
+   native against the NumPy builder (equal arrays, both timed); then one
+   ``run_ranks`` call of four ranks on ``cuda:0`` over gloo with every
+   case of PARALLEL, and one of a single rank over NCCL
+   (PARALLEL_NCCL): every rank's frame bit-equal to
+   ``Renderer(...).render_frame()`` at the same size on the card, the
+   luminance equal on every rank and within rel 1e-4 of the single
+   frame's mean, rank 0's launches of each case's first frame counted
+   from 0, ms/frame on rank 0 over PARALLEL_FRAMES frames after it
+   (ranks sharing one card over gloo: a correctness run, not a scaling
+   number), and rank 0's kernel calls of PARALLEL_REPLAY's first frame
+   replayed through kernel and twin (into ``max_abs_err``).
    tools (:func:`phase_tools`, after the paths and before the first
    torch.profiler phase; launches counted over its in-process steps):
+   ``load_obj`` native against the Python parser on the OBJ it writes;
    construct -> load's PNG (decoded by :func:`decode_png`, the standard
    library) equal to ``render_image`` after the same orbit steps; the
    card's ``precompute --device`` checkpoint equal to the CPU's, 0
@@ -259,7 +280,8 @@ exits nonzero without printing a result):
 
 The second-to-last lines are JSON objects of frame times (with the
 chain phase, the A/B, the mt_trace calls, shade_post at 1080p and its
-launch floor, the tools phase's protocol,
+launch floor, the parallel phase's ms/frame and native build times, the
+tools phase's protocol,
 mt_trace[closest] on mt_tpose's lists and the dynamic build) and
 of per-kernel results, then the ``nvidia-smi`` name / power-limit line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -440,6 +462,12 @@ PATHS = {
         "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post",
         "bvh_walk[bvh]",
     ),
+    # multi-device rendering (phase_parallel): rank 0's launches of one
+    # frame per case, image bands and scene shards on ranks sharing the card
+    "parallel": (
+        "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre",
+        "shade_post", "bvh_walk[bvh]",
+    ),
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
         "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]",
@@ -485,6 +513,27 @@ CHAIN = {
 }
 # cases also timed at chain=4, and whose graphs' device bytes are read
 CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
+# The parallel path (phase_parallel): case -> (mesh shape, scene,
+# handler, handler kwargs, width, height), each rendered by
+# rt_rs_tpu_torch.parallel on PARALLEL_RANKS ranks that share the card
+# over gloo, every rank's frame bit-equal to Renderer's at the same size.
+PARALLEL_RANKS = 4
+PARALLEL = {
+    "(a) image_mesh(4) torus pbvh 384x288": ((4,), "torus", "pbvh", {}, 384, 288),
+    "(b) image_mesh(4) torus bvh threaded 384x288": ((4,), "torus", "bvh", THREADED, 384, 288),
+    "(c) hybrid_mesh(2,2) torus pbvh 384x288": ((2, 2), "torus", "pbvh", {}, 384, 288),
+    "(d) hybrid_mesh(2,2) canyon pbvh 640x480": ((2, 2), "canyon", "pbvh", {}, 640, 480),
+    "(e) hybrid_mesh(1,3) torus pbvh tc8 384x288": (
+        (1, 3), "torus", "pbvh", {"tri_chunk": 8}, 384, 288,
+    ),
+    "(f) image_mesh(4) torus_ghost flat 384x288": ((4,), "ghost", "pbvh", {}, 384, 288),
+}
+# one rank on the card over NCCL, against case (a)'s reference frame
+PARALLEL_NCCL = {"image_mesh(1) torus pbvh 384x288 nccl": ((1,), "torus", "pbvh", {}, 384, 288)}
+# rank 0 of this case records its first frame's kernel calls, replayed
+PARALLEL_REPLAY = "(d) hybrid_mesh(2,2) canyon pbvh 640x480"
+# frames timed per case, after the first (the warm frame)
+PARALLEL_FRAMES = 4
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
 # f32 outside the tensor cores, dense TF32 on the tensor cores, and HBM3
@@ -2005,8 +2054,9 @@ def phase_paths(card: str):
 
     counts, frame_ms, first, kept = {}, {}, {}, {}
     for path, needed in PATHS.items():
-        if path in ("chain", "tools"):  # phase_chain, phase_tools
+        if path in ("chain", "tools", "parallel"):  # phase_chain, phase_tools, phase_parallel
             continue
+        t0 = time.perf_counter()
         reset_counts()
         if path == "knobs":
             ms, kept[path] = drive_knobs(card, first)
@@ -2029,7 +2079,7 @@ def phase_paths(card: str):
         missing = [k for k in needed if counts[path][k] == 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched on the path: {missing}")
-        say(f"[launches] {path}: {counts[path]}")
+        say(f"[launches] {path}: {counts[path]} ({time.perf_counter() - t0:.1f} s)")
     a, b = first["segmented"]["640x480"], first["dma"]["640x480"]
     if not torch.equal(a, b):
         raise AssertionError(
@@ -2037,6 +2087,200 @@ def phase_paths(card: str):
         )
     say("[frame] canyon 640x480: segmented and dma frames bit-equal")
     return counts, frame_ms, kept
+
+
+# ----------------------------------------------------------------------
+# the parallel path: rt_rs_tpu_torch.parallel on ranks sharing the card
+
+
+def parallel_scene(name: str):
+    from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_ghost, torus_scene
+
+    return {"torus": torus_scene, "canyon": torus_canyon, "ghost": torus_ghost}[name]()
+
+
+def parallel_rank(rank: int, cases: dict, replay_case: str | None) -> dict:
+    """One rank of the parallel path: per case (on the ranks of its
+    mesh) the first frame, with rank 0's launches counted from 0 just
+    before it and read just after it (and, for ``replay_case``, its
+    kernel calls recorded), then PARALLEL_FRAMES frames timed on the
+    host clock between synchronizations.  Rank 0 then replays the
+    recorded calls through kernel and twin.  -> {case: frame (NumPy),
+    luminance, launches, ms}, plus the replay's errors."""
+    import contextlib
+
+    import torch
+
+    from rt_rs_tpu_torch import Config, Resolution
+    from rt_rs_tpu_torch.handlers import get_handler
+    from rt_rs_tpu_torch.parallel import hybrid_mesh, image_mesh, make_sharded_render
+
+    meshes, out, recorded = {}, {}, None
+    for label, (shape, scene_name, hname, hkw, w, h) in cases.items():
+        if shape not in meshes:
+            meshes[shape] = image_mesh(shape[0]) if len(shape) == 1 else hybrid_mesh(*shape)
+        mesh = meshes[shape]
+        if mesh is None:
+            continue
+        scene = parallel_scene(scene_name)
+        handler = get_handler(hname, **hkw)
+        accel, arrays = handler.build(scene, scene.pack(device=mesh.device))
+        config = Config(resolution=Resolution.sized(w, h))
+        fn = make_sharded_render(
+            handler, accel, arrays, config.compute, w, h, mesh, resolution=config.resolution
+        )
+        pos, at = scene.camera.pos, scene.camera.at
+        rec = Recorder() if rank == 0 and label == replay_case else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        reset_counts()
+        with rec:
+            frame, lum = fn(pos, at)
+            torch.cuda.synchronize()
+        launches = read_counts()
+        if isinstance(rec, Recorder):
+            recorded = (label, rec.calls)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_FRAMES):
+            again, _ = fn(pos, at)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / PARALLEL_FRAMES * 1e3
+        out[label] = dict(
+            frame=frame.cpu().numpy(), lum=float(lum), launches=launches, ms=ms,
+            again_equal=bool(torch.equal(again, frame)),
+        )
+    errs, ulps, n_calls = {k: 0.0 for k in KERNELS}, {}, {}
+    if recorded is not None:
+        label, calls = recorded
+        replay(f"parallel {label} rank 0", calls, errs, ulps)
+        n_calls = {k: len(v) for k, v in calls.items() if v}
+    return dict(cases=out, errs=errs, ulps=ulps, n_calls=n_calls)
+
+
+def check_native() -> dict:
+    """The native builder on the card's host: build_bvh on the canyon,
+    native against the NumPy builder (equal arrays), both timed."""
+    import numpy as np
+
+    from rt_rs_tpu_torch.bvh import BvhData, build_aabb_tree
+    from rt_rs_tpu_torch.native import bindings
+    from rt_rs_tpu_torch.native import build as native_build
+    from rt_rs_tpu_torch.scene.presets import torus_canyon
+
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    build_s = time.perf_counter() - t0
+    scene = torus_canyon()
+    t0 = time.perf_counter()
+    native = bindings.bvh_build_native(scene.vert_pos, scene.prim_indices, 0.02, 2)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = BvhData.from_tree(build_aabb_tree(scene, eps=0.02, target_item_count=2))
+    numpy_s = time.perf_counter() - t0
+    for f, a in native.items():
+        if not np.array_equal(a, getattr(ref, f)):
+            raise AssertionError(f"native build_bvh {f} differs from the NumPy builder's")
+    say(
+        f"[native] {lib.relative_to(ROOT)} built in {build_s:.2f} s; build_bvh canyon "
+        f"({scene.num_prims} triangles): native {native_s:.4f} s, NumPy {numpy_s:.4f} s, "
+        "every array equal"
+    )
+    return dict(build_s=build_s, native_s=native_s, numpy_s=numpy_s)
+
+
+def check_native_obj(path: str) -> None:
+    """``load_obj`` (native) equal to the Python parser on ``path``."""
+    import numpy as np
+
+    from rt_rs_tpu_torch.scene import obj
+
+    def triangles(mesh):
+        return [(i, [None if x is None else tuple(x) for x in n]) for i, n in mesh.triangles()]
+
+    native, py = obj.load_obj(path), obj._load_obj_py(path)
+    same = (
+        np.array_equal(native.positions, py.positions)
+        and np.array_equal(native.normals, py.normals)
+        and triangles(native) == triangles(py)
+    )
+    if not same:
+        raise AssertionError(f"native load_obj({path}) differs from the Python parser")
+    say(f"[native] load_obj({path}): native = Python ({len(native.faces)} triangles)")
+
+
+def phase_parallel(card: str, errs: dict) -> tuple[dict[str, int], dict]:
+    """The parallel path: the native build and its checks, then one
+    run_ranks call of PARALLEL_RANKS ranks on the card over gloo with
+    every case of PARALLEL, and one of a single rank over NCCL; every
+    rank's frame bit-equal to Renderer's at the same size on the card,
+    its luminance equal on every rank and within rel 1e-4 of the single
+    frame's mean; rank 0's replayed calls fold into ``errs``.  ->
+    (rank 0's launches, summed over the cases, results)."""
+    import numpy as np
+
+    from rt_rs_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    native = check_native()  # built here, before the ranks load it
+    runs = [
+        (
+            PARALLEL,
+            run_ranks(parallel_rank, ["cuda:0"] * PARALLEL_RANKS, PARALLEL, PARALLEL_REPLAY),
+            f"{PARALLEL_RANKS} ranks sharing one card over gloo: a correctness run, not a "
+            "scaling number",
+        ),
+        (PARALLEL_NCCL, run_ranks(parallel_rank, ["cuda:0"], PARALLEL_NCCL, None), "1 rank, NCCL"),
+    ]
+    luma = np.array([0.2126, 0.7152, 0.0722], np.float32)
+    counts = {k: 0 for k in KERNELS}
+    ms = {}
+    for cases, results, note in runs:
+        for label, (shape, scene_name, hname, hkw, w, h) in cases.items():
+            r = (
+                ghost(w, h) if scene_name == "ghost"
+                else renderer(w, h, parallel_scene(scene_name), handler=hname, **hkw)
+            )
+            ref = r.render_frame().cpu().numpy()
+            got = [res["cases"][label] for res in results if label in res["cases"]]
+            if len(got) != math.prod(shape):
+                raise AssertionError(f"parallel {label}: {len(got)} ranks rendered")
+            for rank, g in enumerate(got):
+                if not np.array_equal(g["frame"], ref):
+                    d = np.abs(g["frame"] - ref)
+                    raise AssertionError(
+                        f"parallel {label} rank {rank}: frame differs from Renderer's "
+                        f"({int((d > 0).sum())} values, max {float(d.max())})"
+                    )
+                if not g["again_equal"]:
+                    raise AssertionError(f"parallel {label} rank {rank}: timed frames differ")
+            lums = {g["lum"] for g in got}
+            single = float((ref @ luma).mean())
+            lum = lums.pop()
+            if lums or not abs(lum - single) <= 1e-4 * abs(single):
+                raise AssertionError(
+                    f"parallel {label}: luminance {sorted(lums | {lum})} vs the single "
+                    f"frame's {single}"
+                )
+            for k in KERNELS:
+                counts[k] += got[0]["launches"][k]
+            ms[label] = got[0]["ms"]
+            say(
+                f"[parallel] {label}: {len(got)} ranks' frames bit-equal to Renderer's "
+                f"({w}x{h}); luminance {lum:.6f} on every rank (single {single:.6f}); "
+                f"{got[0]['ms']:.3f} ms/frame on rank 0 ({note}); launches {dict((k, v) for k, v in got[0]['launches'].items() if v)}; {card}"
+            )
+    missing = [k for k in PATHS["parallel"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"parallel: kernels never launched on the path: {missing}")
+    rank0 = runs[0][1][0]
+    for k, v in rank0["errs"].items():
+        errs[k] = max(errs[k], v)
+    say(
+        f"[compare] parallel {PARALLEL_REPLAY} rank 0: every kernel call bit-equal to its "
+        f"twin {rank0['n_calls']}; shading ulps {rank0['ulps']}"
+    )
+    seconds = time.perf_counter() - t0
+    say(f"[parallel] phase done in {seconds:.1f} s")
+    return counts, dict(ms=ms, native=native, seconds=seconds)
 
 
 # ----------------------------------------------------------------------
@@ -2414,6 +2658,7 @@ def phase_tools(card: str, frame_ms: dict, errs: dict) -> tuple[dict[str, int], 
         torus_scene(segments=(40, 20)).save("second.json")
         torus_row(2).save("row.json")
         write_obj(scene, "torus.obj")
+        check_native_obj("torus.obj")
         reset_counts()
         tools_construct_load()
         recorded = tools_precompute()
@@ -2424,6 +2669,9 @@ def phase_tools(card: str, frame_ms: dict, errs: dict) -> tuple[dict[str, int], 
         recorded += tools_viewer()
         gif_ran = tools_gif()
         counts = {k: in_process[k] + v for k, v in read_counts().items()}
+    missing = [k for k in PATHS["tools"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"tools: kernels never launched on the path: {missing}")
     ulps: dict[str, int] = {}
     for label, calls in recorded:  # after the counts: these launches compare
         replay(label, calls, errs, ulps)
@@ -3447,23 +3695,40 @@ def main(full: bool = True) -> None:
     import torch
 
     t0 = time.perf_counter()
+    lap = [t0]
+
+    def took(phase: str) -> None:
+        now = time.perf_counter()
+        say(f"[time] {phase}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
     phase_device()
     card = card_line()
     phase_build()
+    took("device and build")
     errs, recorded = phase_compare()
+    took("compare")
     if not full:
         return
     counts, frame_ms, kept = phase_paths(card)
+    took("paths")
+    counts["parallel"], parallel = phase_parallel(card, errs)
+    took("parallel")
     counts["tools"], tools = phase_tools(card, frame_ms, errs)
+    took("tools")
     ab, torus_1080_ee = phase_ab(card)
+    took("ab")
     times, mt_calls = phase_kernel_times(
         recorded, torus_1080_ee, kept, kept["probes"]["rates"]["separate"], card
     )
+    took("kernel times")
     phase_profile(kept, card)
     builds = phase_dynamic_build(kept, card)
+    took("profile")
     # Last: the phases above time single calls with torch.profiler, whose
     # traces lost kernels when they ran after graphs were captured.
     counts["chain"], frame_ms["chain"] = phase_chain(card)
+    took("chain")
     kernels = [
         {
             "name": name,
@@ -3503,6 +3768,7 @@ def main(full: bool = True) -> None:
                         times["bvh_walk[bvh] canyon 640x480"])
                 ),
                 "dynamic_build": builds,
+                "parallel": parallel,
                 "tools": tools,
                 "card": card,
             }

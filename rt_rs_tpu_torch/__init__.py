@@ -11,8 +11,10 @@ rebuilt on the device every frame) and their frame paths, with every
 TPU kernel of those paths, and the threaded walk, written by hand as
 CUDA kernels for Hopper (``sm_90a``, ``csrc/``).  Each kernel has a plain-PyTorch twin, which
 runs for CPU tensors.  Around them: the CLI tools (``tools/``), the
-study's benchmark protocol (``timing/``), the web viewer (``web/``) and
-the image and orbit-GIF helpers (``utils/``).
+study's benchmark protocol (``timing/``), the web viewer (``web/``),
+the image and orbit-GIF helpers (``utils/``), multi-device rendering
+over ``torch.distributed`` ranks (``parallel/``) and the native C++ BVH
+builder and OBJ parser (``native/``).
 
 This package imports ``torch`` and never ``jax`` or ``rt_rs_tpu``.
 """

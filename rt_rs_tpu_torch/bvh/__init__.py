@@ -9,8 +9,9 @@ table); the ``bvh`` and ``rf_bvh`` handlers walk the tree over its
 escape links (:meth:`BvhData.escape_links`: the preorder flatten gives
 every node's escape a larger index, so a ray carries one node cursor
 and no stack) and its covering bounds (:meth:`BvhData.cover_bounds`).
-The JAX package's native C++ builder is not ported: :func:`build_bvh`
-runs the NumPy builder, which produces the same tree bit for bit.
+:func:`build_bvh` runs the native C++ builder
+(:mod:`rt_rs_tpu_torch.native`) unless ``RT_NATIVE=0``, which selects
+the NumPy builder; both produce the same tree bit for bit.
 """
 
 from __future__ import annotations
@@ -244,7 +245,20 @@ def build_bvh(
     target_item_count: int = 2,
 ) -> BvhData:
     """Scene -> flattened BVH (reference ``Aabb::from_scene`` +
-    ``BvhData::new``; defaults from handlers/bvh.rs:33, 82)."""
+    ``BvhData::new``; defaults from handlers/bvh.rs:33, 82).
+
+    Uses the native C++ builder (bit-identical output; built at first
+    use, and a failed build raises); ``RT_NATIVE=0`` selects the NumPy
+    builder.  A scene with no prims always takes the NumPy path."""
+    if scene.num_prims:
+        from rt_rs_tpu_torch.native import bindings
+
+        if bindings.available():
+            return BvhData(
+                **bindings.bvh_build_native(
+                    scene.vert_pos, scene.prim_indices, eps, target_item_count
+                )
+            )
     root = build_aabb_tree(scene, eps=eps, target_item_count=target_item_count)
     return BvhData.from_tree(root)
 

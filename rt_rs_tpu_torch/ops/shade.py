@@ -198,13 +198,19 @@ def camera_ray_tiles(
     width: int,
     height: int,
     ray_tile: int,
+    y_offset: int = 0,
+    rows: int | None = None,
     block: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Primary rays (:func:`camera_rays`' rays, bit for bit) as
     component-major tiles -> (payload [8, T, r], valid [T, r],
-    n_pixels), ``T`` padded to a multiple of TILE_GROUP."""
+    n_pixels), ``T`` padded to a multiple of TILE_GROUP.  ``y_offset`` /
+    ``rows`` select a horizontal band of the image, as in
+    :func:`camera_rays`; the defaults cover the full frame."""
+    if rows is None:
+        rows = height
     dev = camera_pos.device
-    norm_x, norm_y, n_pixels = _pixel_grid(width, height, height, 0, block, dev)
+    norm_x, norm_y, n_pixels = _pixel_grid(width, height, rows, y_offset, block, dev)
     t_tiles = -(-n_pixels // ray_tile)
     t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
     n_pad = t_tiles * ray_tile

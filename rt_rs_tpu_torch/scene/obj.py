@@ -4,8 +4,9 @@ Counterpart of ``rt_rs_tpu/scene/obj.py`` (reference: the Rust
 ``wavefront`` crate, ``src/tools/construct.rs:175``,
 ``src/lib/scene/mod.rs:291-299``): a unique position list, per-corner
 optional normals, and fan triangulation of polygonal faces.  This is the
-JAX package's pure-Python parser, its correctness oracle; its native C++
-fast path is not ported (ROADMAP §1 item 9).
+JAX package's pure-Python parser, its correctness oracle, and the
+native C++ parser (:mod:`rt_rs_tpu_torch.native`), which ``load_obj``
+takes unless ``RT_NATIVE=0``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,25 @@ def _parse_index(token: str, count: int) -> int:
 
 
 def load_obj(path: str) -> ObjMesh:
-    """Parse an OBJ file.
+    """Parse an OBJ file with the native C++ parser (identical output;
+    built at first use, and a failed build raises); ``RT_NATIVE=0``
+    selects :func:`_load_obj_py`.  The native mesh lists the faces
+    already fan-triangulated, so :meth:`ObjMesh.triangles` yields the
+    same triangles from either."""
+    from rt_rs_tpu_torch.native import bindings
+
+    if bindings.available():
+        pos, norm, tri_pos, tri_norm = bindings.obj_load_native(path)
+        faces = [
+            [(int(tri_pos[t, k]), int(tri_norm[t, k])) for k in range(3)]
+            for t in range(tri_pos.shape[0])
+        ]
+        return ObjMesh(positions=pos, normals=norm, faces=faces)
+    return _load_obj_py(path)
+
+
+def _load_obj_py(path: str) -> ObjMesh:
+    """The Python parser, the oracle.
 
     Values parse text -> f64 here and ``Scene.add_mesh`` rounds them to
     f32 (the reference parses text -> f32 directly): the two differ only

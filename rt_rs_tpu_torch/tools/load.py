@@ -15,11 +15,16 @@ Headless additions: ``--frames N`` renders N orbit-stepped frames,
 study's protocol and writes ``benchmark.png`` in the working directory,
 ``--gif`` writes an orbit GIF, ``--profile DIR`` writes a
 torch.profiler Chrome trace of the run into DIR.  ``--device`` names
-the torch device (default ``cuda``).  ``--bands`` / ``--shards``
-(multi-device rendering) are not ported yet and exit with a message.
+the torch device (default ``cuda``).  ``--bands N`` / ``--shards M``
+render over N x M ranks (:mod:`rt_rs_tpu_torch.parallel`): N image
+bands, each over M scene shards of the chunk table; on ``cuda`` one
+rank per card (the run exits when there are fewer cards), on ``cpu``
+N x M CPU ranks over gloo.
 
     python -m rt_rs_tpu_torch.tools.load --path scene.json --handler-pbvh \
         --width 384 --height 288 --frames 3 --out frame.png [--device cpu]
+    python -m rt_rs_tpu_torch.tools.load --path scene.json --handler-pbvh \
+        --width 64 --height 48 --bands 2 --shards 2 --device cpu --out f.png
 """
 
 from __future__ import annotations
@@ -28,11 +33,6 @@ import argparse
 import os
 
 from rt_rs_tpu_torch.config import ComputeConfig, Config, Resolution
-
-SHARDED_NOT_PORTED = (
-    "--bands / --shards: multi-device rendering is not ported to rt_rs_tpu_torch yet "
-    "(ROADMAP §1 item 8); nothing was rendered"
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,14 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device every tensor lives on and every kernel runs on "
         "(default: cuda; cpu runs the kernels' plain-PyTorch twins)",
     )
-    # The JAX package's multi-device surface; not ported yet.
+    # Multi-device rendering (rt_rs_tpu_torch.parallel).
     p.add_argument(
         "--bands", type=int, default=None, metavar="N",
-        help="shard the image over N devices (not ported yet)",
+        help="shard the image over N devices (horizontal bands)",
     )
     p.add_argument(
         "--shards", type=int, default=None, metavar="M",
-        help="shard the triangle chunk table over M devices per band (not ported yet)",
+        help="shard the triangle chunk table over M devices per band",
     )
     # Dynamic geometry (DynamicRenderer).
     p.add_argument(
@@ -226,13 +226,89 @@ def run(args, renderer) -> int:
     return 0
 
 
+def run_sharded(args, config: Config, handler_name: str, handler_kwargs: dict) -> int:
+    """--bands / --shards: the frames over ``bands x shards`` ranks
+    (:func:`rt_rs_tpu_torch.parallel.make_sharded_render`; bands =
+    data-parallel image rows, shards = slices of the chunk table), one
+    rank per card on ``cuda`` and CPU ranks on ``cpu``.  Rank 0 prints
+    and writes ``--out``."""
+    import torch
+
+    from rt_rs_tpu_torch.native import bindings
+    from rt_rs_tpu_torch.native import build as native_build
+    from rt_rs_tpu_torch.ops import cuda
+    from rt_rs_tpu_torch.parallel.launch import run_ranks
+
+    bands = args.bands or 1
+    shards = args.shards or 1
+    n = bands * shards
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if n > have:
+            raise SystemExit(
+                f"--bands {bands} x --shards {shards} needs {n} devices; torch sees "
+                f"{have} CUDA device(s) (--device cpu renders on {n} CPU ranks)"
+            )
+        devices = [f"cuda:{i}" for i in range(n)]
+        cuda.build()  # once, before the ranks load it
+    else:
+        devices = [str(device)] * n
+    if bindings.available():
+        native_build.build()
+    run_ranks(_sharded_rank, devices, args, config, handler_name, handler_kwargs, bands, shards)
+    return 0
+
+
+def _sharded_rank(rank, args, config, handler_name, handler_kwargs, bands, shards) -> None:
+    """One rank of :func:`run_sharded`."""
+    import time
+
+    import numpy as np
+
+    from rt_rs_tpu_torch.handlers import get_handler
+    from rt_rs_tpu_torch.parallel import hybrid_mesh, image_mesh, make_sharded_render
+    from rt_rs_tpu_torch.renderer import device_sync
+    from rt_rs_tpu_torch.scene import Scene
+    from rt_rs_tpu_torch.utils.image import write_png
+
+    mesh = hybrid_mesh(bands, shards) if shards > 1 else image_mesh(bands)
+    scene = Scene.load(args.path)
+    width, height = config.resolution.size()
+    handler = get_handler(handler_name, **handler_kwargs)
+    accel, arrays = handler.build(scene, scene.pack(device=mesh.device))
+    stats = handler.stats(accel)
+    if rank == 0:
+        print(f"handler: {stats.name} ({stats.size} B) on mesh {mesh.axis_sizes}", flush=True)
+    fn = make_sharded_render(
+        handler, accel, arrays, config.compute, width, height, mesh,
+        resolution=config.resolution,
+    )
+    camera = scene.camera
+    frame = lum = None
+    t0 = time.perf_counter()
+    for _ in range(args.frames):
+        frame, lum = fn(camera.pos, camera.at)
+        camera = camera.orbited(1.0)
+    device_sync(frame)
+    dt = (time.perf_counter() - t0) / max(args.frames, 1) * 1e3
+    if rank != 0:
+        return
+    print(f"{args.frames} frames, {dt:.2f} ms/frame, mean luminance {float(lum):.4f}", flush=True)
+    if args.out and frame is not None:
+        img = np.round(np.clip(frame.cpu().numpy(), 0.0, 1.0) * 255.0)
+        write_png(args.out, img.astype(np.uint8))
+        print(f"wrote {args.out}", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     from rt_rs_tpu_torch.utils.log import init_logging
 
     init_logging()
     args = build_parser().parse_args(argv)
     if args.bands or args.shards:
-        raise SystemExit(SHARDED_NOT_PORTED)
+        handler, kwargs = pick_handler(args)
+        return run_sharded(args, config_from_args(args), handler, kwargs)
     renderer = make_renderer(args)
     print(f"handler: {renderer.stats.name} ({renderer.stats.size} B)")
 

@@ -5,9 +5,11 @@ The OBJ files are written by the tests (the bundled meshes live in the
 absent reference checkout): a tetrahedron with and without normals, a
 quad and a pentagon (fan triangulation), negative indices, corners with
 and without normals in one face, and a degenerate face whose corner
-angles are NaN.  Parsing and ``add_mesh`` are host NumPy arithmetic in
-the reference's f32 operation order in both packages: every array is
-bit-equal (NaN where the other is NaN).
+angles are NaN.  Parsing and ``add_mesh`` are host arithmetic in the
+reference's f32 operation order in both packages: every array is
+bit-equal (NaN where the other is NaN).  ``load_obj`` takes the native
+parser unless ``RT_NATIVE=0``; both of its paths are held to the JAX
+package's Python parser.
 """
 
 from __future__ import annotations
@@ -104,19 +106,29 @@ def obj_path(request, tmp_path):
     return str(path)
 
 
-def test_load_obj_matches_jax(obj_path):
-    ours, ref = obj.load_obj(obj_path), jobj._load_obj_py(obj_path)
-    for f in ("positions", "normals"):
-        a, b = getattr(ours, f), getattr(ref, f)
-        assert a.dtype == b.dtype == np.float64 and a.shape == b.shape
-        np.testing.assert_array_equal(a, b)
-    assert ours.faces == ref.faces
-    got = list(ours.triangles())
+def test_load_obj_matches_jax(obj_path, monkeypatch):
+    """``load_obj`` against the JAX package's Python parser, on both of
+    its paths: the native parser (the default), whose faces are the
+    fan triangles, as the JAX package's native path lists them, and
+    ``RT_NATIVE=0``'s Python parser, whose faces are the file's."""
+    ref = jobj._load_obj_py(obj_path)
+    native = obj.load_obj(obj_path)
+    monkeypatch.setenv("RT_NATIVE", "0")
+    py = obj.load_obj(obj_path)
+    assert py.faces == ref.faces
+    fans = [[face[0], face[k], face[k + 1]] for face in ref.faces for k in range(1, len(face) - 1)]
+    assert native.faces == fans
     want = list(ref.triangles())
-    assert [i for i, _ in got] == [i for i, _ in want] and got
-    for (_, n1), (_, n2) in zip(got, want, strict=True):
-        for a, b in zip(n1, n2, strict=True):
-            assert (a is None and b is None) or np.array_equal(a, b)
+    for ours in (native, py):
+        for f in ("positions", "normals"):
+            a, b = getattr(ours, f), getattr(ref, f)
+            assert a.dtype == b.dtype == np.float64 and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+        got = list(ours.triangles())
+        assert [i for i, _ in got] == [i for i, _ in want] and got
+        for (_, n1), (_, n2) in zip(got, want, strict=True):
+            for a, b in zip(n1, n2, strict=True):
+                assert (a is None and b is None) or np.array_equal(a, b)
 
 
 def _scenes():

@@ -11,8 +11,9 @@ CPU) equal the JAX tools' byte for byte, the JAX tools on the CPU.
 its PNG is held to the JAX ``load`` PNG within one level on at most
 0.1% of the values (the frames agree within 2e-5, the repo's frame
 rule, so a value may round to the other level); every case here is
-equal.  ``--bands`` / ``--shards`` exit with a message and render
-nothing.  ``mesh_scene``, ``tiled_teapots`` and ``golden_set`` pack
+equal.  ``--bands`` / ``--shards`` on ``--device cuda`` exit naming
+the device count when there are too few cards, and render nothing (they
+render on CPU ranks in tests/test_torch_parallel.py).  ``mesh_scene``, ``tiled_teapots`` and ``golden_set`` pack
 equal to the JAX functions given the same directories.
 """
 
@@ -292,14 +293,18 @@ def test_load_parser_matches_jax():
     assert ours["device"][1] == "cuda"
 
 
-def test_load_refuses_bands_and_shards(files, tmp_path, capsys):
+def test_load_refuses_bands_and_shards(files, tmp_path, capsys, monkeypatch):
+    """More ranks than cards on ``--device cuda``: the JAX tool's exit
+    when the mesh exceeds its devices, naming the count."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     out = tmp_path / "x.png"
-    for flags in (["--bands", "2"], ["--shards", "2"], ["--bands", "2", "--shards", "2"]):
+    for flags, n in (
+        (["--bands", "2"], 2), (["--shards", "2"], 2), (["--bands", "2", "--shards", "2"], 4),
+    ):
         with pytest.raises(SystemExit) as e:
-            load.main(["--path", str(files / "torus.json"), "--handler-pbvh", "--device", "cpu",
+            load.main(["--path", str(files / "torus.json"), "--handler-pbvh", "--device", "cuda",
                        "--out", str(out), *flags])
-        assert e.value.code == load.SHARDED_NOT_PORTED
-    assert "not ported" in load.SHARDED_NOT_PORTED
+        assert f"needs {n} devices; torch sees 1 CUDA device(s)" in str(e.value.code)
     assert not out.exists()
     assert "handler:" not in capsys.readouterr().out  # nothing was built
 
