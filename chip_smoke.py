@@ -135,7 +135,15 @@ exits nonzero without printing a result):
    (each precision's mirror bit-equal to its twin); both again on the
    256 busiest tiles of those calls (the TF32 variants against their
    twins' emulation) and on the busiest and 255 spread over the image,
-   with one tile, then every tile, listing every chunk.
+   with one tile, then every tile, listing every chunk.  Kernel D
+   (shade_post) also on post_cases' synthetic inputs (r 256 and 128, 1-3
+   lights, liveness all, none, alternating and a single subgroup, both
+   blocked modes, T = 8 and 8 x 45, NaN directions, shadow distances at
+   exactly t_min, t_max and the cap; and 5 lights, past its light-count
+   instantiations, and 37-ray tiles) and on inputs 4 bytes into their
+   storage, bit-equal
+   to its twin; every kernel F call also bit-equal to kernels D + C on
+   its halves.
 4. Paths.  Launch counters are reset right before each path and read
    right after it; every kernel of the path must have launched (the
    ``chain`` path runs last, as phase 8).
@@ -247,15 +255,16 @@ exits nonzero without printing a result):
    make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
    calls in one table: the three above, the torus 1080p primary rows
    call and the flat ``torus_ghost()`` 1080p frame's busiest closest
-   call.  shade_post also at the torus 1080p frame's shapes, and its
-   launch floor at both shapes: an empty kernel on its grid
-   (``FLOOR_SRC``, built here), timed the same way.  mt_stream,
+   call.  shade_post also at the torus 1080p frame's shapes, with its
+   share of its bytes bound and its launch floor at both shapes: an
+   empty kernel on its grid (``FLOOR_SRC``, built here: T / 8 *
+   ceil(8 r / POST_RAYS) blocks of POST_RAYS), timed the same way.  mt_stream,
    the early-exit calls and the probes' MT kernels also print the
    per-tile walks' times they replaced (WALK_MS, constants) and, for
    early exit, the entries the per-tile rule and the items test.
 7. Where the time goes: torch.profiler over canyon frames (default and
-   early exit, and through the transposed table) and torus 1080p frames
-   (default and knobs), device time by kernel kind and the device's idle
+   early exit, and through the transposed table) and torus 384x288 and
+   1080p frames (default; 1080p also knobs), device time by kernel kind and the device's idle
    share, over flat ``torus_ghost()`` 1080p frames and over threaded
    ``bvh`` / ``rf_bvh`` frames (canyon 640x480, torus 1080p) and
    DynamicRenderer rebuild and refit frames at 1080p; then the dynamic
@@ -360,6 +369,7 @@ TPOSE_FRAME = (640, 480, 20)
 TPOSE_FAR_SHARE = 1e-4
 # (label, path, kept renderer, orbit steps) profiled in phase 7
 PROFILE = (
+    ("torus 384x288", "torus", "384x288", 3),
     ("canyon segmented 640x480", "segmented", "640x480", 3),
     ("canyon dma 640x480", "dma", "640x480", 3),
     ("canyon segmented 1920x1080", "segmented", "1920x1080", 2),
@@ -901,9 +911,50 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         ("shade_bounce", st.shade_bounce, st.shade_bounce_reference),
     ):
         for i, (a, kw, _) in enumerate(calls[name]):
-            err, ulp = check_ulp(f"{label} {name}#{i}", kern_fn(*a, **kw), twin_fn(*a, **kw))
+            kern = kern_fn(*a, **kw)
+            err, ulp = check_ulp(f"{label} {name}#{i}", kern, twin_fn(*a, **kw))
             errs[name] = max(errs[name], err)
             ulps[name] = max(ulps.get(name, 0), ulp)
+            if name == "shade_bounce":  # kernel F = kernel D + kernel C
+                (post, post_kw), (pre, pre_kw) = bounce_halves(a, kw)
+                halves = (st.shade_post(*post, **post_kw), *st.shade_pre(*pre, **pre_kw))
+                check_equal(f"{label} shade_bounce#{i} vs shade_post + shade_pre", kern, halves)
+
+
+def check_post_synthetic(errs: dict) -> None:
+    """Kernel D on post_cases' synthetic inputs (r 256 / 128, k 1-3,
+    liveness all / none / alternating / single, both blocked modes, T = 8
+    and 8 x 45; NaN directions, shadow distances at exactly t_min, t_max
+    and the cap) bit-equal to its twin, and on k = 5 (past the kernel's
+    light-count instantiations) and r = 37 (a subgroup's last block
+    partly filled); then with each input a view 4 bytes into its storage
+    (the kernel reads every plane with 4-byte loads, so any alignment is
+    taken, as before the redesign)."""
+    import dataclasses
+
+    import torch
+
+    from rt_rs_tpu_torch.experiments import post_cases as pc
+    from rt_rs_tpu_torch.ops import shade_tile as st
+
+    cases = pc.cases(tiles=(8, 8 * 45))
+    cases += [dataclasses.replace(c, k=5) for c in cases if c.tiles == 8 and c.r == 256]
+    cases += [dataclasses.replace(c, r=37) for c in cases if c.tiles == 8 and c.r == 128]
+    for case in cases:
+        a, kw = pc.post_args(case, DEVICE)
+        err = check_equal(f"synthetic shade_post {case.name}", st.shade_post(*a, **kw), st.shade_post_reference(*a, **kw))
+        errs["shade_post"] = max(errs["shade_post"], err)
+    a, kw = pc.post_args(next(c for c in cases if c.liveness == "alternating" and not c.blocked_mode), DEVICE)
+    views = []
+    for x in a:
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        v.copy_(x)
+        views.append(v)
+    check_equal("synthetic shade_post, inputs at a 4-byte offset", st.shade_post(*views, **kw), st.shade_post(*a, **kw))
+    say(
+        f"[compare] synthetic shade_post: {len(cases)} cases bit-equal to the twin; inputs "
+        f"at a 4-byte storage offset equal the aligned call"
+    )
 
 
 def check_walk(what: str, a, kw, errs: dict) -> None:
@@ -1369,6 +1420,7 @@ def phase_compare():
             f"call; replay {time.perf_counter() - t0:.1f} s"
         )
         recorded[label] = calls
+    check_post_synthetic(errs)
     check_walk_synthetic(errs)
     check_skewed(errs, recorded)
     check_skewed_exit(errs, recorded)
@@ -3132,7 +3184,9 @@ def work(name: str, a, kw) -> tuple[int, int]:
         else:
             per_light = 1 if b["blocked_mode"] else 3
             ops = live * (HIT_NORMAL_OPS + k * POST_LIGHT_OPS + POST_TAIL_OPS)
-            reads = live * (25 + 6 + 2 + k * per_light) * 4  # rows 0-24, rays, t, active
+            # rows 0-24 (albedo.z, row 23, is read after bounce 0 only), rays, t, active
+            rows = 24 if b["first_bounce"] else 25
+            reads = live * (rows + 6 + 2 + k * per_light) * 4
             writes = n_tiles * r * 3 * 4
         nbytes = reads + writes + _bytes(live_sg, lights)
     else:
@@ -3338,34 +3392,34 @@ def mt_call_ms(label: str, call, sep_rate: float, card: str) -> dict[str, float]
 
 
 # shade_post's launch floor: an empty kernel on the grid rt_shade_post
-# launches (one thread a ray, blocks of 256).  It computes nothing, so it
-# has no plain version, and no frame path launches it: it lives here, not
-# in the package.
+# launches (T / 8 * ceil(8 r / rays) blocks of ``rays`` threads, rays =
+# shade_tile.POST_RAYS: a block never spans two 8-tile subgroups).  It
+# computes nothing, so it has no plain version, and no frame path
+# launches it: it lives here, not in the package.
 FLOOR_SRC = r"""
 #include <cuda_runtime.h>
 
 __global__ void shade_post_floor_kernel() {}
 
-extern "C" int rt_shade_post_floor(int n_tiles, int r, cudaStream_t stream) {
-  const long n = (long)n_tiles * r;
-  if (n > 0) {
-    const int threads = 256;
-    const long blocks = (n + threads - 1) / threads;
-    shade_post_floor_kernel<<<(unsigned)blocks, threads, 0, stream>>>();
-  }
+extern "C" int rt_shade_post_floor(int n_tiles, int r, int rays, cudaStream_t stream) {
+  const long per_sg = (8L * r + rays - 1) / rays;
+  const long blocks = (long)(n_tiles / 8) * per_sg;
+  if (blocks > 0) shade_post_floor_kernel<<<(unsigned)blocks, rays, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 """
 
 
 def floor_launcher():
-    """FLOOR_SRC built with the port's nvcc flags -> fn(t) launching the
-    empty kernel on shade_post's grid for rays shaped like ``t`` [T, r]."""
+    """FLOOR_SRC built with the port's nvcc flags -> fn(t, rays) launching
+    the empty kernel on shade_post's grid for rays shaped like ``t`` [T,
+    r], blocks of ``rays`` (default shade_tile.POST_RAYS)."""
     import ctypes
 
     import torch
 
     from rt_rs_tpu_torch.ops import cuda
+    from rt_rs_tpu_torch.ops import shade_tile as st
 
     out = cuda.BUILD / "shade_post_floor"
     out.mkdir(parents=True, exist_ok=True)
@@ -3378,11 +3432,11 @@ def floor_launcher():
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on the floor kernel:\n" + proc.stdout + proc.stderr)
     fn = ctypes.CDLL(str(lib)).rt_shade_post_floor
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def launch(t) -> None:
-        err = fn(*t.shape, torch.cuda.current_stream().cuda_stream)
+    def launch(t, rays: int = st.POST_RAYS) -> None:
+        err = fn(*t.shape, rays, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"rt_shade_post_floor: CUDA launch failed with error {err}")
 
@@ -3552,9 +3606,12 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         ("1920x1080", (k_ms, b_ms)),
     ):
         floor = floors[label]
+        n_tiles, r = (a[2] if label == "1920x1080" else picks["shade_post"][2][0][2]).shape
+        blocks = n_tiles // st.SUBGROUP * -(-st.SUBGROUP * r // st.POST_RAYS)
         say(
-            f"[time] shade_post's launch floor at {label} (an empty kernel on its grid, device, "
-            f"profiler): {floor:.4f} ms; shade_post {ms_:.4f} ms, bound {bound_ms:.4f} ms, bound + floor "
+            f"[time] shade_post at {label}: kernel {ms_:.4f} ms, bytes bound {bound_ms:.4f} ms, "
+            f"share of the bound {bound_ms / ms_:.2f}; launch floor (an empty kernel on its grid, "
+            f"{blocks} blocks of {st.POST_RAYS}, device, profiler) {floor:.4f} ms, bound + floor "
             f"{bound_ms + floor:.4f} ms, {(bound_ms + floor) / ms_:.2f} of shade_post's time; {card}"
         )
     ghost = recorded["flat torus_ghost 1080p"]["mt_trace"]

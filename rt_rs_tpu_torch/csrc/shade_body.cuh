@@ -3,7 +3,10 @@
 // all three run the same code and the fused kernel is bit-equal to the
 // two it fuses.  Each body handles ray `idx` of the component-major
 // planes (plane = T * r floats); `live` is its 8-tile subgroup's flag:
-// a dead subgroup writes zeros in every output, as on the TPU.
+// a dead subgroup writes zeros in every output, as on the TPU.  The
+// post body's arithmetic (shade_post_color) takes its operands through
+// an accessor, so that kernel D can stage them in shared memory while
+// kernel F reads them from global memory, with the same operations.
 #pragma once
 
 #include "common.cuh"
@@ -103,53 +106,72 @@ __device__ __forceinline__ void shade_pre_ray(
   }
 }
 
-// shade_post for one ray (shade_tile.py::_post_subgroup): for each light
-// the shadow verdict (blocked_mode: the any-hit mask sh_t > 0; else
-// sh_id != 0 and t_min < sh_t < t_max and sh_t < cap); a lit light adds
-// diffuse ls * max(0, u.n) and specular pow(max(0, sdot), spec) * ls.
-// The colour contribution is (C18..20 * diffuse * albedo.x + spec *
-// albedo.y), times albedo.z after bounce 0, zero where the ray is not
-// active; out is [3, T, r].
-__device__ __forceinline__ void shade_post_ray(
-    const float* __restrict__ rows, const float* __restrict__ payload,
-    const float* __restrict__ t_in, const float* __restrict__ active,
-    const float* __restrict__ sh_t, const float* __restrict__ sh_id,
-    const float* __restrict__ caps, const float* __restrict__ lights, int k,
-    long plane, long idx, bool live, int first_bounce, int blocked_mode,
-    float t_min, float t_max, float* __restrict__ out) {
-  if (!live) {
-    for (int c = 0; c < 3; ++c) out[c * plane + idx] = 0.0f;
-    return;
-  }
+// Where shade_post_color reads a ray's operands.  PostGlobal reads them
+// from the component-major planes in global memory (kernel F); kernel D
+// stages them in shared memory first (shade_post.cu::PostStaged).  An
+// accessor gives row(c) (shade-table column c), pay(c) (payload row c),
+// t(), active(), sh_t(li) / sh_id(li) / cap(li) of light li and
+// light(li, c) of the lights [k, 4].
+struct PostGlobal {
+  const float* __restrict__ rows;
+  const float* __restrict__ payload;
+  const float* __restrict__ t_in;
+  const float* __restrict__ active_f;
+  const float* __restrict__ sh_t_in;
+  const float* __restrict__ sh_id_in;
+  const float* __restrict__ caps;
+  const float* __restrict__ lights;
+  long plane, idx;
 
-  auto row = [&](int c) { return rows[c * plane + idx]; };
-  const float ox = payload[0 * plane + idx];
-  const float oy = payload[1 * plane + idx];
-  const float oz = payload[2 * plane + idx];
-  const float dx = payload[3 * plane + idx];
-  const float dy = payload[4 * plane + idx];
-  const float dz = payload[5 * plane + idx];
-  const HitNormal h = hit_normal(row, ox, oy, oz, dx, dy, dz, t_in[idx]);
+  __device__ __forceinline__ float row(int c) const { return rows[c * plane + idx]; }
+  __device__ __forceinline__ float pay(int c) const { return payload[c * plane + idx]; }
+  __device__ __forceinline__ float t() const { return t_in[idx]; }
+  __device__ __forceinline__ float active() const { return active_f[idx]; }
+  __device__ __forceinline__ float sh_t(int li) const { return sh_t_in[li * plane + idx]; }
+  __device__ __forceinline__ float sh_id(int li) const { return sh_id_in[li * plane + idx]; }
+  __device__ __forceinline__ float cap(int li) const { return caps[li * plane + idx]; }
+  __device__ __forceinline__ float light(int li, int c) const { return lights[li * 4 + c]; }
+};
+
+// shade_post for one ray of a live subgroup (shade_tile.py::
+// _post_subgroup): for each light the shadow verdict (blocked_mode: the
+// any-hit mask sh_t > 0; else sh_id != 0 and t_min < sh_t < t_max and
+// sh_t < cap); a lit light adds diffuse ls * max(0, u.n) and specular
+// pow(max(0, sdot), spec) * ls.  The colour contribution is
+// (C18..20 * diffuse * albedo.x + spec * albedo.y), times albedo.z
+// after bounce 0, zero where the ray is not active -> color[3].
+template <typename In>
+__device__ __forceinline__ void shade_post_color(
+    const In& in, int k, int first_bounce, int blocked_mode, float t_min,
+    float t_max, float (&color)[3]) {
+  auto row = [&](int c) { return in.row(c); };
+  const float ox = in.pay(0);
+  const float oy = in.pay(1);
+  const float oz = in.pay(2);
+  const float dx = in.pay(3);
+  const float dy = in.pay(4);
+  const float dz = in.pay(5);
+  const HitNormal h = hit_normal(row, ox, oy, oz, dx, dy, dz, in.t());
   const float spec_pow = row(24);
 
   float diffuse = 0.0f;
   float spec = 0.0f;
   for (int li = 0; li < k; ++li) {
-    const float lx = lights[li * 4 + 0];
-    const float ly = lights[li * 4 + 1];
-    const float lz = lights[li * 4 + 2];
-    const float ls = lights[li * 4 + 3];
+    const float lx = in.light(li, 0);
+    const float ly = in.light(li, 1);
+    const float lz = in.light(li, 2);
+    const float ls = in.light(li, 3);
     const float ddx = lx - h.hx, ddy = ly - h.hy, ddz = lz - h.hz;
     const float s = ddx * ddx + ddy * ddy + ddz * ddz;
     const float inv = 1.0f / sqrtf(s);
     const float ux = ddx * inv, uy = ddy * inv, uz = ddz * inv;
     bool shadowed;
     if (blocked_mode) {
-      shadowed = sh_t[li * plane + idx] > 0.0f;
+      shadowed = in.sh_t(li) > 0.0f;
     } else {
-      const float st = sh_t[li * plane + idx];
-      shadowed = (sh_id[li * plane + idx] != 0.0f) && (st < t_max) &&
-                 (st > t_min) && (st < caps[li * plane + idx]);
+      const float st = in.sh_t(li);
+      shadowed = (in.sh_id(li) != 0.0f) && (st < t_max) && (st > t_min) &&
+                 (st < in.cap(li));
     }
     const bool lit = !shadowed && (ls > 0.0f);
     // diffuse (compute.wgsl:160-166)
@@ -170,9 +192,28 @@ __device__ __forceinline__ void shade_post_ray(
   const float sa = spec * row(22);
   // albedo.z attenuation for bounce > 0 (compute.wgsl:258-265)
   const float scale = first_bounce ? 1.0f : row(23);
-  const bool act = active[idx] > 0.0f;
+  const bool act = in.active() > 0.0f;
   for (int c = 0; c < 3; ++c) {
     const float contrib = (row(18 + c) * da + sa) * scale;
-    out[c * plane + idx] = act ? contrib : 0.0f;
+    color[c] = act ? contrib : 0.0f;
   }
+}
+
+// shade_post for ray `idx` of the planes in global memory (kernel F):
+// shade_post_color where `live`, zeros where not; out is [3, T, r].
+__device__ __forceinline__ void shade_post_ray(
+    const float* __restrict__ rows, const float* __restrict__ payload,
+    const float* __restrict__ t_in, const float* __restrict__ active,
+    const float* __restrict__ sh_t, const float* __restrict__ sh_id,
+    const float* __restrict__ caps, const float* __restrict__ lights, int k,
+    long plane, long idx, bool live, int first_bounce, int blocked_mode,
+    float t_min, float t_max, float* __restrict__ out) {
+  if (!live) {
+    for (int c = 0; c < 3; ++c) out[c * plane + idx] = 0.0f;
+    return;
+  }
+  const PostGlobal in{rows, payload, t_in, active, sh_t, sh_id, caps, lights, plane, idx};
+  float color[3];
+  shade_post_color(in, k, first_bounce, blocked_mode, t_min, t_max, color);
+  for (int c = 0; c < 3; ++c) out[c * plane + idx] = color[c];
 }

@@ -1,6 +1,6 @@
-"""Eager frame and kernel call times of two checkouts of the port on one card, in turns.
+"""Eager and chained frame times and kernel call times of two checkouts of the port on one card, in turns.
 
-    python3 -m rt_rs_tpu_torch.experiments.frame_ab OTHER_ROOT [--order ABBAAB] [--match TEXT]
+    python3 -m rt_rs_tpu_torch.experiments.frame_ab OTHER_ROOT [--order ABBAAB] [--match TEXT ...]
 
 Checkout A holds this file; B is the checkout at ``OTHER_ROOT`` (for
 example an unpacked ``git archive`` of another commit).  Each turn is a
@@ -10,14 +10,20 @@ CASES' orbits eagerly: ``Renderer.render_frame`` and ``orbit`` per frame,
 one sync at the end, CUDA events around the orbit after one warm-up
 frame, then the transposed-table canyon's (TPOSE_CASE, chip_smoke's
 ``TposeCanyon``) alike.  Then it records the CALLS (intersection kernel
-calls that chip_smoke.py's phase 6 times, and every ``bvh_walk`` call of
-the threaded frames together) with its checkout's ``chip_smoke``, makes
-the PROBE_CALLS (the probes' kernel calls on torus_scene's 1080p
-primaries, as chip_smoke's phase 3 makes them) and times each as phase 6
-does (torch.profiler device time, the L2 cache overwritten before each
-call).  ``--match`` keeps the cases and calls whose names hold the text
-(``--match bvh``: the threaded ``bvh`` / ``rf_bvh`` frames and the walk's
-calls).  The turns interleave the two (``--order``), so that both see
+calls that chip_smoke.py's phase 6 times, every ``bvh_walk`` call of
+the threaded frames together, and kernel D's bounce-0 calls of the
+torus frames) with its checkout's ``chip_smoke``, makes the PROBE_CALLS
+(the probes' kernel calls on torus_scene's 1080p primaries, as
+chip_smoke's phase 3 makes them) and times each as phase 6 does
+(torch.profiler device time, the L2 cache overwritten before each
+call); then the IN_FRAME kernels' device ms a frame over profiled eager
+frames (inputs L2-hot, as phase 7).  The CHAINED orbits
+(``animate(chain=K)``) run in a second process of the turn, which never
+runs torch.profiler, as phase 8.  ``--match`` keeps the cases and calls
+whose names hold one of the texts (``--match bvh``: the threaded ``bvh``
+/ ``rf_bvh`` frames and the walk's calls; ``--match shade_post
+chain=16``: kernel D's calls and in-frame times and the chained torus
+orbits).  The turns interleave the two (``--order``), so that both see
 the same host; the result is one JSON line of ms/frame by case and
 device ms by call and checkout, then the card's name and power limit.
 Needs one card.
@@ -82,6 +88,24 @@ CALLS = {
     "bvh_walk[bvh] canyon 640x480, the frame's calls": (
         ("threaded", ("torus_canyon", 640, 480, "bvh"), False), "bvh_walk", "frame",
     ),
+    "shade_post torus 384x288 bounce 0": (("renderer", (384, 288), False), "shade_post", "first"),
+    "shade_post torus 1920x1080 bounce 0": (("renderer", (1920, 1080), False), "shade_post", "first"),
+}
+# in-frame kernel time -> (torus_scene width, height, eager frames
+# profiled, the fragment of the kernels' names): device ms a frame of the
+# kernels whose names hold the fragment, their inputs L2-hot as a frame
+# leaves them (torch.profiler over the frames, as chip_smoke's phase 7).
+IN_FRAME = {
+    "shade_post in torus 384x288 frames": (384, 288, 4, "shade_post_kernel"),
+    "shade_post in torus 1920x1080 frames": (1920, 1080, 4, "shade_post_kernel"),
+}
+# chained orbit -> (torus_scene width, height, K, orbit frames): ms/frame
+# of ``animate(chain=K)`` (chip_smoke's chain_orbit after one warm-up
+# orbit that captures the graphs), in a process of its own that never
+# runs torch.profiler, as chip_smoke's phase 8.
+CHAINED = {
+    "torus 384x288 chain=16": (384, 288, 16, 32),
+    "torus 1920x1080 chain=16": (1920, 1080, 16, 16),
 }
 # The transposed-table canyon frame (torus_canyon() in one tc = 64
 # transposed table, through shade.render): name, width, height, orbit
@@ -101,8 +125,8 @@ PROBE_CALLS = {
 }
 
 
-def probe_times(match: str) -> dict[str, float]:
-    """The PROBE_CALLS' device ms (those whose names hold ``match``),
+def probe_times(matches) -> dict[str, float]:
+    """The PROBE_CALLS' device ms (those whose names hold one of ``matches``),
     made from the checkout's own chip_smoke.probe_inputs and timed with
     its profiled."""
     import chip_smoke as cs
@@ -111,7 +135,7 @@ def probe_times(match: str) -> dict[str, float]:
     from rt_rs_tpu_torch.experiments.probe_rays import probe_rays
     from rt_rs_tpu_torch.ops import packet_trace
 
-    if not any(match in name for name in PROBE_CALLS):
+    if not any(hits(name, matches) for name in PROBE_CALLS):
         return {}
     p = cs.probe_inputs()
     win = p["win"]
@@ -128,7 +152,7 @@ def probe_times(match: str) -> dict[str, float]:
     table = mxu_mt.build_mxu_table(chunks)
     ms = {}
     for name, (wrapper, arg) in PROBE_CALLS.items():
-        if match not in name:
+        if not hits(name, matches):
             continue
         if wrapper == "mt_tpose":
             comp, s = lists[arg]
@@ -171,22 +195,22 @@ def frame_of(cs, make: str, a: tuple, early_exit: bool):
     return getattr(cs, make)(*a, **({"early_exit": True} if early_exit else {}))
 
 
-def call_times(match: str) -> dict[str, float]:
-    """The CALLS' device ms (those whose names hold ``match``), recorded
+def call_times(matches) -> dict[str, float]:
+    """The CALLS' device ms (those whose names hold one of ``matches``), recorded
     and timed with the checkout's own chip_smoke.py (its Recorder and
     profiled)."""
     import chip_smoke as cs
 
-    from rt_rs_tpu_torch.ops import bvh_walk, packet_stream, packet_trace
+    from rt_rs_tpu_torch.ops import bvh_walk, packet_stream, packet_trace, shade_tile
 
     wrappers = {
         "mt_trace": packet_trace.mt_trace, "mt_stream": packet_stream.mt_stream,
-        "bvh_walk": bvh_walk.bvh_walk,
+        "bvh_walk": bvh_walk.bvh_walk, "shade_post": shade_tile.shade_post,
     }
     recorded: dict[tuple, dict] = {}
     ms = {}
     for name, (frame, wrapper, mode) in CALLS.items():
-        if match not in name:
+        if not hits(name, matches):
             continue
         if frame not in recorded:
             with cs.Recorder() as rec:
@@ -198,7 +222,9 @@ def call_times(match: str) -> dict[str, float]:
             fn = wrappers[wrapper]
             ms[name] = cs.profiled(lambda: [fn(*a, **kw) for a, kw, _ in chosen])[1]
             continue
-        if mode is None:
+        if mode == "first":
+            call = calls[0]
+        elif mode is None:
             call = max(calls, key=lambda c: c[0][0].shape[1])
         else:
             calls = [c for c in calls if c[1]["mode"] == mode]
@@ -208,8 +234,55 @@ def call_times(match: str) -> dict[str, float]:
     return ms
 
 
-def child(root: str, match: str) -> None:
-    """One turn: the CASES' eager orbits with the port of ``root``."""
+def in_frame_times(cs, matches) -> dict[str, float]:
+    """The IN_FRAME kernels' device ms a frame (those whose names hold
+    one of ``matches``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = {}
+    for name, (w, h, frames, frag) in IN_FRAME.items():
+        if not hits(name, matches):
+            continue
+        r = cs.renderer(w, h)
+        r.render_frame()  # warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                r.render_frame(block=False)
+                r.orbit(1.0)
+            torch.cuda.synchronize()
+        us = [
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type != DeviceType.CPU and frag in e.name
+        ]
+        if not us:
+            raise RuntimeError(f"{name}: no kernel named like {frag!r} in the trace")
+        ms[name] = sum(us) / 1e3 / frames
+    return ms
+
+
+def chained(root: str, matches) -> None:
+    """One turn's CHAINED orbits with the port of ``root``."""
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
+
+    ms = {}
+    for name, (w, h, k, frames) in CHAINED.items():
+        if not hits(name, matches):
+            continue
+        r = cs.renderer(w, h)
+        start, mult = r.camera, 2.0 * math.pi / frames / ORBIT_RATE
+        cs.chain_orbit(r, frames, mult, k, start)  # warm-up: captures the graphs
+        ms[name] = cs.chain_orbit(r, frames, mult, k, start)[0]
+    print(json.dumps({"root": root, "ms": ms, "call_ms": {}}), flush=True)
+
+
+def child(root: str, matches) -> None:
+    """One turn: the CASES' eager orbits with the port of ``root``, then
+    the calls and the in-frame kernel times."""
     sys.path.insert(0, root)
     import chip_smoke as cs
 
@@ -218,7 +291,7 @@ def child(root: str, match: str) -> None:
 
     ms = {}
     for name, (preset, w, h, frames, kw) in CASES.items():
-        if match not in name:
+        if not hits(name, matches):
             continue
         r = Renderer(
             getattr(presets, preset)(), config=Config(resolution=Resolution.sized(w, h)),
@@ -226,37 +299,48 @@ def child(root: str, match: str) -> None:
         )
         ms[name] = orbit_ms(r, frames)
     name, w, h, frames = TPOSE_CASE
-    if match in name:
+    if hits(name, matches):
         ms[name] = orbit_ms(cs.TposeCanyon(w, h), frames)
-    call_ms = {**call_times(match), **probe_times(match)}
+    call_ms = {**call_times(matches), **probe_times(matches), **in_frame_times(cs, matches)}
     print(json.dumps({"root": root, "ms": ms, "call_ms": call_ms}), flush=True)
+
+
+def hits(name: str, matches) -> bool:
+    return any(m in name for m in matches)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?")
     ap.add_argument("--order", default="ABBAAB")
-    ap.add_argument("--match", default="")
+    ap.add_argument("--match", nargs="+", default=[""])
     ap.add_argument("--child")
+    ap.add_argument("--chained", action="store_true")
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.match)
+        (chained if args.chained else child)(args.child, args.match)
         return
     roots = {"A": str(HERE), "B": str(pathlib.Path(args.other).resolve())}
-    keep = lambda names: [c for c in names if args.match in c]  # noqa: E731
-    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in keep((*CASES, TPOSE_CASE[0]))}
-    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in keep((*CALLS, *PROBE_CALLS))}
+    keep = lambda names: [c for c in names if hits(c, args.match)]  # noqa: E731
+    orbits = keep((*CASES, TPOSE_CASE[0], *CHAINED))
+    ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in orbits}
+    calls = keep((*CALLS, *PROBE_CALLS, *IN_FRAME))
+    call_ms: dict[str, dict[str, list[float]]] = {c: {"A": [], "B": []} for c in calls}
+    kinds = [[]] if len(orbits) + len(calls) > len(keep(CHAINED)) else []
+    if keep(CHAINED):
+        kinds.append(["--chained"])
     for turn in args.order:
-        # Run by path, so that the child imports the port of its root only.
-        out = subprocess.run(
-            [sys.executable, __file__, "--child", roots[turn], "--match", args.match],
-            cwd=roots[turn], stdout=subprocess.PIPE, text=True, check=True,
-        ).stdout
-        res = json.loads(out.strip().splitlines()[-1])
-        for name, v in res["ms"].items():
-            ms[name][turn].append(v)
-        for name, v in res["call_ms"].items():
-            call_ms[name][turn].append(v)
+        for kind in kinds:
+            # Run by path, so that the child imports the port of its root only.
+            out = subprocess.run(
+                [sys.executable, __file__, "--child", roots[turn], *kind, "--match", *args.match],
+                cwd=roots[turn], stdout=subprocess.PIPE, text=True, check=True,
+            ).stdout
+            res = json.loads(out.strip().splitlines()[-1])
+            for name, v in res["ms"].items():
+                ms[name][turn].append(v)
+            for name, v in res["call_ms"].items():
+                call_ms[name][turn].append(v)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -28,6 +28,9 @@ from rt_rs_tpu_torch.ops import cuda
 from rt_rs_tpu_torch.ops.packet_trace import _f32
 
 SUBGROUP = 8  # tiles per liveness subgroup
+# Kernel D's rays per block (POST_RAYS in csrc/shade_post.cu): its grid is
+# T / SUBGROUP * ceil(SUBGROUP * r / POST_RAYS) blocks of POST_RAYS threads.
+POST_RAYS = 128
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,16 @@ XLA:CPU, whose rsqrt, pow and contractions round differently in the
 last place.  Shadow-ray origins and light distances reach magnitudes of
 ~55, where one ULP (3.8e-6) exceeds that atol, so ray and distance
 outputs also get rtol 2.4e-7 (2 ULP); the contribution masks must be
-equal and the colours meet atol 2e-6 alone.
+equal and the colours meet atol 2e-6 alone.  The post twin is also
+held at atol 2e-6 on every ray of the seeded synthetic cases that
+chip_smoke.py holds kernel D to (``experiments/post_cases.py``).
 """
 
 from __future__ import annotations
 
 import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +26,8 @@ import torch
 
 from rt_rs_tpu.ops.pallas import shade_tile as jst
 from rt_rs_tpu_torch import ComputeConfig, Config, Renderer, Resolution
-from rt_rs_tpu_torch.ops import shade, shade_tile
+from rt_rs_tpu_torch.experiments import post_cases
+from rt_rs_tpu_torch.ops import cuda, shade, shade_tile
 from rt_rs_tpu_torch.scene.presets import torus_scene
 
 # pytest-xdist runs several test processes at once; torch's default of
@@ -120,3 +125,28 @@ def test_shade_post_matches_jax(blocked_mode, first_bounce):
     close_on(ours, ref, a, "colour")
     assert not ours.numpy()[:, ~a].any()  # inactive rays contribute nothing
     assert ours.numpy()[:, a].mean() > 0.01
+
+
+@pytest.mark.parametrize("case", post_cases.cases(), ids=lambda c: c.name)
+def test_shade_post_synthetic_matches_jax(case):
+    """The twin against the JAX kernel on chip_smoke.py's synthetic cases
+    (post_cases: r, k, liveness, blocked_mode; NaN directions, shadow
+    distances at exactly t_min, t_max and the cap) at T = 32, the JAX
+    kernel's TILE_GROUP."""
+    arrays, kw = post_cases.post_arrays(case)
+    ours = shade_tile.shade_post(*(torch.from_numpy(x) for x in arrays), **kw).numpy()
+    ref = np.asarray(jst.shade_post(*(jnp.asarray(x) for x in arrays), interpret=True, **kw))
+    np.testing.assert_allclose(ours, ref, rtol=0.0, atol=ATOL, err_msg=case.name)
+    live = np.repeat(arrays[7] != 0, shade_tile.SUBGROUP)
+    assert not ours[:, ~live].any()  # dead subgroups write zeros
+    if live.any():
+        lit = ours[:, live]
+        assert np.isnan(lit).any() and (np.nan_to_num(lit) > 0.0).mean() > 0.1
+
+
+def test_post_rays_mirror():
+    """shade_tile.POST_RAYS (the floor kernel's grid in chip_smoke.py) is
+    kernel D's block size."""
+    src = (cuda.CSRC / "shade_post.cu").read_text()
+    assert re.findall(r"constexpr int POST_RAYS = (\d+);", src) == [str(shade_tile.POST_RAYS)]
+
