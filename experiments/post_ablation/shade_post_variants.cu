@@ -450,7 +450,9 @@ RT_EXPORT int rt_shade_post(const float* rows, const float* payload,
                             const float* caps, const int* live_sg,
                             const float* lights, int k, int n_tiles, int r,
                             int first_bounce, int blocked_mode, float t_min,
-                            float t_max, float* out, cudaStream_t stream) {
+                            float t_max, float* out, long long* /*trace*/,
+                            int /*counter*/, cudaStream_t stream) {
+  // The variants count nothing: the trace buffer is the shipped kernel's.
   const long per_sg = (SUBGROUP_TILES * (long)r + POST_RAYS - 1) / POST_RAYS;
   const long blocks = (long)(n_tiles / SUBGROUP_TILES) * per_sg;
   if (blocks > 0) {

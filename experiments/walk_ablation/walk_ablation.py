@@ -49,14 +49,17 @@ VARIANTS = ("binary", "wide", "wide, width 8", "wide, persistent")
 # (text, replacement) pairs that turn kernel G into the persistent grid.
 PERSISTENT = (
     (
-        "  const int i = blockIdx.x * kBlock + threadIdx.x;\n  if (i >= n) return;\n  LocalStack stack;\n"
-        "  walk_ray(i, stack,",
-        "  LocalStack stack;\n  for (;;) {\n  int base = 0;\n"
+        "  const int i = blockIdx.x * kBlock + threadIdx.x;\n  WalkCount count;\n  if (i < n) {\n"
+        "    LocalStack stack;\n    walk_ray(i, stack,",
+        "  WalkCount count;\n  LocalStack stack;\n  for (;;) {\n  int base = 0;\n"
         "  if ((threadIdx.x & 31) == 0) base = atomicAdd(&g_next, 32);\n"
-        "  base = __shfl_sync(0xffffffffu, base, 0);\n  if (base >= n) return;\n"
-        "  const int i = base + (threadIdx.x & 31);\n  if (i < n) walk_ray(i, stack,",
+        "  base = __shfl_sync(0xffffffffu, base, 0);\n  if (base >= n) break;\n"
+        "  const int i = base + (threadIdx.x & 31);\n  if (i < n) {\n    walk_ray(i, stack,",
     ),
-    ("           miss_t, t_out, pid_out);\n}\n", "           miss_t, t_out, pid_out);\n  }\n}\n"),
+    (
+        "             miss_t, t_out, pid_out, count);\n  }\n  count_walks(",
+        "             miss_t, t_out, pid_out, count);\n  }\n  }\n  count_walks(",
+    ),
     ("struct Ray {", "__device__ int g_next;\n\nstruct Ray {"),
     (
         "    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);\n",
@@ -215,7 +218,9 @@ def main() -> None:
         if variant == "binary":
             err = libs[variant].rt_bvh_walk_binary(*ptrs, n, nodes.shape[0], *window, t.data_ptr(), pid.data_ptr(), stream)
         else:
-            err = libs[variant].rt_bvh_walk(*ptrs, None, n, tree.stack, 0, *window, t.data_ptr(), pid.data_ptr(), stream)
+            err = libs[variant].rt_bvh_walk(
+                *ptrs, None, n, tree.stack, 0, *window, t.data_ptr(), pid.data_ptr(), None, 0, stream
+            )
         if err != 0:
             raise RuntimeError(f"{variant}: CUDA launch failed with error {err}")
         return t, pid

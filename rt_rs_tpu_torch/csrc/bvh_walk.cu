@@ -35,7 +35,10 @@
 // nodes [k, 8 * kWidth] i32: lo.x, hi.x, lo.y, hi.y, lo.z, hi.z
 // (kWidth f32 each), then kWidth child words (> 0 a node, ~q a leaf
 // whose prims start at q, 0 empty), padding; prims [q, 12] i32:
-// {a, pid}, {b - a, last}, {c - a, 0}  ->  t [n], pid [n].
+// {a, pid}, {b - a, last}, {c - a, 0}  ->  t [n], pid [n].  While the
+// trace buffer's flag is set (tracing.py), each block adds its valid
+// rays, wide-node visits and prim tests to walk_rays, walk_nodes and
+// walk_prims, counted in registers as the rays walk.
 //
 // What bounds it on this card: latency.  A ray reads its 7 words and
 // writes 2, and the tree and prims (a few MB) stay in L2, but each step
@@ -203,14 +206,21 @@ __device__ __forceinline__ int pop(const Stack& stack, int& sp, float best_t) {
   return 0;
 }
 
-// Ray i's walk -> t_out[i], pid_out[i].
+// What a thread's walks did, for the trace counters: valid rays walked,
+// wide-node visits, prim tests (excluded prims skipped).
+struct WalkCount {
+  int rays = 0, nodes = 0, prims = 0;
+};
+
+// Ray i's walk -> t_out[i], pid_out[i]; its work added to `count`.
 template <class Stack>
 __device__ __forceinline__ void walk_ray(
     int i, Stack& stack, const float* __restrict__ o,
     const float* __restrict__ d, const int* __restrict__ excl,
     const uint8_t* __restrict__ valid, const float4* __restrict__ nodes,
     const float4* __restrict__ prims, float t_min, float t_max, float eps,
-    float miss_t, float* __restrict__ t_out, int* __restrict__ pid_out) {
+    float miss_t, float* __restrict__ t_out, int* __restrict__ pid_out,
+    WalkCount& count) {
   Ray r;
   r.ox = o[3 * i];
   r.oy = o[3 * i + 1];
@@ -229,10 +239,12 @@ __device__ __forceinline__ void walk_ray(
   // cur: > 0 a node, 0 the root first and then done, < 0 a leaf.
   int cur = 0;
   bool live = valid[i] != 0;
+  count.rays += live;
   while (live) {
     // Nodes until the ray holds a leaf or is done.
     while (cur >= 0) {
       const int next = visit_node(nodes, cur, r, best_t, stack, sp);
+      ++count.nodes;
       cur = next != 0 ? next : pop(stack, sp, best_t);
       if (cur == 0) break;
     }
@@ -244,6 +256,7 @@ __device__ __forceinline__ void walk_ray(
       const float4 e2 = __ldg(prims + 3 * p + 2);
       const int pid = __float_as_int(a.w);
       float w;
+      count.prims += pid != ex;
       if (pid != ex &&
           tri_edges(a, e1, e2, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_min,
                     t_max, eps, w) &&
@@ -260,6 +273,17 @@ __device__ __forceinline__ void walk_ray(
   pid_out[i] = best_id;
 }
 
+// The block's walks added to walk_rays, walk_nodes and walk_prims
+// (counters `counter` to `counter + 2`) while the trace flag is set.
+__device__ __forceinline__ void count_walks(const WalkCount& count,
+                                            long long* trace, int counter) {
+  if (!trace_on(trace)) return;
+  long long v[3] = {count.rays, count.nodes, count.prims};
+  block_sum(v);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 3; ++k) trace_add(trace, counter + k, v[k]);
+}
+
 // One thread a ray, its stack in local memory (trees whose walk needs
 // at most kLocalStack entries).
 __global__ void __launch_bounds__(kBlock)
@@ -269,12 +293,16 @@ __global__ void __launch_bounds__(kBlock)
                     const float4* __restrict__ nodes,
                     const float4* __restrict__ prims, int n, float t_min,
                     float t_max, float eps, float miss_t,
-                    float* __restrict__ t_out, int* __restrict__ pid_out) {
+                    float* __restrict__ t_out, int* __restrict__ pid_out,
+                    long long* __restrict__ trace, int counter) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  LocalStack stack;
-  walk_ray(i, stack, o, d, excl, valid, nodes, prims, t_min, t_max, eps,
-           miss_t, t_out, pid_out);
+  WalkCount count;
+  if (i < n) {
+    LocalStack stack;
+    walk_ray(i, stack, o, d, excl, valid, nodes, prims, t_min, t_max, eps,
+             miss_t, t_out, pid_out, count);
+  }
+  count_walks(count, trace, counter);
 }
 
 // Deeper trees: each thread walks rays g, g + threads, ... with its
@@ -289,16 +317,19 @@ __global__ void __launch_bounds__(kBlock)
                             int* __restrict__ scratch, int n, int depth,
                             float t_min, float t_max, float eps,
                             float miss_t, float* __restrict__ t_out,
-                            int* __restrict__ pid_out) {
+                            int* __restrict__ pid_out,
+                            long long* __restrict__ trace, int counter) {
   const int g = blockIdx.x * kBlock + threadIdx.x;
   const size_t threads = (size_t)gridDim.x * kBlock;
   ScratchStack stack{scratch + g,
                      reinterpret_cast<float*>(scratch) + depth * threads + g,
                      threads};
+  WalkCount count;
   for (size_t i = g; i < (size_t)n; i += threads) {
     walk_ray((int)i, stack, o, d, excl, valid, nodes, prims, t_min, t_max,
-             eps, miss_t, t_out, pid_out);
+             eps, miss_t, t_out, pid_out, count);
   }
+  count_walks(count, trace, counter);
 }
 
 }  // namespace
@@ -310,7 +341,7 @@ RT_EXPORT int rt_bvh_walk(const float* o, const float* d, const int* excl,
                           const int* prims, int* scratch, int n, int depth,
                           int threads, float t_min, float t_max, float eps,
                           float miss_t, float* t_out, int* pid_out,
-                          cudaStream_t stream) {
+                          long long* trace, int counter, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const float4* nv = reinterpret_cast<const float4*>(nodes);
   const float4* pv = reinterpret_cast<const float4*>(prims);
@@ -319,13 +350,13 @@ RT_EXPORT int rt_bvh_walk(const float* o, const float* d, const int* excl,
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
     bvh_walk_kernel<<<blocks, kBlock, 0, stream>>>(
         o, d, excl, valid, nv, pv, n, t_min, t_max, eps, miss_t, t_out,
-        pid_out);
+        pid_out, trace, counter);
   } else {
     if (threads <= 0 || threads % kBlock != 0) return (int)cudaErrorInvalidValue;
     bvh_walk_scratch_kernel<<<(unsigned)(threads / kBlock), kBlock, 0,
                               stream>>>(o, d, excl, valid, nv, pv, scratch,
                                         n, depth, t_min, t_max, eps, miss_t,
-                                        t_out, pid_out);
+                                        t_out, pid_out, trace, counter);
   }
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,46 @@
 
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// The port's trace counters (rt_rs_tpu_torch/tracing.py): an int64
+// buffer, word 0 the enable flag, then kTraceSub words for each counter.
+// A counting kernel takes the buffer and its first counter's index; a
+// block reads the flag once and, when it is set, adds each of its counts
+// with one atomicAdd into word blockIdx.x % kTraceSub of that counter, so
+// that no word takes every block's atomic.  A null buffer counts nothing.
+constexpr int kTraceSub = 32;  // SUB in tracing.py
+
+__device__ __forceinline__ bool trace_on(const long long* trace) {
+  return trace != nullptr && trace[0] != 0;
+}
+
+__device__ __forceinline__ void trace_add(long long* trace, int counter,
+                                          long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(trace) + 1 +
+                counter * kTraceSub + blockIdx.x % kTraceSub,
+            static_cast<unsigned long long>(v));
+}
+
+// v summed over the block's threads, into thread 0's v; every thread of
+// the block calls it.
+template <int N>
+__device__ __forceinline__ void block_sum(long long (&v)[N]) {
+  __shared__ long long part[32][N];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[i] += __shfl_down_sync(0xffffffffu, v[i], off);
+    if (lane == 0) part[warp][i] = v[i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += part[w][i];
+    }
+  }
+}
+
 // NaN-propagating max with the semantics of jnp.maximum and
 // torch.maximum (fmaxf would drop the NaN).
 __device__ __forceinline__ float nan_max(float a, float b) {

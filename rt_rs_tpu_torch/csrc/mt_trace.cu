@@ -51,10 +51,18 @@ __global__ void __launch_bounds__(kPrologueThreads) mt_trace_prologue_kernel(
     float* __restrict__ out_t, int* __restrict__ out_pid,
     float* __restrict__ out_rows, bool* __restrict__ out_blocked,
     unsigned long long* __restrict__ keys, int* __restrict__ work,
-    int n_tiles, int r, float miss) {
+    int n_tiles, int r, float miss, long long* __restrict__ trace,
+    int counter) {
   items_prologue<MODE, item_entries<MODE, EXIT>(), EXIT>(
       counts, attr, out_t, out_pid, out_rows, out_blocked, keys, work, n_tiles,
       r, miss);
+  // The entries the call's cull kept, while the trace flag is set.
+  if (blockIdx.x == 0 && trace_on(trace)) {
+    long long kept[1] = {0};
+    for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) kept[0] += counts[t];
+    block_sum(kept);
+    if (threadIdx.x == 0) trace_add(trace, counter, kept[0]);
+  }
 }
 
 template <int MODE, bool EXIT>
@@ -79,7 +87,8 @@ int launch(const float* payload, const float* comp, const int* ids,
            float* out_t, int* out_pid, float* out_rows, bool* out_blocked,
            unsigned long long* keys, int* work, int n_tiles, int r, int nc,
            int tc, int pid_base, float t_min, float t_max, float eps,
-           float miss, int exit_check, cudaStream_t stream) {
+           float miss, int exit_check, long long* trace, int counter,
+           cudaStream_t stream) {
   constexpr int E = item_entries<MODE, EXIT>();
   const size_t smem = 2 * (size_t)tc * 12 * sizeof(float);
   const Residency res =
@@ -88,7 +97,7 @@ int launch(const float* payload, const float* comp, const int* ids,
   mt_trace_prologue_kernel<MODE, EXIT>
       <<<prologue_blocks((long)n_tiles * r, res.sms), kPrologueThreads, 0,
          stream>>>(counts, attr, out_t, out_pid, out_rows, out_blocked, keys,
-                   work, n_tiles, r, miss);
+                   work, n_tiles, r, miss, trace, counter);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // No more blocks than items could exist.
@@ -103,6 +112,9 @@ int launch(const float* payload, const float* comp, const int* ids,
 
 }  // namespace
 
+// While the trace buffer's flag is set (tracing.py), the prologue's
+// block 0 adds the sum of `counts`, the entries the call's cull kept,
+// to counter `counter` (a cull_entries counter; null `trace`: none).
 // Scratch the wrapper allocates: `work` [4 T + 4] int32; `keys`
 // [T * r] u64 for the closest and rows modes; with `ed`, `lead` [T * r +
 // T] f32.  Modes: 0 closest, 1 rows, 2 any-hit; `ed` (closest and rows)
@@ -114,7 +126,8 @@ RT_EXPORT int rt_mt_trace(const float* payload, const float* comp,
                           unsigned long long* keys, int* work, float* lead,
                           int n_tiles, int r, int nc, int tc, int pid_base,
                           float t_min, float t_max, float eps, float miss,
-                          int mode, int exit_check, cudaStream_t stream) {
+                          int mode, int exit_check, long long* trace,
+                          int counter, cudaStream_t stream) {
   if (mode < MODE_CLOSEST || mode > MODE_ANYHIT || work == nullptr ||
       (mode != MODE_ANYHIT && keys == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -125,7 +138,8 @@ RT_EXPORT int rt_mt_trace(const float* payload, const float* comp,
 #define RT_LAUNCH(M, X)                                                     \
   launch<M, X>(payload, comp, ids, counts, attr, ed, lead, out_t, out_pid,  \
                out_rows, out_blocked, keys, work, n_tiles, r, nc, tc,       \
-               pid_base, t_min, t_max, eps, miss, exit_check, stream)
+               pid_base, t_min, t_max, eps, miss, exit_check, trace, counter, \
+               stream)
   if (ed != nullptr)
     return mode == MODE_CLOSEST ? RT_LAUNCH(MODE_CLOSEST, true)
                                 : RT_LAUNCH(MODE_ROWS, true);

@@ -18,6 +18,9 @@
 //   live [2, T / 8] i32, lights [k, 4]
 //   -> color [3, T, r]; sh_pay [8, k * T, r], caps_out / masks
 //      [k, T, r], next [8, T, r] (only when emit_next).
+// While the trace buffer's flag is set (tracing.py), each block adds
+// bounce b's rays with active set, in live subgroups, to counter
+// (live_rays.b), and block 0 T * r to counter + 1 (slots.b).
 //
 // What bounds it on this card: memory, the union of the two kernels'
 // operands and outputs (nothing is shared, so nothing is saved); the
@@ -37,18 +40,28 @@ __global__ void shade_bounce_kernel(
     int first_bounce, int blocked_mode, int emit_next, float t_min,
     float t_max, float* __restrict__ color, float* __restrict__ sh_pay,
     float* __restrict__ caps_out, float* __restrict__ masks,
-    float* __restrict__ next) {
+    float* __restrict__ next, long long* __restrict__ trace, int counter) {
   const long plane = (long)n_tiles * r;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= plane) return;
   const long sg = idx / r / 8;
   const long n_sg = n_tiles / 8;
-  shade_post_ray(rows, payload, t_in, active, sh_t, sh_id, caps, lights, k,
-                 plane, idx, live[sg] != 0, first_bounce, blocked_mode,
-                 t_min, t_max, color);
-  shade_pre_ray(rows2, payload2, t2, pid2_f, lights, k, plane, idx,
-                live[n_sg + sg] != 0, emit_next, sh_pay, caps_out, masks,
-                next);
+  const bool mine = idx < plane;
+  if (mine) {
+    shade_post_ray(rows, payload, t_in, active, sh_t, sh_id, caps, lights, k,
+                   plane, idx, live[sg] != 0, first_bounce, blocked_mode,
+                   t_min, t_max, color);
+    shade_pre_ray(rows2, payload2, t2, pid2_f, lights, k, plane, idx,
+                  live[n_sg + sg] != 0, emit_next, sh_pay, caps_out, masks,
+                  next);
+  }
+  if (trace_on(trace)) {  // bounce b's live_rays.b and slots.b
+    const int shaded = __syncthreads_count(mine && live[sg] != 0 &&
+                                           active[idx] > 0.0f);
+    if (threadIdx.x == 0) {
+      trace_add(trace, counter, shaded);
+      if (blockIdx.x == 0) trace_add(trace, counter + 1, plane);
+    }
+  }
 }
 
 RT_EXPORT int rt_shade_bounce(
@@ -59,7 +72,7 @@ RT_EXPORT int rt_shade_bounce(
     const float* lights, int k, int n_tiles, int r, int first_bounce,
     int blocked_mode, int emit_next, float t_min, float t_max, float* color,
     float* sh_pay, float* caps_out, float* masks, float* next,
-    cudaStream_t stream) {
+    long long* trace, int counter, cudaStream_t stream) {
   const long n = (long)n_tiles * r;
   if (n > 0) {
     const int threads = 256;
@@ -67,7 +80,8 @@ RT_EXPORT int rt_shade_bounce(
     shade_bounce_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
         rows, payload, t_in, active, sh_t, sh_id, caps, rows2, payload2, t2,
         pid2_f, live, lights, k, n_tiles, r, first_bounce, blocked_mode,
-        emit_next, t_min, t_max, color, sh_pay, caps_out, masks, next);
+        emit_next, t_min, t_max, color, sh_pay, caps_out, masks, next, trace,
+        counter);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@
 //
 // Layouts: rows [32, T, r], payload [8, T, r], t / active [T, r],
 // sh_t / sh_id / caps [k, T, r], live_sg [T / 8] i32, lights [k, 4]
-// -> out [3, T, r]; T is a multiple of 8.
+// -> out [3, T, r]; T is a multiple of 8.  While the trace buffer's flag
+// is set (tracing.py), block 0 adds T * r to counter + 1 (slots.b) and
+// each live block its rays with active set to counter (live_rays.b).
 //
 // What bounds it on this card: memory.  A ray reads rows 0-24 (23 only
 // after bounce 0), 6 payload rows, t, active and 1 (blocked_mode) or 3
@@ -84,7 +86,8 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
     const float* __restrict__ sh_t, const float* __restrict__ sh_id,
     const float* __restrict__ caps, const int* __restrict__ live_sg,
     const float* __restrict__ lights, int k, int n_tiles, int r,
-    int first_bounce, float t_min, float t_max, float* __restrict__ out) {
+    int first_bounce, float t_min, float t_max, float* __restrict__ out,
+    long long* __restrict__ trace, int counter) {
   const long plane = (long)n_tiles * r;
   const int sg_rays = SUBGROUP_TILES * r;
   const int per_sg = (sg_rays + POST_RAYS - 1) / POST_RAYS;
@@ -93,6 +96,8 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
   const long ray0 = sg * sg_rays + (long)j * POST_RAYS;
   // a multiple of 8 rays from a multiple of 4: whole 16-byte stores
   const int n = min(POST_RAYS, sg_rays - j * POST_RAYS);
+  if (blockIdx.x == 0 && threadIdx.x == 0 && trace_on(trace))
+    trace_add(trace, counter + 1, plane);  // slots.b
   if (live_sg[sg] == 0) {
     for (int q = threadIdx.x; q < 3 * (n / 4); q += POST_RAYS) {
       const int c = q / (n / 4);
@@ -101,8 +106,10 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
     }
     return;
   }
-  if ((int)threadIdx.x >= n) return;
-  const long idx = ray0 + threadIdx.x;
+  // Threads past n (none where r is a multiple of 16) read ray0's
+  // operands and store nothing.
+  const bool mine = (int)threadIdx.x < n;
+  const long idx = ray0 + (mine ? threadIdx.x : 0);
   PostRegs<K, BLOCKED> in;
 #pragma unroll
   for (int c = 0; c < 25; ++c)  // row 23 (albedo.z) is read after bounce 0 only
@@ -125,7 +132,12 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
   in.plane = plane, in.idx = idx;
   float color[3];
   shade_post_color(in, K > 0 ? K : k, first_bounce, BLOCKED, t_min, t_max, color);
-  for (int c = 0; c < 3; ++c) out[c * plane + idx] = color[c];
+  if (mine)
+    for (int c = 0; c < 3; ++c) out[c * plane + idx] = color[c];
+  if (trace_on(trace)) {  // live_rays.b
+    const int live = __syncthreads_count(mine && in.act > 0.0f);
+    if (threadIdx.x == 0) trace_add(trace, counter, live);
+  }
 }
 
 template <int BLOCKED>
@@ -134,7 +146,7 @@ static void launch(unsigned blocks, cudaStream_t stream, const float* rows,
                    const float* sh_t, const float* sh_id, const float* caps,
                    const int* live_sg, const float* lights, int k, int n_tiles,
                    int r, int first_bounce, float t_min, float t_max,
-                   float* out) {
+                   float* out, long long* trace, int counter) {
   auto kernel = shade_post_kernel<0, BLOCKED>;
   switch (k) {
     case 1: kernel = shade_post_kernel<1, BLOCKED>; break;
@@ -145,7 +157,7 @@ static void launch(unsigned blocks, cudaStream_t stream, const float* rows,
   kernel<<<blocks, POST_RAYS, 0, stream>>>(rows, payload, t_in, active, sh_t,
                                             sh_id, caps, live_sg, lights, k,
                                             n_tiles, r, first_bounce, t_min,
-                                            t_max, out);
+                                            t_max, out, trace, counter);
 }
 
 RT_EXPORT int rt_shade_post(const float* rows, const float* payload,
@@ -154,12 +166,14 @@ RT_EXPORT int rt_shade_post(const float* rows, const float* payload,
                             const float* caps, const int* live_sg,
                             const float* lights, int k, int n_tiles, int r,
                             int first_bounce, int blocked_mode, float t_min,
-                            float t_max, float* out, cudaStream_t stream) {
+                            float t_max, float* out, long long* trace,
+                            int counter, cudaStream_t stream) {
   const long per_sg = (SUBGROUP_TILES * (long)r + POST_RAYS - 1) / POST_RAYS;
   const long blocks = (long)(n_tiles / SUBGROUP_TILES) * per_sg;
   if (blocks > 0)
     (blocked_mode ? launch<1> : launch<0>)(
         (unsigned)blocks, stream, rows, payload, t_in, active, sh_t, sh_id,
-        caps, live_sg, lights, k, n_tiles, r, first_bounce, t_min, t_max, out);
+        caps, live_sg, lights, k, n_tiles, r, first_bounce, t_min, t_max, out,
+        trace, counter);
   return (int)cudaGetLastError();
 }

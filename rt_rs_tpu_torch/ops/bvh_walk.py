@@ -35,10 +35,12 @@ the card's checks, never the main path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch import tracing
 from rt_rs_tpu_torch.bvh import wide
 from rt_rs_tpu_torch.bvh.wide import SLOTS, WalkTree
 from rt_rs_tpu_torch.ops import cuda
@@ -342,9 +344,16 @@ def bvh_walk(
     A tree whose walk needs more than ``wide.LOCAL_STACK`` stack entries
     takes the scratch kernel, with a ``[2, tree.stack,
     scratch_threads(N, tree.stack)]`` int32 buffer allocated here.  On
-    CPU tensors, the twin on ``tree``'s binary tree."""
+    CPU tensors, the twin on ``tree``'s binary tree.  While tracing is
+    on, the kernel counts its valid rays, wide-node visits and prim
+    tests (``tracing.py``: ``walk_rays``, ``walk_nodes``,
+    ``walk_prims``); on the CPU :func:`bvh_walk_wide_reference` counts
+    them on the tree packed there."""
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps)
     if not o.is_cuda:
-        return walk_reference(o, d, excl, valid, tree, t_min=t_min, t_max=t_max, eps=eps)
+        if tracing.counting(o.device):
+            _count_walk(o, d, excl, valid, tree, **kw)
+        return walk_reference(o, d, excl, valid, tree, **kw)
     n, dev = o.shape[0], o.device
     cuda.check("o", o, torch.float32, (n, 3), dev)
     cuda.check("d", d, torch.float32, (n, 3), dev)
@@ -366,5 +375,23 @@ def bvh_walk(
         tree.nodes.data_ptr(), tree.prims.data_ptr(), None if scratch is None else scratch.data_ptr(),
         n, tree.stack, threads, float(t_min), float(t_max), float(eps),
         float(np.float32(t_max + 1.0)), t.data_ptr(), pid.data_ptr(),
+        *tracing.kernel_args(dev, "walk_rays"),
     )
     return t, pid
+
+
+@functools.lru_cache(maxsize=4)
+def _packed(tree: WalkTree) -> WalkTree:
+    """``tree`` with its packed records, packed on its device if it has
+    none (the CPU's trees, for the trace counters)."""
+    return tree if tree.nodes is not None else wide.pack_walk(*tree.binary, payload=tree.payload)
+
+
+def _count_walk(o, d, excl, valid, tree: WalkTree, **kw) -> None:
+    """Kernel G's counters for one CPU call: the wide walk's."""
+    work = WideWork()
+    bvh_walk_wide_reference(o, d, excl, valid, _packed(tree), work=work, **kw)
+    dev = o.device
+    tracing.add(dev, "walk_rays", valid.sum())
+    tracing.add(dev, "walk_nodes", work.node_visits)
+    tracing.add(dev, "walk_prims", work.prim_tests)

@@ -32,6 +32,8 @@ from typing import Callable
 
 import torch
 
+from rt_rs_tpu_torch import tracing
+
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
@@ -48,17 +50,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points -> argument types (pointers and the stream as c_void_p).
+# The counting kernels take the trace buffer and a counter's index
+# (tracing.kernel_args) just before the stream.
 SIGNATURES = {
     "rt_refine_cull": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "rt_mt_trace": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "rt_mt_trace": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _I, _P],
     "rt_mt_stream": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_shade_pre": [_P] * 6 + [_I, _I, _I, _I] + [_P] * 4 + [_P],
-    "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P],
-    "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P],
+    "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
+    "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P, _I, _P],
     "rt_fma_peak": [_P, _P, _I, _I, _I, _P],
     "rt_mt_tpose": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_mt_mxu": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
-    "rt_bvh_walk": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "rt_bvh_walk": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I, _P],
 }
 
 
@@ -99,6 +103,7 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    tracing.count_setup("library_built")
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp = pathlib.Path(tmp)
@@ -132,12 +137,14 @@ def build() -> pathlib.Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """The loaded kernel library (built at first call), under the
+    set-up span ``rt.library`` (its seconds: ``library_s``)."""
+    with tracing.setup("rt.library", "library_s"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -58,6 +58,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch import tracing
 from rt_rs_tpu_torch.ops import cuda
 
 LANES = 128  # the JAX package's lane width (its VMEM budgets count in it)
@@ -884,6 +885,7 @@ def mt_trace(
     eps: float,
     mode: str,
     pid_base: int = 0,
+    counter: str | None = None,
 ):
     """Kernel B (csrc/mt_trace.cu).  ``mode`` "closest" -> (t [T, r],
     pid [T, r] int32); "rows" -> (t, pid, rows [32, T, r]); "anyhit" ->
@@ -899,7 +901,9 @@ def mt_trace(
     :func:`mt_trace_split_reference`); with ``ed``, MT_EXIT_ITEM_SIZE
     entries an item, each tile's lead item and the later ones bounded by
     its snapshot (see :func:`mt_trace_exit_split_reference`: equal to the
-    twin on valid rays)."""
+    twin on valid rays).  ``counter``: the ``cull_entries`` counter that
+    the sum of ``counts`` adds to while tracing is on (``tracing.py``);
+    None counts nothing."""
     if mode not in MT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MT_MODES}")
     if mode == "rows" and attr is None:
@@ -908,6 +912,8 @@ def mt_trace(
         raise ValueError("early exit (ed) has no any-hit variant")
     kw = dict(t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base)
     if not payload.is_cuda:
+        if counter is not None and tracing.counting(payload.device):
+            tracing.add(payload.device, counter, counts.sum())
         return mt_trace_reference(comp, payload, ids, counts, attr, ed, **kw)
     nc, tc = comp.shape[0], comp.shape[1]
     n_tiles, r = payload.shape[1], payload.shape[2]
@@ -951,6 +957,7 @@ def mt_trace(
         cuda.ptr(out_blocked), cuda.ptr(keys), cuda.ptr(work), cuda.ptr(lead), n_tiles, r, nc, tc,
         int(pid_base), float(t_min), float(t_max), float(eps),
         float(np.float32(t_max + 1.0)), MT_MODES.index(mode), EXIT_CHECK,
+        *tracing.kernel_args(dev, counter),
     )
     if mode == "anyhit":
         return out_blocked
@@ -1085,6 +1092,7 @@ def packet_closest_hit_tiled(
     return mt_trace(
         chunks.comp, payload, ids, counts, chunks.attr if emit_rows else None, ed,
         t_min=t_min, t_max=t_max, eps=eps, mode=mode, pid_base=pid_base,
+        counter=tracing.cull_counter(mode, refine),
     )
 
 

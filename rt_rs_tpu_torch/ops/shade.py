@@ -677,7 +677,7 @@ def trace_tiled(
         )
         post_kw = dict(
             first_bounce=bounce == 0, t_min=cfg.t_min, t_max=cfg.t_max,
-            blocked_mode=blocked_mode,
+            blocked_mode=blocked_mode, bounce=bounce,
         )
         if last:
             color = add_color(

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from rt_rs_tpu_torch import tracing
 from rt_rs_tpu_torch.ops import cuda
 from rt_rs_tpu_torch.ops.packet_trace import _f32
 
@@ -82,6 +83,19 @@ def _hit_normal(rows, payload, t):
 def _live_mask(live_sg: torch.Tensor, n_tiles: int) -> torch.Tensor:
     """[T, 1] bool: the tile's subgroup holds a live ray."""
     return (live_sg != 0).repeat_interleave(SUBGROUP)[:n_tiles, None]
+
+
+def _count_bounce(bounce: int | None, active_f, live_sg) -> None:
+    """On the CPU, while tracing counts: bounce ``bounce``'s shaded rays
+    (``active_f`` set in a live subgroup) and ray slots, as kernels D
+    and F count them."""
+    dev = active_f.device
+    if bounce is None or not tracing.counting(dev):
+        return
+    live = tracing.bounce_counter(bounce)
+    shaded = (active_f > 0.0) & _live_mask(live_sg, active_f.shape[0])
+    tracing.add(dev, live, shaded.sum())
+    tracing.add(dev, live.replace("live_rays", "slots"), active_f.numel())
 
 
 def _side_offset(side: torch.Tensor) -> torch.Tensor:
@@ -241,18 +255,22 @@ def shade_post_reference(
 def shade_post(
     rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, *,
     first_bounce: bool, t_min: float, t_max: float, blocked_mode: bool = False,
+    bounce: int | None = None,
 ):
     """Kernel D (csrc/shade_post.cu) -> colour contribution [3, T, r].
 
     rows [32, T, r], payload [8, T, r] (this bounce's rays), t /
     active_f [T, r] f32, sh_t / sh_id_f / caps [k, T, r] f32 (in
     ``blocked_mode`` sh_t is the any-hit mask as 1.0/0.0 and sh_id_f is
-    not read), live_sg [T / 8] int32, lights [k, 4]."""
+    not read), live_sg [T / 8] int32, lights [k, 4].  ``bounce``: the
+    bounce whose rays it shades, counted while tracing is on
+    (``tracing.py``: ``live_rays.b``, ``slots.b``); None counts nothing."""
     kw = dict(
         first_bounce=first_bounce, t_min=t_min, t_max=t_max,
         blocked_mode=blocked_mode,
     )
     if not t.is_cuda:
+        _count_bounce(bounce, active_f, live_sg)
         return shade_post_reference(
             rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, **kw
         )
@@ -271,13 +289,14 @@ def shade_post(
     if n_tiles % SUBGROUP:
         raise ValueError(f"tile count {n_tiles} not a multiple of {SUBGROUP}")
     out = torch.empty((3, n_tiles, r), dtype=torch.float32, device=dev)
+    counter = None if bounce is None else tracing.bounce_counter(bounce)
     cuda.call(
         "shade_post", "rt_shade_post",
         rows.data_ptr(), payload.data_ptr(), t.data_ptr(), active_f.data_ptr(),
         sh_t.data_ptr(), sh_id_f.data_ptr(), caps.data_ptr(),
         live_sg.data_ptr(), lights.data_ptr(), k, n_tiles, r,
         int(first_bounce), int(blocked_mode), float(t_min), float(t_max),
-        out.data_ptr(),
+        out.data_ptr(), *tracing.kernel_args(dev, counter),
     )
     return out
 
@@ -302,7 +321,7 @@ def shade_bounce(
     rows, payload, t, active_f, sh_t, sh_id_f, caps,
     rows2, payload2, t2, pid2_f, live_sg2, lights, *,
     first_bounce: bool, t_min: float, t_max: float, emit_next: bool,
-    blocked_mode: bool = False,
+    blocked_mode: bool = False, bounce: int | None = None,
 ):
     """Kernel F (csrc/shade_bounce.cu): :func:`shade_post` of bounce b
     and :func:`shade_pre` of bounce b + 1 in one launch -> (color [3,
@@ -312,13 +331,15 @@ def shade_bounce(
     The first seven arguments are shade_post's for bounce b, ``rows2``
     [32, T, r], ``payload2`` [8, T, r], ``t2`` / ``pid2_f`` [T, r]
     shade_pre's for bounce b + 1; ``live_sg2`` [2, T / 8] int32 holds
-    the two bounces' subgroup flags (row 0: b, row 1: b + 1)."""
+    the two bounces' subgroup flags (row 0: b, row 1: b + 1).
+    ``bounce`` (b) is counted as :func:`shade_post` counts it."""
     kw = dict(
         first_bounce=first_bounce, t_min=t_min, t_max=t_max,
         emit_next=emit_next, blocked_mode=blocked_mode,
     )
     args = (rows, payload, t, active_f, sh_t, sh_id_f, caps, rows2, payload2, t2, pid2_f)
     if not t.is_cuda:
+        _count_bounce(bounce, active_f, live_sg2[0])
         return shade_bounce_reference(*args, live_sg2, lights, **kw)
     n_tiles, r = t.shape
     k = lights.shape[0]
@@ -350,11 +371,13 @@ def shade_bounce(
         if emit_next
         else None
     )
+    counter = None if bounce is None else tracing.bounce_counter(bounce)
     cuda.call(
         "shade_bounce", "rt_shade_bounce",
         *(x.data_ptr() for x in args), live_sg2.data_ptr(), lights.data_ptr(),
         k, n_tiles, r, int(first_bounce), int(blocked_mode), int(emit_next),
         float(t_min), float(t_max), color.data_ptr(), sh_pay.data_ptr(),
         caps_out.data_ptr(), masks.data_ptr(), cuda.ptr(nxt),
+        *tracing.kernel_args(dev, counter),
     )
     return color, sh_pay, caps_out, masks, nxt

@@ -37,6 +37,7 @@ from typing import Any, Callable, Hashable
 import numpy as np
 import torch
 
+from rt_rs_tpu_torch import tracing
 from rt_rs_tpu_torch.config import ComputeConfig, Config
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
@@ -177,13 +178,16 @@ def _capture_graph(
     kernels are built and ``warm_up`` (one eager frame) runs on a side
     stream first, so that nothing is set up lazily inside the capture.
     The launches the capture records are counted at each replay, not
-    here; a capture that fails raises."""
+    here; a capture that fails raises.  The trace counters count the
+    warm-up frame (tracing.py)."""
     cuda.library()
+    tracing.buffer(device)  # the counters' address, captured as it is
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
     with torch.cuda.stream(side):
         warm_up()
+    tracing.add_frames(1)
     current.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
 
@@ -198,26 +202,40 @@ class _ChainDispatch:
     """The dispatch of ``animate(chain=K)``, shared by :class:`Renderer`
     and :class:`DynamicRenderer`, which set ``device``, ``camera``,
     ``_chains`` (an :class:`LruCache` of :class:`_Chain`) and
-    ``_graph_pool`` (None until the first capture)."""
+    ``_graph_pool`` (None until the first capture).  A dispatch checks
+    tracing once (``tracing.begin``) and runs under the span
+    ``rt.dispatch``: ``rt.prepare`` (the chain's inputs and key), then
+    ``rt.capture`` at a key's first dispatch on a card, and
+    ``rt.replay``."""
 
-    def _dispatch(self, key: Hashable, io: _ChainIO, orbit_mult: float, warm_up, body) -> None:
-        """Fill ``io``'s camera from the host camera (which it does not
-        move) and run ``body``, K frames into ``io``: on a card one
-        replay of the graph cached under ``key``, captured at the key's
-        first dispatch (:func:`_capture_graph`); on the CPU eagerly."""
+    def _fill_camera(self, io: _ChainIO, orbit_mult: float) -> None:
+        """``io``'s camera inputs from the host camera (which does not
+        move)."""
         io.pos.copy_(_host_f32(self.camera.pos, self.device), non_blocking=True)
         io.at.copy_(_host_f32(self.camera.at, self.device), non_blocking=True)
         io.mult.fill_(orbit_mult)
-        if self.device.type != "cuda":
-            self._chains.get(key, _Chain)
-            body()
-            return
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        chain = self._chains.get(
-            key, lambda: _capture_graph(self.device, warm_up, body, self._graph_pool)
-        )
-        chain.graph.replay()
+
+    def _replay(self, key: Hashable, warm_up, body) -> None:
+        """Run ``body``, K frames into the chains' buffers: on a card
+        one replay of the graph cached under ``key``, captured at the
+        key's first dispatch (:func:`_capture_graph`); on the CPU
+        eagerly."""
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+
+            def capture() -> _Chain:
+                with tracing.setup("rt.capture", "capture_s", "captures"):
+                    return _capture_graph(self.device, warm_up, body, self._graph_pool)
+
+            chain = self._chains.get(key, capture)
+        else:
+            chain = self._chains.get(key, _Chain)
+        with tracing.span("rt.replay"):
+            if chain.graph is None:
+                body()
+            else:
+                chain.graph.replay()
         cuda.LAUNCHES.update(chain.launches)
 
 
@@ -233,20 +251,25 @@ def _chained_loop(frames, k, orbit_mult, orbit, dispatch, on_frame, sync_every) 
     t0 = time.perf_counter()
     while done < frames:
         m = min(k, frames - done)
-        stacked = dispatch(done)[:m].clone()
+        out = dispatch(done)
+        with tracing.span("rt.copy_out"):
+            stacked = out[:m].clone()
         pending.append(stacked)
-        for _ in range(m):
-            orbit(orbit_mult)
+        with tracing.span("rt.orbit"):
+            for _ in range(m):
+                orbit(orbit_mult)
         done += m
         n_pend = sum(p.shape[0] for p in pending)
         if n_pend >= sync_every or done >= frames:
-            device_sync(stacked)
+            with tracing.span("rt.sync"):
+                device_sync(stacked)
             dt = (time.perf_counter() - t0) / n_pend
             times.extend([dt] * n_pend)
             if on_frame is not None:
-                base = done - n_pend
-                for i, f in enumerate(f for p in pending for f in p):
-                    on_frame(base + i, f, dt)
+                with tracing.span("rt.deliver"):
+                    base = done - n_pend
+                    for i, f in enumerate(f for p in pending for f in p):
+                        on_frame(base + i, f, dt)
             pending = []
             t0 = time.perf_counter()
     return times
@@ -317,8 +340,9 @@ class Renderer(_ChainDispatch):
             size if size is not None else self.config.resolution.size()
         )
 
-        arrays = scene.pack(device=self.device)
-        self.accel, self.arrays = self.handler.build(scene, arrays)
+        with tracing.setup("rt.build", "build_s"):
+            arrays = scene.pack(device=self.device)
+            self.accel, self.arrays = self.handler.build(scene, arrays)
         self.stats: IntrsStats = self.handler.stats(self.accel)
         self._entries: dict[int, tuple] = {}
         self._chains = LruCache(CHAIN_CACHE_LIMIT)
@@ -453,6 +477,7 @@ class Renderer(_ChainDispatch):
     def render_frame(self, block: bool = True) -> torch.Tensor:
         """Render one frame -> [H, W, 3] float32 tensor on the device.
         ``block`` waits for the device to finish it."""
+        tracing.begin(self.device, 1)
         out = self._render(
             self._frame_handler(),
             self._camera_tensor(self.camera.pos),
@@ -554,13 +579,16 @@ class Renderer(_ChainDispatch):
         not move) -> (frames [K, H, W, 3], their f32 camera positions
         [K, 3], the frame handler).  The two tensors are the chains'
         fixed buffers: the next dispatch of this K overwrites them."""
-        h = self._frame_handler()
-        io = self._io(k)
-        self._dispatch(
-            self._chain_key(k, h), io, orbit_mult,
-            lambda: self._render(h, io.pos, io.at),
-            lambda: self._chain_frames(h, k, io),
-        )
+        tracing.begin(self.device, k)
+        with tracing.span("rt.dispatch"):
+            with tracing.span("rt.prepare"):
+                h = self._frame_handler()
+                io = self._io(k)
+                self._fill_camera(io, orbit_mult)
+                key = self._chain_key(k, h)
+            self._replay(
+                key, lambda: self._render(h, io.pos, io.at), lambda: self._chain_frames(h, k, io)
+            )
         return io.frames, io.poses, h
 
 
@@ -771,6 +799,7 @@ class DynamicRenderer(_ChainDispatch):
             vert_norm = self._rest_norm
         if self._use_rows:
             self._check_inputs(vert_pos, vert_norm, norm_defaulted)
+        tracing.begin(self.device, 1)
         out = self._step(
             self._device_f32(vert_pos),
             self._device_f32(vert_norm),
@@ -851,14 +880,18 @@ class DynamicRenderer(_ChainDispatch):
         from the host camera (which it does not move) -> (frames [K, H,
         W, 3], their f32 camera positions [K, 3]): the chains' fixed
         buffers, which the next dispatch of this K overwrites."""
-        io = self._io(k)
-        io.vert_pos.copy_(_host_f32(vert_pos, self.device), non_blocking=True)
-        io.vert_norm.copy_(_host_f32(vert_norm, self.device), non_blocking=True)
-        self._dispatch(
-            k, io, orbit_mult,
-            lambda: self._step(io.vert_pos[0], io.vert_norm[0], io.pos, io.at),
-            lambda: self._chain_frames(k, io),
-        )
+        tracing.begin(self.device, k)
+        with tracing.span("rt.dispatch"):
+            with tracing.span("rt.prepare"):
+                io = self._io(k)
+                io.vert_pos.copy_(_host_f32(vert_pos, self.device), non_blocking=True)
+                io.vert_norm.copy_(_host_f32(vert_norm, self.device), non_blocking=True)
+                self._fill_camera(io, orbit_mult)
+            self._replay(
+                k,
+                lambda: self._step(io.vert_pos[0], io.vert_norm[0], io.pos, io.at),
+                lambda: self._chain_frames(k, io),
+            )
         return io.frames, io.poses
 
     def _animate_chained(self, frames, orbit_mult, on_frame, sync_every, k, vertex_fn) -> list[float]:
@@ -899,24 +932,30 @@ def _animate_loop(
     on_frame: Callable[[int, torch.Tensor, float], None] | None,
     sync_every: int,
 ) -> list[float]:
-    """The shared animate/benchmark frame loop."""
+    """The shared animate/benchmark frame loop (eager frames; the
+    spans ``rt.frame``, ``rt.sync``, ``rt.deliver`` and ``rt.orbit``
+    while tracing is on)."""
     times: list[float] = []
     pending: list[torch.Tensor] = []
     t0 = time.perf_counter()
     for i in range(frames):
-        frame = render_one(i)
+        with tracing.span("rt.frame"):
+            frame = render_one(i)
         pending.append(frame)
         if len(pending) >= sync_every or i == frames - 1:
-            device_sync(frame)
+            with tracing.span("rt.sync"):
+                device_sync(frame)
             dt = (time.perf_counter() - t0) / len(pending)
             times.extend([dt] * len(pending))
             if on_frame is not None:
-                base = i + 1 - len(pending)
-                for j, f in enumerate(pending):
-                    on_frame(base + j, f, dt)
+                with tracing.span("rt.deliver"):
+                    base = i + 1 - len(pending)
+                    for j, f in enumerate(pending):
+                        on_frame(base + j, f, dt)
             pending = []
             t0 = time.perf_counter()
-        orbit(orbit_mult)
+        with tracing.span("rt.orbit"):
+            orbit(orbit_mult)
     return times
 
 

@@ -14,7 +14,12 @@ Headless additions: ``--frames N`` renders N orbit-stepped frames,
 ``--out`` writes the last frame as PNG, ``--benchmark`` runs the
 study's protocol and writes ``benchmark.png`` in the working directory,
 ``--gif`` writes an orbit GIF, ``--profile DIR`` writes a
-torch.profiler Chrome trace of the run into DIR.  ``--device`` names
+torch.profiler Chrome trace of the run into DIR and then prints the
+port's tracing snapshot (``rt_rs_tpu_torch.tracing.snapshot()``: the
+rays each bounce shaded of the slots launched, the chunk-list entries
+each cull kept, kernel G's rays, node visits and prim tests, the frames
+counted, the set-up seconds and the kernel launches; the trace holds
+the renderer's ``rt.`` spans).  ``--device`` names
 the torch device (default ``cuda``).  ``--bands N`` / ``--shards M``
 render over N x M ranks (:mod:`rt_rs_tpu_torch.parallel`): N image
 bands, each over M scene shards of the chunk table; on ``cuda`` one
@@ -30,6 +35,7 @@ N x M CPU ranks over gloo.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 from rt_rs_tpu_torch.config import ComputeConfig, Config, Resolution
@@ -325,6 +331,9 @@ def main(argv: list[str] | None = None) -> int:
     trace = os.path.join(args.profile, "trace.json")
     prof.export_chrome_trace(trace)
     print(f"trace: {trace}")
+    from rt_rs_tpu_torch import tracing
+
+    print(f"tracing: {json.dumps(tracing.snapshot())}")
     return rc
 
 

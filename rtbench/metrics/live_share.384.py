@@ -1,0 +1,7 @@
+"""``live_share.384``: ``live_share`` read in the 384x288 chained cell, whose frames
+are timed by ``frame_ms.384`` (the same reader; a metric of its own
+because it moves another end-to-end metric)."""
+
+from rtbench import spec
+
+read = spec.metric_reader("live_share").read
