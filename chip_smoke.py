@@ -438,6 +438,12 @@ KERNELS = {
     # hand-written for XLA code (a lax.while_loop), no pallas_call
     "bvh_walk[bvh]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314"),
     "bvh_walk[rf]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/rf.py:271"),
+    # the tiled entry's modes (the frame path's closest, rows and any-hit)
+    **{
+        f"bvh_walk[{leaf},{mode}]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", site)
+        for leaf, site in (("bvh", "rt_rs_tpu/handlers/bvh.py:314"), ("rf", "rt_rs_tpu/handlers/rf.py:271"))
+        for mode in ("closest", "rows", "anyhit")
+    },
 }
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith(("fma_peak", "mt_tpose", "mt_mxu")))
 # path -> the kernels it must launch
@@ -452,10 +458,11 @@ PATHS = {
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
-    # threaded bvh / rf_bvh frames (the gather branch), and bvh "auto"
+    # threaded bvh / rf_bvh frames (the emit branch: kernel G's rows and
+    # any-hit modes), and bvh "auto"
     "bvh": (
-        "bvh_walk[bvh]", "bvh_walk[rf]", "shade_pre", "shade_post", "refine_cull",
-        "mt_trace[rows]", "mt_trace[anyhit]",
+        "bvh_walk[bvh,rows]", "bvh_walk[bvh,anyhit]", "bvh_walk[rf,rows]", "bvh_walk[rf,anyhit]",
+        "shade_pre", "shade_post", "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]",
     ),
     # Renderer(handler="lbvh"): the chunk table built on the card
     "lbvh": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
@@ -470,19 +477,19 @@ PATHS = {
     # pbvh frames, and the threaded walk on the checkpoints precompute writes
     "tools": (
         "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post",
-        "bvh_walk[bvh]",
+        "bvh_walk[bvh,rows]",
     ),
     # multi-device rendering (phase_parallel): rank 0's launches of one
     # frame per case, image bands and scene shards on ranks sharing the card
     "parallel": (
         "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre",
-        "shade_post", "bvh_walk[bvh]",
+        "shade_post", "bvh_walk[bvh,rows]",
     ),
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
         "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]",
         "mt_trace[rows,early_exit]", "mt_stream", "shade_pre", "shade_post", "shade_bounce",
-        "bvh_walk[bvh]",
+        "bvh_walk[bvh,rows]",
     ),
 }
 # The knobs path's torus and segmented frames: the fused bounce kernel
@@ -675,6 +682,11 @@ def phase_build():
             say(f"[build] {ln.strip()}")
 
 
+# The wrappers' tracing arguments (rt_rs_tpu_torch/tracing.py): which
+# counter a call adds to; the twins take none of them.
+TRACE_KWARGS = ("counter", "bounce")
+
+
 class Recorder:
     """Wraps the kernel wrappers (and the segmented and streamed
     entries) for one frame and keeps each call's arguments and result
@@ -697,6 +709,7 @@ class Recorder:
             (tpose_table, "mt_tpose"),
             (mxu_mt, "mt_mxu"),
             (bvh_walk, "bvh_walk"),
+            (bvh_walk, "bvh_walk_tiled"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -708,7 +721,10 @@ class Recorder:
 
             def rec(*args, _fn=fn, _name=name, **kw):
                 out = _fn(*args, **kw)
-                self.calls[_name].append((args, kw, out))
+                # kept without the trace counters' arguments, which the
+                # twins do not take and a replay need not count under
+                kept = {k: v for k, v in kw.items() if k not in TRACE_KWARGS}
+                self.calls[_name].append((args, kept, out))
                 return out
 
             setattr(mod, name, rec)
@@ -894,6 +910,8 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
     for i, (a, kw, _) in enumerate(calls["bvh_walk"]):
         check_walk(f"{label} {bw.walk_name(a[4].payload)}#{i}", a, kw, errs)
+    for i, (a, kw, _) in enumerate(calls["bvh_walk_tiled"]):
+        check_walk_tiled(f"{label} {bw.walk_name(a[2].payload, kw['mode'])}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -967,6 +985,29 @@ def check_walk(what: str, a, kw, errs: dict) -> None:
     errs[name] = max(errs[name], check_equal(what, kern, bw.walk_reference(*a, **kw)))
     check_equal(f"{what} vs the wide mirror", kern, bw.bvh_walk_wide_reference(*a, **kw))
     check_equal(f"{what} run twice", bw.bvh_walk(*a, **kw), kern)
+
+
+def check_walk_tiled(what: str, a, kw, errs: dict) -> None:
+    """One bvh_walk_tiled call: the kernel bit-equal to its twin (the
+    binary walk; table[pid]; the closest verdict against the cap) and to
+    the wide design's mirror in its mode, and run twice alike."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
+
+    name = bw.walk_name(a[2].payload, kw["mode"])
+    kern = bw.bvh_walk_tiled(*a, **kw)
+    errs[name] = max(errs[name], check_equal(what, kern, bw.bvh_walk_tiled_reference(*a, **kw)))
+    check_equal(f"{what} vs the wide mirror", kern, bw.bvh_walk_tiled_wide_reference(*a, **kw))
+    check_equal(f"{what} run twice", bw.bvh_walk_tiled(*a, **kw), kern)
+
+
+def flat_walk(call):
+    """A recorded bvh_walk_tiled call as the flat entry's call on the
+    same rays -> ((o, d, excl, valid, tree), kwargs, None)."""
+    from rt_rs_tpu_torch.ops import bvh_walk as bw
+
+    (payload, valid, tree), kw, _ = call
+    o, d, excl, flat_valid, _ = bw.tile_rays(payload, valid)
+    return (o, d, excl, flat_valid, tree), {k: kw[k] for k in ("t_min", "t_max", "eps")}, None
 
 
 def walk_rays(n: int, seed: int, num_prims: int, nan: int):
@@ -2476,11 +2517,11 @@ def tools_precompute() -> list:
     w, h = TOOLS_SIZE
     size = ["--width", str(w), "--height", str(h), "--device", DEVICE]
     for ckpt in ("card.bvh.json", "host.bvh.json"):
-        before = cuda.LAUNCHES["bvh_walk[bvh]"]
+        before = cuda.LAUNCHES["bvh_walk[bvh,rows]"]
         rc = load.main(["--path", "row.json", "--handler-bvh", ckpt, *size, "--out", f"{ckpt}.png"])
         if rc != 0:
             raise AssertionError(f"load --handler-bvh {ckpt} exited {rc}")
-        if cuda.LAUNCHES["bvh_walk[bvh]"] == before:
+        if cuda.LAUNCHES["bvh_walk[bvh,rows]"] == before:
             raise AssertionError(f"load --handler-bvh {ckpt}: the threaded walk never launched")
     frames, calls = {}, None
     for name in ("card", "host"):
@@ -3093,6 +3134,14 @@ def work(name: str, a, kw) -> tuple[int, int]:
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
+    if name.startswith("bvh_walk") and "," in name:
+        # a tiled mode: the closest walk's work on its rays (any-hit's
+        # stops sooner, so its bound lies below this), the payload's 32
+        # bytes a ray read and, for rows, the 128-byte row written
+        fa, fkw, _ = flat_walk((a, kw, None))
+        ops, nbytes = work(name.split(",")[0] + "]", fa, fkw)
+        n = fa[0].shape[0]
+        return ops, nbytes + n * (32 - WALK_RAY_BYTES + 8) + (n * 128 if name.endswith("rows]") else 0)
     if name.startswith("bvh_walk"):
         w, n = walk_work(a, kw), a[0].shape[0]
         ops = w.node_steps * WALK_NODE_OPS + w.prim_tests * WALK_PRIM_OPS + 3 * n
@@ -3503,13 +3552,27 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         "shade_bounce": (
             st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
         ),
-        # the threaded torus frames' primary calls
-        "bvh_walk[bvh]": (bw.bvh_walk, bw.walk_reference, recorded["bvh torus"]["bvh_walk"][0], 1),
-        "bvh_walk[rf]": (bw.bvh_walk, bw.walk_reference, recorded["rf_bvh torus"]["bvh_walk"][0], 1),
+        # the threaded torus frames' primary rays through the flat entry
+        "bvh_walk[bvh]": (
+            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh torus"]["bvh_walk_tiled"][0]), 1,
+        ),
+        "bvh_walk[rf]": (
+            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["rf_bvh torus"]["bvh_walk_tiled"][0]), 1,
+        ),
         "bvh_walk[bvh] canyon 640x480": (
-            bw.bvh_walk, bw.walk_reference, recorded["bvh canyon"]["bvh_walk"][0], 1,
+            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh canyon"]["bvh_walk_tiled"][0]), 1,
         ),
     }
+    # the tiled modes on the same frames: the primary rows call (also in
+    # closest mode), the first bounce's shadows (any-hit)
+    for label, leaf in (("bvh torus", "bvh"), ("rf_bvh torus", "rf")):
+        tiled = recorded[label]["bvh_walk_tiled"]
+        rows_call = next(c for c in tiled if c[1]["mode"] == "rows")
+        for mode in ("closest", "rows", "anyhit"):
+            call = next(c for c in tiled if c[1]["mode"] == mode) if mode != "closest" else (
+                rows_call[0], dict(rows_call[1], mode="closest", table=None), None
+            )
+            picks[f"bvh_walk[{leaf},{mode}]"] = (bw.bvh_walk_tiled, bw.bvh_walk_tiled_reference, call, 1)
     for name, (kern, twin, a, kw) in recorded["probes"].items():
         picks[name] = (kern, twin, (a, kw, None), 1)
     times = {}
@@ -3536,6 +3599,8 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
         if name.startswith("bvh_walk"):
+            if "," in name:
+                a, kw, _ = flat_walk((a, kw, None))
             w, ww, tree = walk_work(a, kw), bw.WideWork(), a[4]
             bw.bvh_walk_wide_reference(*a, **kw, work=ww)
             n = a[0].shape[0]
@@ -3641,6 +3706,7 @@ KINDS = (
     ("shade_post_kernel", "shade_post"),
     ("shade_bounce_kernel", "shade_bounce"),
     ("bvh_walk_kernel", "bvh_walk"),
+    ("bvh_walk_tiled", "bvh_walk"),
     ("sort", "sort (compaction)"),
     ("index", "gather / index"),
     ("gather", "gather / index"),

@@ -24,11 +24,12 @@ opposite order:
   fit on the card) whose warps take 32-ray batches from an atomic
   counter, reset on the stream before each launch.
 
-The calls: the primary call (the first) of the threaded ``bvh`` and
-``rf_bvh`` torus 384x288 frames, of the ``bvh`` canyon 640x480 frame and
-of the ``bvh`` torus 1080p frame; and every call of the torus 1080p and
-canyon 640x480 frames together (their first call reads from HBM, the
-others find what it left in L2).  Prints one JSON line of device ms by
+The calls: the frames' walks (kernel G's tiled calls) as the flat
+entry's closest-hit calls on the same rays: the primary call (the
+first) of the threaded ``bvh`` and ``rf_bvh`` torus 384x288 frames, of
+the ``bvh`` canyon 640x480 frame and of the ``bvh`` torus 1080p frame;
+and every call of the torus 1080p and canyon 640x480 frames together
+(their first call reads from HBM, the others find what it left in L2).  Prints one JSON line of device ms by
 call and variant, then the card's name and power limit.  Needs one card.
 """
 
@@ -46,23 +47,26 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BINARY_SRC = pathlib.Path(__file__).resolve().parent / "bvh_walk_binary.cu"
 VARIANTS = ("binary", "wide", "wide, width 8", "wide, persistent")
-# (text, replacement) pairs that turn kernel G into the persistent grid.
+# (text, replacement) pairs that turn kernel G's flat entry into the
+# persistent grid (the tiled kernels share its loop, but the ablation
+# launches the flat entry alone).
 PERSISTENT = (
     (
         "  const int i = blockIdx.x * kBlock + threadIdx.x;\n  WalkCount count;\n  if (i < n) {\n"
-        "    LocalStack stack;\n    walk_ray(i, stack,",
+        "    LocalStack stack;\n    walk_ray<MODE>(i, rays, stack, nodes, prims, t_min, t_max, eps, miss_t,\n"
+        "                   out, count);\n  }\n  count_walks<MODE>(",
         "  WalkCount count;\n  LocalStack stack;\n  for (;;) {\n  int base = 0;\n"
         "  if ((threadIdx.x & 31) == 0) base = atomicAdd(&g_next, 32);\n"
         "  base = __shfl_sync(0xffffffffu, base, 0);\n  if (base >= n) break;\n"
-        "  const int i = base + (threadIdx.x & 31);\n  if (i < n) {\n    walk_ray(i, stack,",
-    ),
-    (
-        "             miss_t, t_out, pid_out, count);\n  }\n  count_walks(",
-        "             miss_t, t_out, pid_out, count);\n  }\n  }\n  count_walks(",
+        "  const int i = base + (threadIdx.x & 31);\n  if (i < n) {\n"
+        "    walk_ray<MODE>(i, rays, stack, nodes, prims, t_min, t_max, eps, miss_t,\n"
+        "                   out, count);\n  }\n  }\n  count_walks<MODE>(",
     ),
     ("struct Ray {", "__device__ int g_next;\n\nstruct Ray {"),
     (
+        "    if (depth > kLocalStack) return (int)cudaErrorInvalidValue;\n"
         "    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);\n",
+        "    if (depth > kLocalStack) return (int)cudaErrorInvalidValue;\n"
         "    void* counter;\n    cudaGetSymbolAddress(&counter, g_next);\n"
         "    cudaMemsetAsync(counter, 0, sizeof(int), stream);\n"
         "    int per_sm = 0, sms = 0, dev = 0;\n    cudaGetDevice(&dev);\n"
@@ -163,7 +167,7 @@ def main() -> None:
     import torch
 
     from rt_rs_tpu_torch.bvh import wide
-    from rt_rs_tpu_torch.ops import cuda
+    from rt_rs_tpu_torch.ops import bvh_walk, cuda
     from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_scene
 
     if not torch.cuda.is_available():
@@ -180,7 +184,10 @@ def main() -> None:
         r = cs.renderer(w, h, scene(), handler=handler, backend="threaded")
         with cs.Recorder() as rec:
             r.render_frame()
-        recorded[label] = [(a, kw, tuple(x.clone() for x in out)) for a, kw, out in rec.calls["bvh_walk"]]
+        # the frame's walks through the tiled entry, as the flat entry's
+        # closest-hit calls on the same rays
+        flat = [cs.flat_walk(c) for c in rec.calls["bvh_walk_tiled"]]
+        recorded[label] = [(a, kw, bvh_walk.bvh_walk(*a, **kw)) for a, kw, _ in flat]
     calls = {f"{label} primary": recorded[label][:1] for label in frames}
     calls["bvh torus 1920x1080, the frame's calls"] = recorded["bvh torus 1920x1080"]
     calls["bvh canyon 640x480, the frame's calls"] = recorded["bvh canyon 640x480"]

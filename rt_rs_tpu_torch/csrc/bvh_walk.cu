@@ -1,4 +1,5 @@
-// Kernel G: the threaded BVH walk, closest hit per ray, on a wide tree.
+// Kernel G: the threaded BVH walk on a wide tree: closest hit per ray,
+// or the closest hit with its shade row, or any hit below a cap.
 //
 // Replaces no pallas_call: it is the XLA lax.while_loop of
 // rt_rs_tpu/handlers/bvh.py::_bvh_intersect (contiguous leaves, the
@@ -22,37 +23,66 @@
 // order, with its best t, and makes its prim tests in its order.  Its
 // (t, pid) is the loop's bit for bit: ties keep the first prim found
 // (strict t < best_t).  Rays with valid == 0 return the miss sentinel
-// (t_max + 1, 0).
+// (t_max + 1, 0).  The packed prims are the leaves' in test order, the
+// empty payload slots dropped, so one walk serves both leaf kinds.
+//
+// Modes (MODE below), on component-major ray tiles (rt_bvh_walk_tiled,
+// the tree handlers' tiled, rows and any-hit entries):
+//   0 closest: (t, pid), as above;
+//   1 rows: the same, and the winner's row of the scene's shade table
+//     [P, 32] f32 written to rows [32, n] (row 0 for a miss or an
+//     invalid ray, as the gather branch's table[pid] reads it);
+//   2 any-hit: best_t starts at the ray's cap (payload row 7), every
+//     test stays the closest walk's (pid != excl, t_min < w < t_max,
+//     w < best_t), and the ray stops at the first prim that passes:
+//     blocked = 1.  Some hit lies below the cap exactly when the
+//     closest one does, so blocked is the closest walk's verdict
+//     pid != 0 && t < cap bit for bit; nodes whose near lies beyond
+//     the cap are culled.
+// The flat entry (rt_bvh_walk: the flat frame path and negative
+// materials) is the closest mode on [n, 3] rays.
 //
 // The stack a walk needs grows with the tree's depth (about one entry a
 // binary level on a chain; the pack counts it).  Up to kLocalStack
-// entries live in the thread's local memory (bvh_walk_kernel, one
+// entries live in the thread's local memory (the *_kernel entries, one
 // thread a ray); a deeper tree's walk keeps its stack in a scratch
-// buffer the wrapper allocates (bvh_walk_scratch_kernel, each thread a
-// strided set of rays), so every tree the binary walk takes is walked.
+// buffer the wrapper allocates (the *_scratch_kernel entries, each
+// thread a strided set of rays), so every tree the binary walk takes is
+// walked, in every mode.
 //
-// Layouts: o, d [n, 3]; excl [n] i32; valid [n] u8 (torch bool);
-// nodes [k, 8 * kWidth] i32: lo.x, hi.x, lo.y, hi.y, lo.z, hi.z
-// (kWidth f32 each), then kWidth child words (> 0 a node, ~q a leaf
-// whose prims start at q, 0 empty), padding; prims [q, 12] i32:
-// {a, pid}, {b - a, last}, {c - a, 0}  ->  t [n], pid [n].  While the
-// trace buffer's flag is set (tracing.py), each block adds its valid
-// rays, wide-node visits and prim tests to walk_rays, walk_nodes and
-// walk_prims, counted in registers as the rays walk.
+// Layouts.  Flat: o, d [n, 3]; excl [n] i32; valid [n] u8 (torch bool)
+// -> t [n], pid [n].  Tiled: payload [8, n] f32, component-major over
+// the n = T * r ray slots (rows 0-5 o and d, row 6 the f32 exclusion
+// id, row 7 the cap), valid [n] u8 -> t, pid [n] (modes 0, 1), rows
+// [32, n] (mode 1), blocked [n] u8 (mode 2); a thread reads its ray's
+// 8 words from 8 planes, so a warp's loads and stores are 128
+// contiguous bytes a plane.  Both: nodes [k, 8 * kWidth] i32: lo.x,
+// hi.x, lo.y, hi.y, lo.z, hi.z (kWidth f32 each), then kWidth child
+// words (> 0 a node, ~q a leaf whose prims start at q, 0 empty),
+// padding; prims [q, 12] i32: {a, pid}, {b - a, last}, {c - a, 0}.
+// While the trace buffer's flag is set (tracing.py), each block adds
+// its valid rays, wide-node visits and prim tests to walk_rays,
+// walk_nodes and walk_prims, and in the any-hit mode its valid rays and
+// blocked rays to walk_anyhit and walk_blocked, counted in registers as
+// the rays walk and summed in one block reduction.
 //
-// What bounds it on this card: latency.  A ray reads its 7 words and
-// writes 2, and the tree and prims (a few MB) stay in L2, but each step
-// waits on the load before it.  The binary walk made ~17 dependent node
-// steps a primary ray, each two round trips (the box, then the link);
-// here a node is one 128-byte line of independent 16-byte loads (box and
-// links together), ~4 of them a torus primary ray, and a prim three
-// 16-byte loads.  A call of ~100K rays is one wave and lasts as long as
-// its slowest warp's chain of such loads.
+// What bounds it on this card: latency.  A ray reads its 7 or 8 words
+// and writes 1-2 (or 34 with its row), and the tree, prims and shade
+// table (a few MB) stay in L2, but each step waits on the load before
+// it.  The binary walk made ~17 dependent node steps a primary ray,
+// each two round trips (the box, then the link); here a node is one
+// 128-byte line of independent 16-byte loads (box and links together),
+// ~4 of them a torus primary ray, and a prim three 16-byte loads.  A
+// call of ~100K rays is one wave and lasts as long as its slowest
+// warp's chain of such loads.  The rows epilogue is 8 independent
+// 16-byte loads of one L2-resident row and 32 coalesced stores.
 // The loop is "while-while": nodes until the ray holds a leaf or is
 // done, then the leaf's prims, so a warp whose lanes are in different
 // phases issues each body once per phase change, not every step.  No
 // host read, so a frame that launches it can be captured in a CUDA
 // graph.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -111,6 +141,59 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min;
+};
+
+enum Mode { kClosest = 0, kRows = 1, kAnyHit = 2 };
+
+// Where a walk's rays come from: load(i, ...) sets ray i's origin and
+// direction, its exclusion id and its cap (the tiled rays' row 7; the
+// flat rays have none), and returns whether it is valid.
+struct FlatRays {
+  const float* __restrict__ o;
+  const float* __restrict__ d;
+  const int* __restrict__ excl;
+  const uint8_t* __restrict__ valid;
+  __device__ __forceinline__ bool load(size_t i, Ray& r, int& ex,
+                                       float& cap) const {
+    r.ox = o[3 * i];
+    r.oy = o[3 * i + 1];
+    r.oz = o[3 * i + 2];
+    r.dx = d[3 * i];
+    r.dy = d[3 * i + 1];
+    r.dz = d[3 * i + 2];
+    ex = excl[i];
+    cap = 0.0f;
+    return valid[i] != 0;
+  }
+};
+
+struct TileRays {
+  const float* __restrict__ payload;  // [8, n]
+  const uint8_t* __restrict__ valid;  // [n]
+  size_t n;
+  __device__ __forceinline__ bool load(size_t i, Ray& r, int& ex,
+                                       float& cap) const {
+    r.ox = payload[i];
+    r.oy = payload[n + i];
+    r.oz = payload[2 * n + i];
+    r.dx = payload[3 * n + i];
+    r.dy = payload[4 * n + i];
+    r.dz = payload[5 * n + i];
+    ex = (int)payload[6 * n + i];  // truncation, as torch's .to(int32)
+    cap = payload[7 * n + i];
+    return valid[i] != 0;
+  }
+};
+
+// What a walk writes: t and pid (closest, rows), rows [32, n] from the
+// shade table [P, 32] (rows), blocked (any-hit).
+struct WalkOut {
+  float* __restrict__ t;
+  int* __restrict__ pid;
+  float* __restrict__ rows;
+  const float4* __restrict__ table;
+  uint8_t* __restrict__ blocked;
+  size_t n;
 };
 
 // One ray's stack of (child word, near) entries.  LocalStack holds
@@ -207,38 +290,36 @@ __device__ __forceinline__ int pop(const Stack& stack, int& sp, float best_t) {
 }
 
 // What a thread's walks did, for the trace counters: valid rays walked,
-// wide-node visits, prim tests (excluded prims skipped).
+// wide-node visits, prim tests (excluded prims skipped), and of the
+// any-hit mode its valid rays and those that found a blocker.
 struct WalkCount {
-  int rays = 0, nodes = 0, prims = 0;
+  int rays = 0, nodes = 0, prims = 0, anyhit = 0, blocked = 0;
 };
 
-// Ray i's walk -> t_out[i], pid_out[i]; its work added to `count`.
-template <class Stack>
-__device__ __forceinline__ void walk_ray(
-    int i, Stack& stack, const float* __restrict__ o,
-    const float* __restrict__ d, const int* __restrict__ excl,
-    const uint8_t* __restrict__ valid, const float4* __restrict__ nodes,
-    const float4* __restrict__ prims, float t_min, float t_max, float eps,
-    float miss_t, float* __restrict__ t_out, int* __restrict__ pid_out,
-    WalkCount& count) {
+// Ray i's walk in MODE -> out at slot i; its work added to `count`.
+template <int MODE, class Rays, class Stack>
+__device__ __forceinline__ void walk_ray(size_t i, const Rays& rays,
+                                         Stack& stack,
+                                         const float4* __restrict__ nodes,
+                                         const float4* __restrict__ prims,
+                                         float t_min, float t_max, float eps,
+                                         float miss_t, const WalkOut& out,
+                                         WalkCount& count) {
   Ray r;
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
+  int ex;
+  float cap;
+  const bool valid = rays.load(i, r, ex, cap);
   r.ix = 1.0f / r.dx;
   r.iy = 1.0f / r.dy;
   r.iz = 1.0f / r.dz;
   r.t_min = t_min;
-  const int ex = excl[i];
-  float best_t = miss_t;
+  float best_t = MODE == kAnyHit ? cap : miss_t;
   int best_id = 0;
+  bool blocked = false;
   int sp = 0;
   // cur: > 0 a node, 0 the root first and then done, < 0 a leaf.
   int cur = 0;
-  bool live = valid[i] != 0;
+  bool live = valid;
   count.rays += live;
   while (live) {
     // Nodes until the ray holds a leaf or is done.
@@ -249,7 +330,8 @@ __device__ __forceinline__ void walk_ray(
       if (cur == 0) break;
     }
     if (cur == 0) break;
-    // The leaf's prims, up to the one marked last.
+    // The leaf's prims, up to the one marked last (any-hit: or the
+    // first that passes).
     for (int p = ~cur;; ++p) {
       const float4 a = __ldg(prims + 3 * p);
       const float4 e1 = __ldg(prims + 3 * p + 1);
@@ -261,64 +343,87 @@ __device__ __forceinline__ void walk_ray(
           tri_edges(a, e1, e2, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_min,
                     t_max, eps, w) &&
           w > t_min && w < t_max && w < best_t) {
+        if (MODE == kAnyHit) {
+          blocked = true;
+          break;
+        }
         best_t = w;
         best_id = pid;
       }
       if (__float_as_int(e1.w) != 0) break;
     }
+    if (MODE == kAnyHit && blocked) break;
     cur = pop(stack, sp, best_t);
     live = cur != 0;
   }
-  t_out[i] = best_t;
-  pid_out[i] = best_id;
+  if (MODE == kAnyHit) {
+    out.blocked[i] = blocked;
+    count.anyhit += valid;
+    count.blocked += blocked;
+    return;
+  }
+  out.t[i] = best_t;
+  out.pid[i] = best_id;
+  if (MODE == kRows) {
+    // The winner's row (row 0 for a miss): 8 loads of one 128-byte
+    // row, 32 stores each coalesced across the warp.
+    const float4* src = out.table + (size_t)best_id * 8;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const float4 x = __ldg(src + v);
+      out.rows[(size_t)(4 * v) * out.n + i] = x.x;
+      out.rows[(size_t)(4 * v + 1) * out.n + i] = x.y;
+      out.rows[(size_t)(4 * v + 2) * out.n + i] = x.z;
+      out.rows[(size_t)(4 * v + 3) * out.n + i] = x.w;
+    }
+  }
 }
 
 // The block's walks added to walk_rays, walk_nodes and walk_prims
-// (counters `counter` to `counter + 2`) while the trace flag is set.
+// (counters `counter` to `counter + 2`) and, in the any-hit mode, to
+// walk_anyhit and walk_blocked (`counter + 3`, `counter + 4`) while the
+// trace flag is set: one block reduction of the five counts.
+template <int MODE>
 __device__ __forceinline__ void count_walks(const WalkCount& count,
                                             long long* trace, int counter) {
   if (!trace_on(trace)) return;
-  long long v[3] = {count.rays, count.nodes, count.prims};
+  long long v[5] = {count.rays, count.nodes, count.prims, count.anyhit,
+                    count.blocked};
   block_sum(v);
   if (threadIdx.x == 0)
-    for (int k = 0; k < 3; ++k) trace_add(trace, counter + k, v[k]);
+    for (int k = 0; k < (MODE == kAnyHit ? 5 : 3); ++k)
+      trace_add(trace, counter + k, v[k]);
 }
 
 // One thread a ray, its stack in local memory (trees whose walk needs
 // at most kLocalStack entries).
-__global__ void __launch_bounds__(kBlock)
-    bvh_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const int* __restrict__ excl,
-                    const uint8_t* __restrict__ valid,
-                    const float4* __restrict__ nodes,
-                    const float4* __restrict__ prims, int n, float t_min,
-                    float t_max, float eps, float miss_t,
-                    float* __restrict__ t_out, int* __restrict__ pid_out,
-                    long long* __restrict__ trace, int counter) {
+template <int MODE, class Rays>
+__device__ __forceinline__ void walk_local(const Rays& rays,
+                                           const float4* __restrict__ nodes,
+                                           const float4* __restrict__ prims,
+                                           int n, float t_min, float t_max,
+                                           float eps, float miss_t,
+                                           const WalkOut& out,
+                                           long long* __restrict__ trace,
+                                           int counter) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   WalkCount count;
   if (i < n) {
     LocalStack stack;
-    walk_ray(i, stack, o, d, excl, valid, nodes, prims, t_min, t_max, eps,
-             miss_t, t_out, pid_out, count);
+    walk_ray<MODE>(i, rays, stack, nodes, prims, t_min, t_max, eps, miss_t,
+                   out, count);
   }
-  count_walks(count, trace, counter);
+  count_walks<MODE>(count, trace, counter);
 }
 
 // Deeper trees: each thread walks rays g, g + threads, ... with its
 // stack of `depth` entries in `scratch` ([2, depth, threads] words).
-__global__ void __launch_bounds__(kBlock)
-    bvh_walk_scratch_kernel(const float* __restrict__ o,
-                            const float* __restrict__ d,
-                            const int* __restrict__ excl,
-                            const uint8_t* __restrict__ valid,
-                            const float4* __restrict__ nodes,
-                            const float4* __restrict__ prims,
-                            int* __restrict__ scratch, int n, int depth,
-                            float t_min, float t_max, float eps,
-                            float miss_t, float* __restrict__ t_out,
-                            int* __restrict__ pid_out,
-                            long long* __restrict__ trace, int counter) {
+template <int MODE, class Rays>
+__device__ __forceinline__ void walk_scratch(
+    const Rays& rays, const float4* __restrict__ nodes,
+    const float4* __restrict__ prims, int* __restrict__ scratch, int n,
+    int depth, float t_min, float t_max, float eps, float miss_t,
+    const WalkOut& out, long long* __restrict__ trace, int counter) {
   const int g = blockIdx.x * kBlock + threadIdx.x;
   const size_t threads = (size_t)gridDim.x * kBlock;
   ScratchStack stack{scratch + g,
@@ -326,10 +431,75 @@ __global__ void __launch_bounds__(kBlock)
                      threads};
   WalkCount count;
   for (size_t i = g; i < (size_t)n; i += threads) {
-    walk_ray((int)i, stack, o, d, excl, valid, nodes, prims, t_min, t_max,
-             eps, miss_t, t_out, pid_out, count);
+    walk_ray<MODE>(i, rays, stack, nodes, prims, t_min, t_max, eps, miss_t,
+                   out, count);
   }
-  count_walks(count, trace, counter);
+  count_walks<MODE>(count, trace, counter);
+}
+
+// The flat entry's kernels (closest hit of [n, 3] rays).
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_kernel(FlatRays rays, const float4* __restrict__ nodes,
+                    const float4* __restrict__ prims, int n, float t_min,
+                    float t_max, float eps, float miss_t, WalkOut out,
+                    long long* __restrict__ trace, int counter) {
+  walk_local<kClosest>(rays, nodes, prims, n, t_min, t_max, eps, miss_t, out,
+                       trace, counter);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_scratch_kernel(FlatRays rays, const float4* __restrict__ nodes,
+                            const float4* __restrict__ prims,
+                            int* __restrict__ scratch, int n, int depth,
+                            float t_min, float t_max, float eps, float miss_t,
+                            WalkOut out, long long* __restrict__ trace,
+                            int counter) {
+  walk_scratch<kClosest>(rays, nodes, prims, scratch, n, depth, t_min, t_max,
+                         eps, miss_t, out, trace, counter);
+}
+
+// The tiled entry's kernels, one per mode.
+template <int MODE>
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_tiled_kernel(TileRays rays, const float4* __restrict__ nodes,
+                          const float4* __restrict__ prims, int n,
+                          float t_min, float t_max, float eps, float miss_t,
+                          WalkOut out, long long* __restrict__ trace,
+                          int counter) {
+  walk_local<MODE>(rays, nodes, prims, n, t_min, t_max, eps, miss_t, out,
+                   trace, counter);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kBlock)
+    bvh_walk_tiled_scratch_kernel(TileRays rays,
+                                  const float4* __restrict__ nodes,
+                                  const float4* __restrict__ prims,
+                                  int* __restrict__ scratch, int n, int depth,
+                                  float t_min, float t_max, float eps,
+                                  float miss_t, WalkOut out,
+                                  long long* __restrict__ trace, int counter) {
+  walk_scratch<MODE>(rays, nodes, prims, scratch, n, depth, t_min, t_max,
+                     eps, miss_t, out, trace, counter);
+}
+
+template <int MODE>
+cudaError_t launch_tiled(const TileRays& rays, const float4* nv,
+                         const float4* pv, int* scratch, int n, int depth,
+                         int threads, float t_min, float t_max, float eps,
+                         float miss_t, const WalkOut& out, long long* trace,
+                         int counter, cudaStream_t stream) {
+  if (scratch == nullptr) {
+    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
+    bvh_walk_tiled_kernel<MODE><<<blocks, kBlock, 0, stream>>>(
+        rays, nv, pv, n, t_min, t_max, eps, miss_t, out, trace, counter);
+  } else {
+    bvh_walk_tiled_scratch_kernel<MODE>
+        <<<(unsigned)(threads / kBlock), kBlock, 0, stream>>>(
+            rays, nv, pv, scratch, n, depth, t_min, t_max, eps, miss_t, out,
+            trace, counter);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -345,18 +515,59 @@ RT_EXPORT int rt_bvh_walk(const float* o, const float* d, const int* excl,
   if (n <= 0) return (int)cudaGetLastError();
   const float4* nv = reinterpret_cast<const float4*>(nodes);
   const float4* pv = reinterpret_cast<const float4*>(prims);
+  const FlatRays rays{o, d, excl, valid};
+  const WalkOut out{t_out, pid_out, nullptr, nullptr, nullptr, (size_t)n};
   if (scratch == nullptr) {
     if (depth > kLocalStack) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
     bvh_walk_kernel<<<blocks, kBlock, 0, stream>>>(
-        o, d, excl, valid, nv, pv, n, t_min, t_max, eps, miss_t, t_out,
-        pid_out, trace, counter);
+        rays, nv, pv, n, t_min, t_max, eps, miss_t, out, trace, counter);
   } else {
     if (threads <= 0 || threads % kBlock != 0) return (int)cudaErrorInvalidValue;
     bvh_walk_scratch_kernel<<<(unsigned)(threads / kBlock), kBlock, 0,
-                              stream>>>(o, d, excl, valid, nv, pv, scratch,
-                                        n, depth, t_min, t_max, eps, miss_t,
-                                        t_out, pid_out, trace, counter);
+                              stream>>>(rays, nv, pv, scratch, n, depth,
+                                        t_min, t_max, eps, miss_t, out, trace,
+                                        counter);
   }
   return (int)cudaGetLastError();
+}
+
+// The tiled entry: payload [8, n], valid [n] -> by mode (0 closest, 1
+// rows, 2 any-hit) t_out, pid_out [n], rows_out [32, n] from table
+// [P, 32] (16-byte aligned), blocked_out [n]; the outputs a mode does
+// not write may be null.  scratch as for rt_bvh_walk.
+RT_EXPORT int rt_bvh_walk_tiled(const float* payload, const uint8_t* valid,
+                                const int* nodes, const int* prims,
+                                const float* table, int* scratch, int n,
+                                int depth, int threads, int mode, float t_min,
+                                float t_max, float eps, float miss_t,
+                                float* t_out, int* pid_out, float* rows_out,
+                                uint8_t* blocked_out, long long* trace,
+                                int counter, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (scratch == nullptr ? depth > kLocalStack
+                         : (threads <= 0 || threads % kBlock != 0))
+    return (int)cudaErrorInvalidValue;
+  const float4* nv = reinterpret_cast<const float4*>(nodes);
+  const float4* pv = reinterpret_cast<const float4*>(prims);
+  const TileRays rays{payload, valid, (size_t)n};
+  const WalkOut out{t_out, pid_out, rows_out,
+                    reinterpret_cast<const float4*>(table), blocked_out,
+                    (size_t)n};
+  const auto launch = [&](auto mode_const) {
+    return launch_tiled<decltype(mode_const)::value>(
+        rays, nv, pv, scratch, n, depth, threads, t_min, t_max, eps, miss_t,
+        out, trace, counter, stream);
+  };
+  switch (mode) {
+    case kClosest:
+      return (int)launch(std::integral_constant<int, kClosest>{});
+    case kRows:
+      if (table == nullptr || rows_out == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch(std::integral_constant<int, kRows>{});
+    case kAnyHit:
+      return (int)launch(std::integral_constant<int, kAnyHit>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -62,7 +62,8 @@ CASES = {
 # handler); the wrapper; the mode, None for mt_stream, "primary" or
 # "frame" for bvh_walk).  The call taken is the frame's busiest in that
 # mode (most list entries; mt_stream: most tiles) where the name says so,
-# else its first; bvh_walk "frame" times all of the frame's calls.
+# else its first; bvh_walk "frame" times all of the frame's calls (of the
+# tiled entry, where the frame walks through it).
 CALLS = {
     "mt_trace[closest] canyon 640x480, busiest": (("canyon", (640, 480, "segmented"), False), "mt_trace", "closest"),
     "mt_trace[rows] torus 384x288 primary": (("renderer", (384, 288), False), "mt_trace", "rows"),
@@ -218,8 +219,12 @@ def call_times(matches) -> dict[str, float]:
             recorded[frame] = rec.calls
         calls = recorded[frame][wrapper]
         if wrapper == "bvh_walk":
-            chosen = calls[:1] if mode == "primary" else calls
+            # a checkout whose frames walk through the tiled entry
+            # (kernel G's modes) records its calls instead
             fn = wrappers[wrapper]
+            if not calls and recorded[frame].get("bvh_walk_tiled"):
+                calls, fn = recorded[frame]["bvh_walk_tiled"], bvh_walk.bvh_walk_tiled
+            chosen = calls[:1] if mode == "primary" else calls
             ms[name] = cs.profiled(lambda: [fn(*a, **kw) for a, kw, _ in chosen])[1]
             continue
         if mode == "first":

@@ -137,11 +137,15 @@ def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
 
 
 class TreeIntrs(IntrsHandler):
-    """The intersect entries both tree handlers share: the threaded walk
-    over ``accel.walk`` (contiguous or payload leaves); or, where
-    ``accel.chunks`` holds the packet backend's resident table (built in
-    leaf order), the pbvh kernels in closest-hit, emit-rows and any-hit
-    modes, tagged with the ``refine`` policy."""
+    """The intersect entries both tree handlers share, in closest-hit,
+    emit-rows and any-hit modes: where ``accel.walk`` holds the threaded
+    walk's tree (contiguous or payload leaves), kernel G's tiled entry
+    in its three modes (the rows read from the scene's shade table,
+    passed at each call, so the accel holds no copy of it), and the flat
+    entry for the flat path; where ``accel.chunks`` holds the packet
+    backend's resident table (built in leaf order), the pbvh kernels,
+    tagged with the ``refine`` policy.  Either way a frame takes the
+    emit branch of ``trace_tiled`` unless ``force_rows=False``."""
 
     block_lanes = pt.TUNED_RAY_TILE  # rays per tile (the walk is order-free)
     refine: str
@@ -164,15 +168,19 @@ class TreeIntrs(IntrsHandler):
     def intersect_tiled_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
         if accel.chunks is not None:
             return self._packet(accel, cfg)
-        return super().intersect_tiled_fn(accel, arrays, cfg)
+        return walk_tiled_fn(accel.walk, cfg, "closest")
 
     def intersect_tiled_rows_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if accel.walk is not None:
+            return walk_tiled_fn(accel.walk, cfg, "rows", arrays.shade_table.contiguous())
         chunks = accel.chunks
         if chunks is None or chunks.attr is None or not pt.resident_fits(chunks, with_attrs=True):
             return None
         return self._packet(accel, cfg, emit_rows=True)
 
     def intersect_tiled_anyhit_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
+        if accel.walk is not None:
+            return walk_tiled_fn(accel.walk, cfg, "anyhit")
         if accel.chunks is None:
             return None
         return self._packet(accel, cfg, any_hit=True)
@@ -252,6 +260,22 @@ def walk_fn(tree: WalkTree, cfg: ComputeConfig):
         return bvh_walk.bvh_walk(
             o.contiguous(), d.contiguous(), excl.to(torch.int32).contiguous(),
             valid.contiguous(), tree, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
+        )
+
+    return walk
+
+
+def walk_tiled_fn(tree: WalkTree, cfg: ComputeConfig, mode: str, table: torch.Tensor | None = None):
+    """Kernel G's tiled entry in ``mode`` (``bvh_walk.WALK_MODES``) as a
+    tiled intersect entry ``(payload, valid, t_cap=None)``; ``table``
+    the shade table of the rows mode.  ``t_cap`` is accepted and
+    ignored, as in the JAX walk: the any-hit mode reads each ray's cap
+    from payload row 7."""
+
+    def walk(payload, valid, t_cap=None):
+        return bvh_walk.bvh_walk_tiled(
+            payload.contiguous(), valid.contiguous(), tree, t_min=cfg.t_min, t_max=cfg.t_max,
+            eps=cfg.eps, mode=mode, table=table,
         )
 
     return walk

@@ -30,6 +30,16 @@ tensors; :func:`walk_reference` calls it with the wrapper's arguments.
 :func:`bvh_walk_wide_reference` is the plain mirror of the kernel's
 design (the wide nodes, the stack, the packed prims), for the tests and
 the card's checks, never the main path.
+
+:func:`bvh_walk_tiled` is kernel G on the frame path's component-major
+ray tiles (payload [8, T, r], the tree handlers' tiled entries), in
+three modes (:data:`WALK_MODES`): the closest hit; the closest hit with
+the winner's shade-table row, written as the [32, T, r] plane the
+shading kernels read (the emit branch of ``ops/shade.py::trace_tiled``,
+so no row is gathered); and any hit below each ray's cap (payload row
+7), the shadow verdict.  Its twin :func:`bvh_walk_tiled_reference` is
+the binary walk on the tile's rays, ``table[pid]`` for the rows, and the
+closest hit against the cap for any-hit.
 """
 
 from __future__ import annotations
@@ -61,9 +71,15 @@ class WalkWork:
     prims_read: int = 0
 
 
-def walk_name(payload: bool) -> str:
-    """The launch counter of one leaf mode."""
-    return "bvh_walk[rf]" if payload else "bvh_walk[bvh]"
+WALK_MODES = ("closest", "rows", "anyhit")  # the tiled entry's modes (MODE in csrc/bvh_walk.cu)
+
+
+def walk_name(payload: bool, mode: str | None = None) -> str:
+    """The launch counter of one leaf kind: the flat entry's
+    (``bvh_walk[bvh]``) or, with ``mode``, the tiled entry's
+    (``bvh_walk[bvh,rows]``)."""
+    leaf = "rf" if payload else "bvh"
+    return f"bvh_walk[{leaf}]" if mode is None else f"bvh_walk[{leaf},{mode}]"
 
 
 def node_slab(o, inv_d, bmin, bmax):
@@ -209,14 +225,17 @@ def bvh_walk_wide_reference(
     t_max: float,
     eps: float,
     work: WideWork | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    cap: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Plain mirror of kernel G's design, rays in lockstep: each ray
     runs the kernel's loop over ``tree.nodes`` and ``tree.prims``.  At a
     wide node it tests every child's box (``near <= far``, ``far >=
     t_min``, ``near <= best_t``), takes the first that passes and pushes
     the others in reverse with their near; in a leaf it tests one prim
     a step until the one marked last; then it pops until an entry's
-    near is still ``<= best_t``."""
+    near is still ``<= best_t``.  With ``cap`` [N] f32, the any-hit
+    mode: best t starts at the ray's cap and a ray stops at the first
+    prim that passes -> blocked [N] bool."""
     dev = o.device
     if tree.nodes is None or tree.prims is None:
         raise ValueError("tree: no packed records (wide.pack_walk packs them)")
@@ -224,6 +243,7 @@ def bvh_walk_wide_reference(
     miss_t = _f32(t_max + 1.0, dev)
     out_t = miss_t.expand(n).clone()
     out_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out_blocked = torch.zeros((n,), dtype=torch.bool, device=dev)
     box = tree.nodes[:, : 6 * w].view(torch.float32).reshape(-1, 3, 2, w)  # [K, axis, lo/hi, child]
     words = tree.nodes[:, 6 * w : 7 * w].long()
     prims = torch.cat([tree.prims, tree.prims.new_zeros((1, wide.PRIM_WORDS))])  # a spare row for rays not in a leaf
@@ -239,7 +259,7 @@ def bvh_walk_wide_reference(
     sw = torch.zeros((r, max(tree.stack, 1)), dtype=torch.long, device=dev)
     sn = torch.zeros((r, max(tree.stack, 1)), dtype=torch.float32, device=dev)
     sp = torch.zeros((r,), dtype=torch.long, device=dev)
-    best_t = miss_t.expand(r).clone()
+    best_t = miss_t.expand(r).clone() if cap is None else cap[rows].to(torch.float32)
     best_id = torch.zeros((r,), dtype=torch.int32, device=dev)
     ar = torch.arange(r, device=dev)
     while r:
@@ -253,9 +273,11 @@ def bvh_walk_wide_reference(
         a, e1, e2 = (corner[ptr, k] for k in range(3))
         t = tri_intersect_edges(o, d, a, e1, e2, t_min=t_min, t_max=t_max, eps=eps)
         better = on & (t > t_min) & (t < t_max) & (t < best_t)
+        # any-hit: the first prim that passes ends the ray's walk
+        blocked = better if cap is not None else torch.zeros_like(better)
         best_t = torch.where(better, t, best_t)
         best_id = torch.where(better, pid, best_id)
-        done_leaf = leafing & last[ptr]
+        done_leaf = leafing & last[ptr] & ~blocked
         pop |= done_leaf
         cur = torch.where(leafing & ~done_leaf, cur - 1, cur)  # ~(ptr + 1)
         if work is not None:
@@ -292,7 +314,8 @@ def bvh_walk_wide_reference(
             work.max_stack = max(work.max_stack, int(sp.max()))
 
         # Pop until an entry's near is still within best t.
-        finished = torch.zeros((r,), dtype=torch.bool, device=dev)
+        out_blocked[rows[blocked]] = True
+        finished = blocked.clone()
         while bool(pop.any()):
             empty = pop & (sp == 0)
             finished |= empty
@@ -310,7 +333,7 @@ def bvh_walk_wide_reference(
             rows, o, d, inv_d, ex, cur, sw, sn, sp, best_t, best_id = (x[alive] for x in state)
             r = rows.shape[0]
             ar = torch.arange(r, device=dev)
-    return out_t, out_id
+    return (out_t, out_id) if cap is None else out_blocked
 
 
 BLOCK = 128  # threads a block (kBlock in csrc/bvh_walk.cu)
@@ -359,14 +382,7 @@ def bvh_walk(
     cuda.check("d", d, torch.float32, (n, 3), dev)
     cuda.check("excl", excl, torch.int32, (n,), dev)
     cuda.check("valid", valid, torch.bool, (n,), dev)
-    if tree.nodes is None or tree.prims is None:
-        raise ValueError("tree: no packed records (wide.walk_tree packs them on a CUDA device)")
-    cuda.check("nodes", tree.nodes, torch.int32, (tree.nodes.shape[0], wide.NODE_WORDS), dev)
-    cuda.check("prims", tree.prims, torch.int32, (tree.prims.shape[0], wide.PRIM_WORDS), dev)
-    scratch, threads = None, 0
-    if tree.stack > wide.LOCAL_STACK:
-        threads = scratch_threads(n, tree.stack)
-        scratch = torch.empty((2, tree.stack, threads), dtype=torch.int32, device=dev)
+    scratch, threads = _walk_stacks(tree, n, dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     pid = torch.empty((n,), dtype=torch.int32, device=dev)
     cuda.call(
@@ -380,6 +396,21 @@ def bvh_walk(
     return t, pid
 
 
+def _walk_stacks(tree: WalkTree, n: int, dev) -> tuple[torch.Tensor | None, int]:
+    """Check ``tree``'s packed records for a launch on ``dev`` -> the
+    scratch kernel's ``[2, tree.stack, threads]`` int32 buffer and
+    thread count for ``n`` rays, or (None, 0) where the local stack
+    holds the walk."""
+    if tree.nodes is None or tree.prims is None:
+        raise ValueError("tree: no packed records (wide.walk_tree packs them on a CUDA device)")
+    cuda.check("nodes", tree.nodes, torch.int32, (tree.nodes.shape[0], wide.NODE_WORDS), dev)
+    cuda.check("prims", tree.prims, torch.int32, (tree.prims.shape[0], wide.PRIM_WORDS), dev)
+    if tree.stack <= wide.LOCAL_STACK:
+        return None, 0
+    threads = scratch_threads(n, tree.stack)
+    return torch.empty((2, tree.stack, threads), dtype=torch.int32, device=dev), threads
+
+
 @functools.lru_cache(maxsize=4)
 def _packed(tree: WalkTree) -> WalkTree:
     """``tree`` with its packed records, packed on its device if it has
@@ -387,11 +418,151 @@ def _packed(tree: WalkTree) -> WalkTree:
     return tree if tree.nodes is not None else wide.pack_walk(*tree.binary, payload=tree.payload)
 
 
-def _count_walk(o, d, excl, valid, tree: WalkTree, **kw) -> None:
-    """Kernel G's counters for one CPU call: the wide walk's."""
+def _count_walk(o, d, excl, valid, tree: WalkTree, cap=None, **kw) -> None:
+    """Kernel G's counters for one CPU call: the wide walk's (with
+    ``cap``, the any-hit mode's, which also counts its valid and
+    blocked rays)."""
     work = WideWork()
-    bvh_walk_wide_reference(o, d, excl, valid, _packed(tree), work=work, **kw)
+    out = bvh_walk_wide_reference(o, d, excl, valid, _packed(tree), work=work, cap=cap, **kw)
     dev = o.device
     tracing.add(dev, "walk_rays", valid.sum())
     tracing.add(dev, "walk_nodes", work.node_visits)
     tracing.add(dev, "walk_prims", work.prim_tests)
+    if cap is not None:
+        tracing.add(dev, "walk_anyhit", valid.sum())
+        tracing.add(dev, "walk_blocked", out.sum())
+
+
+def tile_rays(payload: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The rays of component-major tiles (payload [8, T, r], valid
+    [T, r]) as the flat walk takes them -> (o [N, 3], d [N, 3], excl [N]
+    int32, valid [N], cap [N]), N = T * r in slot order."""
+    o = payload[0:3].reshape(3, -1).T.contiguous()
+    d = payload[3:6].reshape(3, -1).T.contiguous()
+    excl = payload[6].reshape(-1).to(torch.int32)
+    return o, d, excl, valid.reshape(-1), payload[7].reshape(-1)
+
+
+def bvh_walk_tiled_reference(
+    payload: torch.Tensor,
+    valid: torch.Tensor,
+    tree: WalkTree,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str = "closest",
+    table: torch.Tensor | None = None,
+):
+    """Plain-PyTorch twin of :func:`bvh_walk_tiled`: the binary walk
+    (:func:`walk_reference`) on the tiles' rays; ``rows`` mode adds
+    ``table[pid]`` as [32, T, r]; ``anyhit`` mode is the closest hit's
+    shadow verdict against the cap (``pid != 0``, ``t_min < t < t_max``,
+    ``t < cap``: the gather branch's test in ``shade_post``)."""
+    o, d, excl, flat_valid, cap = tile_rays(payload, valid)
+    t, pid = walk_reference(o, d, excl, flat_valid, tree, t_min=t_min, t_max=t_max, eps=eps)
+    if mode == "anyhit":
+        return ((pid != 0) & (t > t_min) & (t < t_max) & (t < cap)).reshape(valid.shape)
+    return _tile_results(t, pid, valid.shape, table)
+
+
+def bvh_walk_tiled_wide_reference(
+    payload: torch.Tensor,
+    valid: torch.Tensor,
+    tree: WalkTree,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str = "closest",
+    table: torch.Tensor | None = None,
+    work: WideWork | None = None,
+):
+    """Plain mirror of the tiled kernel's design with
+    :func:`bvh_walk_tiled`'s arguments and results:
+    :func:`bvh_walk_wide_reference` on the tiles' rays, in the any-hit
+    mode from each ray's cap (payload row 7), for the tests and the
+    card's checks (``tree`` packed)."""
+    o, d, excl, flat_valid, cap = tile_rays(payload, valid)
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps, work=work)
+    if mode == "anyhit":
+        return bvh_walk_wide_reference(o, d, excl, flat_valid, tree, cap=cap, **kw).reshape(valid.shape)
+    return _tile_results(*bvh_walk_wide_reference(o, d, excl, flat_valid, tree, **kw), valid.shape, table)
+
+
+def _tile_results(t, pid, shape, table):
+    """Flat (t, pid) as tiles of ``shape`` -> (t, pid), with the
+    winners' rows of ``table`` as [32, T, r] where one is given."""
+    t, pid = t.reshape(shape), pid.reshape(shape)
+    if table is None:
+        return t, pid
+    return t, pid, table[pid.reshape(-1).long()].T.reshape(32, *shape)
+
+
+def bvh_walk_tiled(
+    payload: torch.Tensor,
+    valid: torch.Tensor,
+    tree: WalkTree,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    mode: str = "closest",
+    table: torch.Tensor | None = None,
+):
+    """Kernel G on component-major ray tiles: payload [8, T, r] f32
+    (rows 0-5 o and d, row 6 the f32 exclusion id, row 7 the cap) and
+    valid [T, r] bool, over ``tree``, in ``mode``:
+
+    * ``"closest"`` -> (t, pid) [T, r], :func:`bvh_walk`'s on the same
+      rays;
+    * ``"rows"`` -> (t, pid, rows [32, T, r]), rows the winner's row of
+      ``table`` (the scene's shade table [P, 32] f32, passed at each
+      call and kept nowhere), row 0 for a miss or an invalid ray;
+    * ``"anyhit"`` -> blocked [T, r] bool: some prim other than the
+      exclusion lies in ``(t_min, min(t_max, cap))``, the closest
+      walk's verdict ``pid != 0 and t < cap`` bit for bit.
+
+    The scratch kernel takes a deep tree, as for :func:`bvh_walk`.  On
+    CPU tensors, the twin :func:`bvh_walk_tiled_reference`.  While
+    tracing is on the kernel counts as :func:`bvh_walk` does and, in the
+    any-hit mode, its valid and blocked rays (``walk_anyhit``,
+    ``walk_blocked``); on the CPU the wide mirror counts them."""
+    if mode not in WALK_MODES:
+        raise ValueError(f"unknown walk mode {mode!r}; expected one of {WALK_MODES}")
+    if (mode == "rows") != (table is not None):
+        raise ValueError("table: required in rows mode and taken in no other")
+    kw = dict(t_min=t_min, t_max=t_max, eps=eps)
+    if not payload.is_cuda:
+        if tracing.counting(payload.device):
+            o, d, excl, flat_valid, cap = tile_rays(payload, valid)
+            _count_walk(o, d, excl, flat_valid, tree, cap=cap if mode == "anyhit" else None, **kw)
+        return bvh_walk_tiled_reference(payload, valid, tree, mode=mode, table=table, **kw)
+    t_tiles, r = valid.shape
+    n, dev = t_tiles * r, payload.device
+    cuda.check("payload", payload, torch.float32, (8, t_tiles, r), dev)
+    cuda.check("valid", valid, torch.bool, (t_tiles, r), dev)
+    if table is not None:
+        cuda.check("table", table, torch.float32, (table.shape[0], 32), dev)
+        if table.data_ptr() % 16:
+            raise ValueError("table: must be 16-byte aligned (the kernel reads 16-byte vectors)")
+    scratch, threads = _walk_stacks(tree, n, dev)
+    t = pid = rows = blocked = None
+    if mode == "anyhit":
+        blocked = torch.empty((t_tiles, r), dtype=torch.bool, device=dev)
+    else:
+        t = torch.empty((t_tiles, r), dtype=torch.float32, device=dev)
+        pid = torch.empty((t_tiles, r), dtype=torch.int32, device=dev)
+    if mode == "rows":
+        rows = torch.empty((32, t_tiles, r), dtype=torch.float32, device=dev)
+    cuda.call(
+        walk_name(tree.payload, mode), "rt_bvh_walk_tiled",
+        payload.data_ptr(), valid.data_ptr(), tree.nodes.data_ptr(), tree.prims.data_ptr(),
+        cuda.ptr(table), cuda.ptr(scratch), n, tree.stack, threads, WALK_MODES.index(mode),
+        float(t_min), float(t_max), float(eps), float(np.float32(t_max + 1.0)),
+        cuda.ptr(t), cuda.ptr(pid), cuda.ptr(rows), cuda.ptr(blocked),
+        *tracing.kernel_args(dev, "walk_rays"),
+    )
+    if mode == "anyhit":
+        return blocked
+    return (t, pid) if mode == "closest" else (t, pid, rows)

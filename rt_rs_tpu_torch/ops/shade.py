@@ -21,9 +21,10 @@ The semantics are the reference shader's bounce loop
 layouts take their primary rays from the same per-component arithmetic,
 so a ray is the same bits in either.
 
-``trace_tiled``'s emit-rows branch (resident tables) and gather branch
-(segmented and streamed tables, and resident tables too large for the
-rows table) are ported, with all of its knobs: the fused bounce kernel
+``trace_tiled``'s emit-rows branch (resident tables, and the threaded
+walk's trees through kernel G's rows and any-hit modes) and gather
+branch (segmented and streamed tables, and resident tables too large
+for the rows table) are ported, with all of its knobs: the fused bounce kernel
 (``fuse_bounce``), the zero-contribution shadow cull (``shadow_cull``),
 live-tile compaction (``retile``) and split tiles (``narrow``).
 """

@@ -31,7 +31,9 @@ between continues its counts.
   cull of primaries; ``refine``: the per-ray cull of refined batches);
 * ``walk_rays``, ``walk_nodes``, ``walk_prims``: kernel G's valid rays,
   wide-node visits and prim tests (the wide walk's counts,
-  ``bvh_walk_wide_reference``'s ``WideWork``).
+  ``bvh_walk_wide_reference``'s ``WideWork``), in every mode;
+* ``walk_anyhit``, ``walk_blocked``: the valid rays kernel G walks in
+  its any-hit mode, and those of them that stopped at a blocker.
 
 Other kernels (``mt_stream``, ``refine_cull``, ``shade_pre``, the
 probes) count nothing.
@@ -65,7 +67,7 @@ CULLS = ("interval", "refine")
 COUNTERS = (
     *(f"{name}.{b}" for b in range(BOUNCES) for name in ("live_rays", "slots")),
     *(f"cull_entries.{mode}.{cull}" for mode in MODES for cull in CULLS),
-    "walk_rays", "walk_nodes", "walk_prims",
+    "walk_rays", "walk_nodes", "walk_prims", "walk_anyhit", "walk_blocked",
 )
 INDEX = {name: i for i, name in enumerate(COUNTERS)}
 WORDS = 1 + SUB * len(COUNTERS)
@@ -218,6 +220,8 @@ def snapshot() -> dict:
         "walk_rays": c["walk_rays"],
         "walk_nodes": c["walk_nodes"],
         "walk_prims": c["walk_prims"],
+        "walk_anyhit": c["walk_anyhit"],
+        "walk_blocked": c["walk_blocked"],
         "frames": st.frames,
         **st.totals,
         "launches": dict(cuda.LAUNCHES),

@@ -2,10 +2,13 @@
 JAX package's, and the default handler.
 
 On the CPU both packages take the threaded walk (``backend="auto"``):
-the JAX package its ``lax.while_loop``, the port the walk's plain twin,
-through the gather branch with closest-hit shadows.  Frames at atol 2e-5
-(the bound the JAX package holds between its own two frame paths); the
-JAX walk's FMA-contracted hit distances move the colour by less.
+the JAX package its ``lax.while_loop`` through the gather branch with
+closest-hit shadows, the port the walk's plain twin through the emit
+branch (the tiled entry's rows and any-hit modes; its frames equal the
+gather branch's bit for bit, ``tests/test_torch_walk_modes.py``).
+Frames at atol 2e-5 (the bound the JAX package holds between its own
+two frame paths); the JAX walk's FMA-contracted hit distances move the
+colour by less.
 
 ``tests/data/torch_port_bvh_torus_96x72.npz`` holds the JAX package's
 threaded ``bvh`` and ``rf_bvh`` frames of ``torus_scene`` at 96x72,

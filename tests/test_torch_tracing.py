@@ -66,10 +66,11 @@ def test_counters_and_modes_match_the_kernels():
     assert tracing.MODES == pt.MT_MODES
     assert tracing.WORDS == 1 + tracing.SUB * len(tracing.COUNTERS)
     # kernels D and F add slots.b right after live_rays.b; kernel G its
-    # three counters in a row from walk_rays
+    # five counters in a row from walk_rays
     for b in range(tracing.BOUNCES):
         assert tracing.INDEX[f"slots.{b}"] == tracing.INDEX[f"live_rays.{b}"] + 1
-    assert [tracing.INDEX[n] - tracing.INDEX["walk_rays"] for n in ("walk_nodes", "walk_prims")] == [1, 2]
+    walk = ("walk_nodes", "walk_prims", "walk_anyhit", "walk_blocked")
+    assert [tracing.INDEX[n] - tracing.INDEX["walk_rays"] for n in walk] == [1, 2, 3, 4]
     assert tracing.bounce_counter(11) == "live_rays.7"
     assert tracing.cull_counter("rows", True) == "cull_entries.rows.refine"
     assert tracing.cull_counter("anyhit", 0) == "cull_entries.anyhit.interval"
@@ -87,7 +88,7 @@ def test_without_a_profiler_nothing_counts():
     after = tracing.snapshot()
     assert not tracing.counting("cpu")
     assert int(tracing.buffer("cpu")[0]) == 0
-    for key in ("live_rays", "slots", "cull_entries", "walk_rays", "walk_nodes", "walk_prims", "frames"):
+    for key in ("live_rays", "slots", "cull_entries", "walk_rays", "walk_nodes", "walk_prims", "walk_anyhit", "frames"):
         assert after[key] == before[key], key
 
 
@@ -175,23 +176,28 @@ def test_cull_entries_equal_the_compacted_lists(monkeypatch, force_rows):
 
 def test_walk_counts_equal_the_wide_walk(monkeypatch):
     calls = []
-    record(monkeypatch, bvh_walk, "bvh_walk", calls)
+    record(monkeypatch, bvh_walk, "bvh_walk_tiled", calls)
     r = renderer("bvh")
     with profile(activities=CPU_ACTS):
         r.render_frame()
     snap = tracing.snapshot()
-    rays = nodes = prims = 0
-    for args, kw in calls:
-        o, d, excl, valid, tree = args
+    rays = nodes = prims = anyhit = blocked = 0
+    for (payload, valid, tree), kw in calls:
         packed = wide.pack_walk(*tree.binary, payload=tree.payload)
         work = bvh_walk.WideWork()
-        bvh_walk.bvh_walk_wide_reference(o, d, excl, valid, packed, work=work, **kw)
+        out = bvh_walk.bvh_walk_tiled_wide_reference(payload, valid, packed, work=work, **kw)
         rays += int(valid.sum())
         nodes += work.node_visits
         prims += work.prim_tests
-    assert len(calls) == 1 + r.config.compute.bounces  # primaries, then a call a bounce
+        if kw["mode"] == "anyhit":
+            anyhit += int(valid.sum())
+            blocked += int(out.sum())
+    # primaries and the next bounces' rays with their rows, a shadow call a bounce
+    bounces = r.config.compute.bounces
+    assert [kw["mode"] for _, kw in calls] == ["rows"] + ["anyhit", "rows"] * (bounces - 1) + ["anyhit"]
     assert (snap["walk_rays"], snap["walk_nodes"], snap["walk_prims"]) == (rays, nodes, prims)
-    assert nodes >= rays > 0 and prims > 0
+    assert (snap["walk_anyhit"], snap["walk_blocked"]) == (anyhit, blocked)
+    assert nodes >= rays > 0 and prims > 0 and 0 < blocked < anyhit
 
 
 def test_frames_count_what_was_rendered():
@@ -255,12 +261,13 @@ def test_card_kernels_count_as_their_twins(handler, monkeypatch):
     logs = {}
     for owner, name in (
         (shade_tile, "shade_post"), (shade_tile, "shade_bounce"), (pt, "mt_trace"), (bvh_walk, "bvh_walk"),
+        (bvh_walk, "bvh_walk_tiled"),
     ):
         record(monkeypatch, owner, name, logs.setdefault(name, []))
     r.render_frame()
     monkeypatch.undo()
     fns = {"shade_post": shade_tile.shade_post, "shade_bounce": shade_tile.shade_bounce,
-           "mt_trace": pt.mt_trace, "bvh_walk": bvh_walk.bvh_walk}
+           "mt_trace": pt.mt_trace, "bvh_walk": bvh_walk.bvh_walk, "bvh_walk_tiled": bvh_walk.bvh_walk_tiled}
     assert any(logs.values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         tracing.begin(dev, 0)
@@ -268,7 +275,9 @@ def test_card_kernels_count_as_their_twins(handler, monkeypatch):
         for name, calls in logs.items():
             for args, kwargs in calls:
                 fns[name](*args, **kwargs)
-                fns[name](*(a.cpu() if torch.is_tensor(a) else _cpu_tree(a) for a in args), **kwargs)
+                fns[name](
+                    *(_cpu_tree(a) for a in args), **{k: _cpu_tree(v) for k, v in kwargs.items()}
+                )
                 got, want = _by_device(dev), _by_device("cpu")
                 assert got == want, (name, got, want)
     tracing.begin(dev, 0)  # outside the session: disarmed
@@ -276,6 +285,8 @@ def test_card_kernels_count_as_their_twins(handler, monkeypatch):
 
 
 def _cpu_tree(a):
+    if torch.is_tensor(a):
+        return a.cpu()
     if isinstance(a, wide.WalkTree):
         return wide.WalkTree(binary=tuple(x.cpu() for x in a.binary), payload=a.payload)
     return a
