@@ -31,16 +31,16 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   practical f32 rate, the matrix-product and transposed-table closest
   hits on ``torus_scene``'s 1080p primaries, and the canyon rendered
   through the transposed table;
-* ``bvh``: the default handler ``bvh`` and ``rf_bvh`` with the
-  threaded walk (``handler_kwargs={"backend": "threaded"}``; kernel G,
-  ``csrc/bvh_walk.cu``, over the tree packed 4 wide, in contiguous and
-  payload leaf mode), the gather branch with closest-hit shadows:
-  ``torus_scene`` (both handlers) and
+* ``bvh``: the default handler ``bvh`` with the threaded walk
+  (``handler_kwargs={"backend": "threaded"}``; kernel G,
+  ``csrc/bvh_walk.cu``, over the tree packed 4 wide) and ``rf_bvh``
+  with the records walk (``csrc/bvh_walk_rf.cu`` over its 16-byte
+  records), the emit branch: ``torus_scene`` (both handlers) and
   ``torus_canyon()`` (``bvh``); and ``bvh`` with ``backend="auto"`` on
   the torus, which takes the packet kernels on the card; at 96x72, in
-  both leaf modes, ``deep_chain`` (a tree deeper than the walk's local
-  stack: the scratch kernel) and ``no_prims``, each equal to the packet
-  backend's frame;
+  both handlers, ``deep_chain`` (a tree deeper than the walks' local
+  stacks: the scratch kernels) and ``no_prims``, each equal to the
+  packet backend's frame;
 * ``lbvh``: ``Renderer(torus_scene(), handler="lbvh")``, the chunk
   table built on the card in Morton order;
 * ``dynamic``: ``DynamicRenderer`` on ``torus_scene`` moved by
@@ -91,13 +91,15 @@ exits nonzero without printing a result):
    640x480 with segmented tables, with ``"dma"`` and segmented with
    early exit, the flat path's ``torus_ghost()`` frames at 384x288 and
    1920x1080, the canyon through the transposed table at 640x480
-   (every mt_tpose call), and the threaded ``bvh`` and ``rf_bvh`` torus
-   frames at 384x288 and the threaded ``bvh`` canyon frame at 640x480
-   (every bvh_walk call, also against the wide design's mirror
-   ``bvh_walk_wide_reference`` and run twice alike; then synthetic
-   batches in both leaf modes: axis-parallel, NaN, invalid and excluded
-   rays at the torus, tie rays at two coincident copies of it, and the
-   same rays at ``deep_chain`` and ``no_prims``, which every ray misses),
+   (every mt_tpose call), the threaded ``bvh`` torus frame at 384x288
+   and canyon frame at 640x480 (every bvh_walk call, also against the
+   wide design's mirror ``bvh_walk_wide_reference`` and run twice
+   alike), the ``rf_bvh`` torus and ``teapots3`` frames at 384x288
+   (every bvh_walk_rf call, run twice alike); then synthetic batches
+   through both walks, the records walk in its three modes:
+   axis-parallel, NaN, invalid and excluded rays at the torus, tie rays
+   at two coincident copies of it, and the same rays at ``deep_chain``
+   and ``no_prims``, which every ray misses),
    a DynamicRenderer rebuild frame at 384x288 (frame DYNAMIC_FRAME of the
    wave), the dual pbvh torus frame at 384x288 and the dual segmented
    canyon frame at 640x480 (``mt_trace`` and ``refine_cull`` at tc = 16).
@@ -182,8 +184,8 @@ exits nonzero without printing a result):
    ``backend="auto"`` torus frame at 384x288 bit-equal to the pbvh
    frame; orbits of the threaded ``bvh`` torus (384x288, 1080p), the
    ``"auto"`` torus (384x288), the threaded ``bvh`` canyon (640x480,
-   1080p: finite, not black) and the threaded ``rf_bvh`` torus (384x288,
-   1080p), each with its structure's bytes.
+   1080p: finite, not black) and the ``rf_bvh`` torus through the
+   records walk (384x288, 1080p), each with its structure's bytes.
    lbvh: the 96x72 torus frame against the JAX package's stored frame
    (tests/data/torch_port_lbvh_torus_96x72.npz, atol 2e-5), 384x288 (its
    distance from pbvh's frame printed) and an orbit of 30.  dynamic:
@@ -437,11 +439,14 @@ KERNELS = {
     "mt_mxu[default]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     # hand-written for XLA code (a lax.while_loop), no pallas_call
     "bvh_walk[bvh]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314"),
-    "bvh_walk[rf]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/rf.py:271"),
     # the tiled entry's modes (the frame path's closest, rows and any-hit)
     **{
-        f"bvh_walk[{leaf},{mode}]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", site)
-        for leaf, site in (("bvh", "rt_rs_tpu/handlers/bvh.py:314"), ("rf", "rt_rs_tpu/handlers/rf.py:271"))
+        f"bvh_walk[bvh,{mode}]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314")
+        for mode in ("closest", "rows", "anyhit")
+    },
+    # the RF records walk of rf_bvh, tiled only
+    **{
+        f"bvh_walk_rf[{mode}]": ("rt_rs_tpu_torch/csrc/bvh_walk_rf.cu", "rt_rs_tpu/handlers/rf.py:271")
         for mode in ("closest", "rows", "anyhit")
     },
 }
@@ -458,10 +463,10 @@ PATHS = {
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
-    # threaded bvh / rf_bvh frames (the emit branch: kernel G's rows and
-    # any-hit modes), and bvh "auto"
+    # threaded bvh frames (the emit branch: kernel G's rows and any-hit
+    # modes), rf_bvh frames (the records walk's), and bvh "auto"
     "bvh": (
-        "bvh_walk[bvh,rows]", "bvh_walk[bvh,anyhit]", "bvh_walk[rf,rows]", "bvh_walk[rf,anyhit]",
+        "bvh_walk[bvh,rows]", "bvh_walk[bvh,anyhit]", "bvh_walk_rf[rows]", "bvh_walk_rf[anyhit]",
         "shade_pre", "shade_post", "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]",
     ),
     # Renderer(handler="lbvh"): the chunk table built on the card
@@ -694,7 +699,7 @@ class Recorder:
 
     def __init__(self):
         from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
-        from rt_rs_tpu_torch.ops import bvh_walk, packet_stream, packet_trace, shade_tile
+        from rt_rs_tpu_torch.ops import bvh_walk, bvh_walk_rf, packet_stream, packet_trace, shade_tile
 
         self.targets = [
             (packet_trace, "refine_cull"),
@@ -710,6 +715,7 @@ class Recorder:
             (mxu_mt, "mt_mxu"),
             (bvh_walk, "bvh_walk"),
             (bvh_walk, "bvh_walk_tiled"),
+            (bvh_walk_rf, "bvh_walk_rf_tiled"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -887,6 +893,7 @@ class Wavy:
 def replay(label: str, calls, errs: dict, ulps: dict) -> None:
     """Every recorded kernel call through kernel and twin."""
     from rt_rs_tpu_torch.ops import bvh_walk as bw
+    from rt_rs_tpu_torch.ops import bvh_walk_rf as rw
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -912,6 +919,8 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         check_walk(f"{label} {bw.walk_name(a[4].payload)}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["bvh_walk_tiled"]):
         check_walk_tiled(f"{label} {bw.walk_name(a[2].payload, kw['mode'])}#{i}", a, kw, errs)
+    for i, (a, kw, _) in enumerate(calls["bvh_walk_rf_tiled"]):
+        check_rf_walk(f"{label} {rw.walk_name(kw['mode'])}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -1000,6 +1009,27 @@ def check_walk_tiled(what: str, a, kw, errs: dict) -> None:
     check_equal(f"{what} run twice", bw.bvh_walk_tiled(*a, **kw), kern)
 
 
+def check_rf_walk(what: str, a, kw, errs: dict) -> None:
+    """One bvh_walk_rf_tiled call: the records walk bit-equal to its
+    twin (the same walk, rays in lockstep, in torch) and run twice
+    alike."""
+    from rt_rs_tpu_torch.ops import bvh_walk_rf as rw
+
+    name = rw.walk_name(kw["mode"])
+    kern = rw.bvh_walk_rf_tiled(*a, **kw)
+    errs[name] = max(errs[name], check_equal(what, kern, rw.bvh_walk_rf_tiled_reference(*a, **kw)))
+    check_equal(f"{what} run twice", rw.bvh_walk_rf_tiled(*a, **kw), kern)
+
+
+def rf_tiles(o, d, excl, valid, cap, r: int = 128):
+    """Flat rays (N a multiple of r) as the records walk's tiles ->
+    (payload [8, N / r, r], valid [N / r, r]), row 7 ``cap``."""
+    import torch
+
+    payload = torch.cat([o.T, d.T, excl[None].float(), cap[None]]).contiguous()
+    return payload.reshape(8, -1, r), valid.reshape(-1, r)
+
+
 def flat_walk(call):
     """A recorded bvh_walk_tiled call as the flat entry's call on the
     same rays -> ((o, d, excl, valid, tree), kwargs, None)."""
@@ -1064,21 +1094,54 @@ def check_walk_synthetic(errs: dict) -> None:
         **{label: (scene, hkw, 4) for label, (scene, hkw) in edge_scenes().items()},
     }
     for label, (scene, hkw, nan) in scenes.items():
-        for handler in ("bvh", "rf_bvh"):
-            accel, _ = get_handler(handler, backend="threaded", **hkw).build(scene, scene.pack(device=DEVICE))
-            tree = accel.walk
-            rays = walk_rays(4096, 7, max(scene.num_prims, 1), nan)
-            check_walk(f"synthetic {label} {handler}", (*rays, tree), kw, errs)
-            if label == "deep chain" and not tree.stack > wide.LOCAL_STACK:
-                raise AssertionError(f"{label} {handler}: a stack of {tree.stack}, not past the local stack")
-            if label == "no prims" and bool(bw.bvh_walk(*rays, tree, **kw)[1].any()):
-                raise AssertionError(f"{label} {handler}: a ray hit a scene with no prims")
-            say(
-                f"[compare] synthetic {label} {handler} ({scene.num_prims} tris, {nan} NaN rays of "
-                f"4096, walk stack {tree.stack} of {wide.LOCAL_STACK} local): bvh_walk bit-equal "
-                f"to its twin and the wide mirror, run twice alike"
-            )
+        accel, _ = get_handler("bvh", backend="threaded", **hkw).build(scene, scene.pack(device=DEVICE))
+        tree = accel.walk
+        rays = walk_rays(4096, 7, max(scene.num_prims, 1), nan)
+        check_walk(f"synthetic {label} bvh", (*rays, tree), kw, errs)
+        if label == "deep chain" and not tree.stack > wide.LOCAL_STACK:
+            raise AssertionError(f"{label} bvh: a stack of {tree.stack}, not past the local stack")
+        if label == "no prims" and bool(bw.bvh_walk(*rays, tree, **kw)[1].any()):
+            raise AssertionError(f"{label} bvh: a ray hit a scene with no prims")
+        say(
+            f"[compare] synthetic {label} bvh ({scene.num_prims} tris, {nan} NaN rays of "
+            f"4096, walk stack {tree.stack} of {wide.LOCAL_STACK} local): bvh_walk bit-equal "
+            f"to its twin and the wide mirror, run twice alike"
+        )
+        check_rf_synthetic(label, scene, hkw, rays, nan, errs)
 
+
+
+def check_rf_synthetic(label: str, scene, hkw: dict, rays, nan: int, errs: dict) -> None:
+    """The records walk on one synthetic batch in its three modes
+    (check_rf_walk), any-hit at caps around each ray's closest hit: the
+    deep chain's through the scratch kernel."""
+    import torch
+
+    from rt_rs_tpu_torch.config import ComputeConfig
+    from rt_rs_tpu_torch.handlers import get_handler
+    from rt_rs_tpu_torch.ops import bvh_walk_rf as rw
+
+    cfg = ComputeConfig()
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
+    accel, arrays = get_handler("rf_bvh", **hkw).build(scene, scene.pack(device=DEVICE))
+    o, d, excl, valid = rays
+    corners = (arrays.pa, arrays.pb, arrays.pc)
+    t, pid = rw.bvh_walk_rf_reference(o, d, excl, valid, accel.records, *corners, **kw)
+    cap = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0, torch.nextafter(t, t + 1), t * 0.5)
+    payload, tv = rf_tiles(o, d, excl, valid, cap)
+    for mode in ("closest", "rows", "anyhit"):
+        table = arrays.shade_table.contiguous() if mode == "rows" else None
+        check_rf_walk(f"synthetic {label} {rw.walk_name(mode)}", (payload, tv, accel.records, *corners), dict(kw, mode=mode, table=table), errs)
+    depth = accel.records.depth
+    if label == "deep chain" and not depth > rw.LOCAL_STACK:
+        raise AssertionError(f"{label} rf_bvh: {depth} levels, not past the local stack")
+    if label == "no prims" and bool(pid.any()):
+        raise AssertionError(f"{label} rf_bvh: a ray hit a scene with no prims")
+    say(
+        f"[compare] synthetic {label} rf_bvh ({scene.num_prims} tris, {accel.records.words.shape[0]} "
+        f"records, {depth} levels of {rw.LOCAL_STACK} local, {nan} NaN rays of 4096): "
+        f"bvh_walk_rf bit-equal to its twin in each mode, run twice alike"
+    )
 
 
 def bind(fn, a, kw) -> dict:
@@ -1400,13 +1463,14 @@ def phase_compare():
     the knobs path's fused bounce kernel and early exit, of one canyon
     frame (640x480) per canyon mode and with early exit, of the flat
     path's ``torus_ghost()`` frames (384x288, 1080p), of the
-    transposed-table canyon frame (640x480) and of the threaded ``bvh``
-    / ``rf_bvh`` torus frames (384x288) and ``bvh`` canyon frame
-    (640x480), kernel vs twin."""
+    transposed-table canyon frame (640x480), of the threaded ``bvh``
+    torus frame (384x288) and canyon frame (640x480) and of the
+    ``rf_bvh`` torus and ``teapots3`` (``torus_row(3)``) frames
+    (384x288: the records walk), kernel vs twin."""
     import torch
 
     from rt_rs_tpu_torch.ops import packet_trace as pt
-    from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_ghost
+    from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_ghost, torus_row
 
     errs = {name: 0.0 for name in KERNELS}
     ulps: dict[str, int] = {}
@@ -1422,6 +1486,7 @@ def phase_compare():
         "tpose canyon": lambda: TposeCanyon(*TPOSE_FRAME[:2]),
         "bvh torus": lambda: renderer(*TORUS_REPLAY, handler="bvh", **THREADED),
         "rf_bvh torus": lambda: renderer(*TORUS_REPLAY, handler="rf_bvh", **THREADED),
+        "rf_bvh teapots3": lambda: renderer(*TORUS_REPLAY, torus_row(3), handler="rf_bvh"),
         "bvh canyon": lambda: renderer(*CANYON_REPLAY, torus_canyon(), handler="bvh", **THREADED),
         "dynamic rebuild torus": lambda: Wavy(dynamic(*TORUS_REPLAY), DYNAMIC_FRAME),
         "dual torus": lambda: renderer(*TORUS_REPLAY, tri_chunk_fine=FINE_TC),
@@ -3128,12 +3193,34 @@ def walk_work(a, kw):
     return w
 
 
+def rf_walk_work(a, kw):
+    """The work of one recorded bvh_walk_rf_tiled call, counted by its
+    twin."""
+    from rt_rs_tpu_torch.ops import bvh_walk_rf as rw
+
+    w = rw.RfWork()
+    rw.bvh_walk_rf_tiled_reference(*a, **kw, work=w)
+    return w
+
+
 def work(name: str, a, kw) -> tuple[int, int]:
     """-> (f32 operations, bytes) one recorded call needs."""
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
 
+    if name.startswith("bvh_walk_rf"):
+        # the records walk: a record's slab test on its decoded bounds
+        # (the wobble and the slab distances, kernel G's binary node
+        # step), a slot's prim test; bytes: the floor every walk of
+        # these rays moves, the payload's 32 bytes a ray read and its
+        # outputs written (the records and prims stay in L2)
+        w = rf_walk_work(a, kw)
+        payload = a[0]
+        n = payload.shape[1] * payload.shape[2]
+        ops = w.records * WALK_NODE_OPS + w.prims * WALK_PRIM_OPS + 3 * w.rays
+        out = {"closest": 8, "rows": 8 + 128, "anyhit": 1}[kw["mode"]]
+        return ops, n * (32 + out)
     if name.startswith("bvh_walk") and "," in name:
         # a tiled mode: the closest walk's work on its rays (any-hit's
         # stops sooner, so its bound lies below this), the payload's 32
@@ -3513,6 +3600,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     mt_trace time and bounds)."""
     from rt_rs_tpu_torch.bvh import wide
     from rt_rs_tpu_torch.ops import bvh_walk as bw
+    from rt_rs_tpu_torch.ops import bvh_walk_rf as rw
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -3556,23 +3644,23 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         "bvh_walk[bvh]": (
             bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh torus"]["bvh_walk_tiled"][0]), 1,
         ),
-        "bvh_walk[rf]": (
-            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["rf_bvh torus"]["bvh_walk_tiled"][0]), 1,
-        ),
         "bvh_walk[bvh] canyon 640x480": (
             bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh canyon"]["bvh_walk_tiled"][0]), 1,
         ),
     }
     # the tiled modes on the same frames: the primary rows call (also in
     # closest mode), the first bounce's shadows (any-hit)
-    for label, leaf in (("bvh torus", "bvh"), ("rf_bvh torus", "rf")):
-        tiled = recorded[label]["bvh_walk_tiled"]
+    for label, entry, name, kern, twin in (
+        ("bvh torus", "bvh_walk_tiled", "bvh_walk[bvh,{}]", bw.bvh_walk_tiled, bw.bvh_walk_tiled_reference),
+        ("rf_bvh torus", "bvh_walk_rf_tiled", "bvh_walk_rf[{}]", rw.bvh_walk_rf_tiled, rw.bvh_walk_rf_tiled_reference),
+    ):
+        tiled = recorded[label][entry]
         rows_call = next(c for c in tiled if c[1]["mode"] == "rows")
         for mode in ("closest", "rows", "anyhit"):
             call = next(c for c in tiled if c[1]["mode"] == mode) if mode != "closest" else (
                 rows_call[0], dict(rows_call[1], mode="closest", table=None), None
             )
-            picks[f"bvh_walk[{leaf},{mode}]"] = (bw.bvh_walk_tiled, bw.bvh_walk_tiled_reference, call, 1)
+            picks[name.format(mode)] = (kern, twin, call, 1)
     for name, (kern, twin, a, kw) in recorded["probes"].items():
         picks[name] = (kern, twin, (a, kw, None), 1)
     times = {}
@@ -3598,7 +3686,14 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
-        if name.startswith("bvh_walk"):
+        if name.startswith("bvh_walk_rf"):
+            w, records = rf_walk_work(a, kw), a[2]
+            extra += (
+                f", {w.rays} rays: {w.records} records tested ({w.records / w.rays:.2f} a ray), "
+                f"{w.prims} prim tests ({w.prims / w.rays:.2f} a ray); records {records.words.numel() * 4} B, "
+                f"{records.depth} levels"
+            )
+        elif name.startswith("bvh_walk"):
             if "," in name:
                 a, kw, _ = flat_walk((a, kw, None))
             w, ww, tree = walk_work(a, kw), bw.WideWork(), a[4]
@@ -3705,6 +3800,7 @@ KINDS = (
     ("shade_pre_kernel", "shade_pre"),
     ("shade_post_kernel", "shade_post"),
     ("shade_bounce_kernel", "shade_bounce"),
+    ("bvh_walk_rf", "bvh_walk_rf"),
     ("bvh_walk_kernel", "bvh_walk"),
     ("bvh_walk_tiled", "bvh_walk"),
     ("sort", "sort (compaction)"),

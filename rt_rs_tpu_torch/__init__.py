@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference ``rt_rs_tpu``: the same scene
 formats (scene JSON, OBJ, ``*.bvh.json``), the same handlers (``bvh``,
-the default, and ``rf_bvh`` with their threaded walk; ``pbvh`` with
+the default, with its threaded walk; ``rf_bvh`` walking its 16-byte
+records where they lie; ``pbvh`` with
 packet chunk culling, the Möller–Trumbore packet trace with
 kernel-emitted rows, any-hit shadows and the per-ray refine cull;
 ``lbvh`` over a chunk table built on the device; ``naive``,

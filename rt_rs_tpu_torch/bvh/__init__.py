@@ -5,7 +5,8 @@ reference's flattened tree (``src/lib/bvh/mod.rs:11-27``), a preorder
 DFS array of nodes ``{fst, snd, item_idx, item_count, bounds}`` plus the
 ``indices`` permutation listing each leaf's prims contiguously.  The
 pbvh handler uses only that permutation (the leaf order of its chunk
-table); the ``bvh`` and ``rf_bvh`` handlers walk the tree over its
+table); the ``rf_bvh`` handler packs it into 16-byte records
+(:mod:`rt_rs_tpu_torch.bvh.rf`); the ``bvh`` handler walks it over its
 escape links (:meth:`BvhData.escape_links`: the preorder flatten gives
 every node's escape a larger index, so a ray carries one node cursor
 and no stack) and its covering bounds (:meth:`BvhData.cover_bounds`).

@@ -1,9 +1,11 @@
 """The threaded walk's tree as kernel G takes it: packed records of a
 wide tree, built once per accel on a CUDA device.
 
-The handlers' binary tree (:class:`~rt_rs_tpu_torch.handlers.bvh.BvhArrays`,
-:class:`~rt_rs_tpu_torch.handlers.rf.RfArrays`) is what the JAX walk and
-its twin :func:`~rt_rs_tpu_torch.ops.bvh_walk.bvh_walk_reference` step
+The ``bvh`` handler's binary tree
+(:class:`~rt_rs_tpu_torch.handlers.bvh.BvhArrays`; payload leaves take
+the RF tree unpacked to the same arrays, which no handler builds since
+``rf_bvh`` walks its records with ``ops/bvh_walk_rf.py``) is what the
+JAX walk and its twin :func:`~rt_rs_tpu_torch.ops.bvh_walk.bvh_walk_reference` step
 through over escape links, one box a step.  :func:`pack_walk` collapses
 it into ``WIDTH``-wide nodes, each holding its children's boxes, and
 packs the prims the leaves test in the order they test them:

@@ -78,13 +78,9 @@ CALLS = {
         ("renderer", (1920, 1080), True), "mt_trace", "rows",
     ),
     "bvh_walk[bvh] torus 384x288 primary": (("threaded", ("torus_scene", 384, 288, "bvh"), False), "bvh_walk", "primary"),
-    "bvh_walk[rf] torus 384x288 primary": (("threaded", ("torus_scene", 384, 288, "rf_bvh"), False), "bvh_walk", "primary"),
     "bvh_walk[bvh] canyon 640x480 primary": (("threaded", ("torus_canyon", 640, 480, "bvh"), False), "bvh_walk", "primary"),
     "bvh_walk[bvh] torus 1920x1080, the frame's calls": (
         ("threaded", ("torus_scene", 1920, 1080, "bvh"), False), "bvh_walk", "frame",
-    ),
-    "bvh_walk[rf] torus 1920x1080, the frame's calls": (
-        ("threaded", ("torus_scene", 1920, 1080, "rf_bvh"), False), "bvh_walk", "frame",
     ),
     "bvh_walk[bvh] canyon 640x480, the frame's calls": (
         ("threaded", ("torus_canyon", 640, 480, "bvh"), False), "bvh_walk", "frame",

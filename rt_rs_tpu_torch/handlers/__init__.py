@@ -3,7 +3,7 @@
 Counterpart of ``rt_rs_tpu/handlers/__init__.py``, with every handler
 of the JAX package: ``bvh`` (the default: the threaded walk over a
 48 B/node tree, or the packet kernels over its leaf order), ``rf_bvh``
-(the same walk over 16-byte records), ``pbvh`` (the packet kernels of
+(a walk of its own over the 16-byte records themselves), ``pbvh`` (the packet kernels of
 the frame paths), ``lbvh`` (the packet kernels over a chunk table built
 on the device), ``naive`` (brute force, the cross-check) and ``blank``
 (every ray misses, the overhead baseline).  :func:`register` adds a

@@ -10,7 +10,7 @@ check it once (:func:`begin`).
 **Device counters.**  One int64 buffer per device (:func:`buffer`),
 kept here so that it outlives every ``Renderer`` (and is not reachable
 from its accel).  Word 0 is the enable flag; then :data:`SUB` words for
-each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F and G
+each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F, G and the records walk
 take the buffer's address and a counter's index as launch arguments,
 which a CUDA graph captures as they are, so one graph serves tracing on
 and off.  Each block reads the flag once; when it is 0 the block does
@@ -33,7 +33,11 @@ between continues its counts.
   wide-node visits and prim tests (the wide walk's counts,
   ``bvh_walk_wide_reference``'s ``WideWork``), in every mode;
 * ``walk_anyhit``, ``walk_blocked``: the valid rays kernel G walks in
-  its any-hit mode, and those of them that stopped at a blocker.
+  its any-hit mode, and those of them that stopped at a blocker;
+* ``rf_rays``, ``rf_records``, ``rf_prims``: the RF records walk's
+  (``csrc/bvh_walk_rf.cu``) valid rays, the node records whose box it
+  tests and the slots it tests (empty and excluded slots skipped), in
+  every mode (``ops/bvh_walk_rf.py``'s ``RfWork``).
 
 Other kernels (``mt_stream``, ``refine_cull``, ``shade_pre``, the
 probes) count nothing.
@@ -68,6 +72,7 @@ COUNTERS = (
     *(f"{name}.{b}" for b in range(BOUNCES) for name in ("live_rays", "slots")),
     *(f"cull_entries.{mode}.{cull}" for mode in MODES for cull in CULLS),
     "walk_rays", "walk_nodes", "walk_prims", "walk_anyhit", "walk_blocked",
+    "rf_rays", "rf_records", "rf_prims",
 )
 INDEX = {name: i for i, name in enumerate(COUNTERS)}
 WORDS = 1 + SUB * len(COUNTERS)
@@ -222,6 +227,7 @@ def snapshot() -> dict:
         "walk_prims": c["walk_prims"],
         "walk_anyhit": c["walk_anyhit"],
         "walk_blocked": c["walk_blocked"],
+        **{k: c[k] for k in ("rf_rays", "rf_records", "rf_prims")},
         "frames": st.frames,
         **st.totals,
         "launches": dict(cuda.LAUNCHES),

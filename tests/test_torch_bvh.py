@@ -34,6 +34,7 @@ from rt_rs_tpu_torch.bvh import rf
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.ops import bvh_walk as bw
 from rt_rs_tpu_torch.scene.presets import torus_canyon, torus_scene
+from tests.torch_rf_tree import rf_walk_build
 
 torch.set_num_threads(
     max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
@@ -219,8 +220,11 @@ def test_walk_matches_jax(torus, handler):
     """bvh_walk_reference (contiguous / payload leaves) against the JAX
     _bvh_intersect / _rf_intersect on the same tree and rays; the walk's
     tensors bit-equal to the JAX handler's."""
-    h = get_handler(handler, backend="threaded")
-    accel, arrays = h.build(torus, torus.pack(device="cpu"))
+    if handler == "rf_bvh":
+        # the records unpacked to the JAX walk's f32 arrays
+        accel, arrays, _ = rf_walk_build(torus)
+    else:
+        accel, arrays = get_handler(handler, backend="threaded").build(torus, torus.pack(device="cpu"))
     jh = jax_get_handler(handler, backend="threaded")
     js = jax_scene(torus)
     jaccel, jarrays = jh.build(js, js.pack())

@@ -42,6 +42,7 @@ from rt_rs_tpu_torch.scene.presets import (
     deep_chain, ghost_scene, no_prims, tiled_copies, torus_canyon, torus_scene,
 )
 from tests.test_torch_bvh import close_hits
+from tests.torch_rf_tree import rf_walk_build
 
 torch.set_num_threads(
     max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
@@ -52,7 +53,11 @@ WIN = dict(t_min=CFG.t_min, t_max=CFG.t_max, eps=CFG.eps)
 
 
 def accel_of(scene, handler: str, **kwargs):
-    """(accel, arrays) of the threaded ``handler`` on the CPU."""
+    """(accel, arrays) of the threaded ``handler`` on the CPU; for
+    ``rf_bvh``, its records unpacked to the tree kernel G's payload
+    leaves walk (``tests/torch_rf_tree.py``)."""
+    if handler == "rf_bvh":
+        return rf_walk_build(scene, **kwargs)[:2]
     return get_handler(handler, backend="threaded", **kwargs).build(scene, scene.pack(device="cpu"))
 
 

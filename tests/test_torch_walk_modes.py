@@ -34,7 +34,9 @@ from rt_rs_tpu_torch import ComputeConfig, Renderer, tracing
 from rt_rs_tpu_torch.bvh import wide
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.ops import bvh_walk as bw
+from rt_rs_tpu_torch.ops import bvh_walk_rf
 from rt_rs_tpu_torch.scene.presets import deep_chain, no_prims, tiled_copies, torus_scene
+from tests.torch_rf_tree import rf_walk_build
 
 torch.set_num_threads(
     max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
@@ -57,11 +59,15 @@ KNOBS = {"default": {}, "narrow": {"narrow": 128}, "retile": {"retile": True}, "
 
 
 def build(label: str, handler: str, device="cpu"):
-    """(tree, shade table, prims) of the threaded ``handler`` on
-    ``label``'s scene."""
+    """(kernel G's tree, shade table, prims) of the threaded ``handler``
+    on ``label``'s scene."""
     make, kw, _ = SCENES[label]
     scene = make()
-    accel, arrays = get_handler(handler, backend="threaded", **kw).build(scene, scene.pack(device=device))
+    if handler == "rf_bvh":
+        # the records unpacked to the tree kernel G's payload leaves walk
+        accel, arrays, _ = rf_walk_build(scene, device=device, **kw)
+    else:
+        accel, arrays = get_handler(handler, backend="threaded", **kw).build(scene, scene.pack(device=device))
     return accel.walk, arrays.shade_table.contiguous(), max(scene.num_prims, 1)
 
 
@@ -216,15 +222,18 @@ def renderer(handler, size=(96, 72), device="cpu", **kw):
     return Renderer(torus_scene(), size=size, device=device, handler=handler, handler_kwargs={"backend": "threaded"}, **kw)
 
 
-def record_modes(monkeypatch) -> list:
+def record_modes(monkeypatch, handler: str) -> list:
+    """The modes of the tiled walk calls ``handler``'s frames make:
+    kernel G's for bvh, the records walk's for rf_bvh."""
+    mod, name = (bvh_walk_rf, "bvh_walk_rf_tiled") if handler == "rf_bvh" else (bw, "bvh_walk_tiled")
     modes = []
-    inner = bw.bvh_walk_tiled
+    inner = getattr(mod, name)
 
     def wrapped(*a, **kw):
         modes.append(kw.get("mode", "closest"))
         return inner(*a, **kw)
 
-    monkeypatch.setattr(bw, "bvh_walk_tiled", wrapped)
+    monkeypatch.setattr(mod, name, wrapped)
     return modes
 
 
@@ -234,7 +243,7 @@ def test_emit_frames_equal_gather_frames(handler, knob, monkeypatch):
     """The threaded frame through the emit branch (rows, any-hit
     shadows) is the gather branch's bit for bit, and each branch calls
     the tiled entry in its own modes."""
-    modes = record_modes(monkeypatch)
+    modes = record_modes(monkeypatch, handler)
     emit = renderer(handler, **KNOBS[knob]).render_frame()
     bounces = CFG.bounces
     assert modes == ["rows"] + ["anyhit", "rows"] * (bounces - 1) + ["anyhit"]
@@ -278,7 +287,7 @@ def test_anyhit_counters_count_the_shadow_walks(monkeypatch):
         return out
 
     monkeypatch.setattr(bw, "bvh_walk_tiled", wrapped)
-    r = renderer("rf_bvh", size=(16, 12))
+    r = renderer("bvh", size=(16, 12))
     tracing.begin("cpu", 0)
     with profile(activities=[ProfilerActivity.CPU]):
         r.render_frame()
@@ -350,8 +359,8 @@ def test_card_emit_frames_equal_gather_frames(handler, knob):
     dev = card()
     before = cuda.LAUNCHES.copy()
     emit = renderer(handler, device=dev, **KNOBS[knob]).render_frame()
-    leaf = "rf" if handler == "rf_bvh" else "bvh"
+    name = bvh_walk_rf.walk_name if handler == "rf_bvh" else (lambda mode: bw.walk_name(False, mode))
     launched = cuda.LAUNCHES - before
-    assert launched[f"bvh_walk[{leaf},rows]"] == CFG.bounces and launched[f"bvh_walk[{leaf},anyhit]"] == CFG.bounces
+    assert launched[name("rows")] == CFG.bounces and launched[name("anyhit")] == CFG.bounces
     gather = renderer(handler, device=dev, force_rows=False, **KNOBS[knob]).render_frame()
     assert torch.equal(emit, gather)
