@@ -37,7 +37,7 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   with the records walk (``csrc/bvh_walk_rf.cu`` over its 16-byte
   records), the emit branch: ``torus_scene`` (both handlers) and
   ``torus_canyon()`` (``bvh``); and ``bvh`` with ``backend="auto"`` on
-  the torus, which takes the packet kernels on the card; at 96x72, in
+  the torus, which takes kernel G's walk on the card too; at 96x72, in
   both handlers, ``deep_chain`` (a tree deeper than the walks' local
   stacks: the scratch kernels) and ``no_prims``, each equal to the
   packet backend's frame;
@@ -59,8 +59,9 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   the card) and ``tools.load --handler-bvh PATH`` on it (12,642
   triangles: the threaded walk); the study's protocol (``load
   --benchmark``, ``run_benchmark_protocol``: 200 frames over 5 orbits)
-  for pbvh, ``bvh`` (``"auto"``: the packet kernels on the torus; the
-  threaded walk's Renderer timed directly) and DynamicRenderer; ``load
+  for pbvh, ``bvh`` (``"auto"`` through ``load``, which walks the
+  torus on the card; the threaded walk's Renderer timed directly beside
+  it) and DynamicRenderer; ``load
   --profile`` in a child process; the web viewer (``web.make_server``)
   and ``utils.animation.render_orbit_gif``; then the card-built
   checkpoint's frame and two viewer frames replayed call by call;
@@ -181,7 +182,8 @@ exits nonzero without printing a result):
    bvh: the threaded ``bvh`` and ``rf_bvh`` torus frames at 96x72
    against the JAX package's stored frames
    (tests/data/torch_port_bvh_torus_96x72.npz, atol 2e-5); the
-   ``backend="auto"`` torus frame at 384x288 bit-equal to the pbvh
+   ``backend="auto"`` torus frame at 384x288 (kernel G's walk, the
+   accel holding a walk tree and no packet table) bit-equal to the pbvh
    frame; orbits of the threaded ``bvh`` torus (384x288, 1080p), the
    ``"auto"`` torus (384x288), the threaded ``bvh`` canyon (640x480,
    1080p: finite, not black) and the ``rf_bvh`` torus through the
@@ -351,7 +353,7 @@ SIZES = {
     "flat": {"384x288": (384, 288, 30), "1920x1080": (1920, 1080, 12)},
 }
 # The bvh path's orbits: name -> (scene, handler, backend, width, height,
-# orbit frames).
+# orbit frames).  "auto" walks like "threaded" (handlers/bvh.py::use_packet).
 THREADED = {"backend": "threaded"}
 BVH_ORBITS = {
     "bvh threaded torus 384x288": ("torus", "bvh", "threaded", 384, 288, 16),
@@ -463,8 +465,9 @@ PATHS = {
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
-    # threaded bvh frames (the emit branch: kernel G's rows and any-hit
-    # modes), rf_bvh frames (the records walk's), and bvh "auto"
+    # threaded and "auto" bvh frames (the emit branch: kernel G's rows and
+    # any-hit modes), rf_bvh frames (the records walk's), and the packet
+    # backend's edge-scene frames
     "bvh": (
         "bvh_walk[bvh,rows]", "bvh_walk[bvh,anyhit]", "bvh_walk_rf[rows]", "bvh_walk_rf[anyhit]",
         "shade_pre", "shade_post", "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]",
@@ -1999,9 +2002,10 @@ def drive_bvh(card: str, first: dict) -> tuple[dict, dict]:
     """The bvh path: the threaded ``bvh`` and ``rf_bvh`` torus frames at
     96x72 against the JAX package's stored frames, then BVH_ORBITS: each
     first frame finite and lit (the ``"auto"`` torus frame bit-equal to
-    the torus path's pbvh frame: on the card it takes the packet
-    kernels; the threaded torus frames' distance from it printed), then
-    its orbit, with the structure's bytes (``Renderer.stats``)."""
+    the torus path's pbvh frame: on the card it takes kernel G's walk,
+    so its accel holds a walk tree and no packet table; the threaded
+    torus frames' distance from it printed), then its orbit, with the
+    structure's bytes (``Renderer.stats``)."""
     from rt_rs_tpu_torch.scene.presets import torus_canyon
 
     for handler in ("bvh", "rf_bvh"):
@@ -2014,10 +2018,10 @@ def drive_bvh(card: str, first: dict) -> tuple[dict, dict]:
         check_frame(name, f, w, h)
         pbvh = first["torus"].get(f"{w}x{h}") if scene == "torus" else None
         if backend == "auto":
-            if r.accel.chunks is None:
-                raise AssertionError(f"{name}: backend='auto' took the threaded walk on the card")
+            if r.accel.walk is None or r.accel.chunks is not None:
+                raise AssertionError(f"{name}: backend='auto' took the packet kernels on the card")
             same_bits(f"{name} vs the pbvh frame", f, pbvh)
-            say(f"[frame] {name}: bit-equal to the pbvh frame (the packet kernels)")
+            say(f"[frame] {name}: kernel G's walk, bit-equal to the pbvh frame (the packet kernels)")
         elif pbvh is not None:
             d = (f - pbvh).abs()
             say(
@@ -2446,9 +2450,8 @@ def phase_parallel(card: str, errs: dict) -> tuple[dict[str, int], dict]:
 
 # the study's protocol (the JAX package's timing.run_benchmark_protocol):
 # case -> (load flags, width, height, frames over 5 orbits).  None: a
-# Renderer of the threaded walk, timed directly, since load's
-# --handler-bvh takes the packet kernels for the torus (within 12,288
-# triangles) on the card.
+# Renderer of the threaded walk, timed directly beside load's
+# --handler-bvh, which takes the same walk ("auto") on the card.
 PROTOCOL = {
     "pbvh torus 384x288": (["--handler-pbvh"], 384, 288, 200),
     "bvh auto torus 384x288": (["--handler-bvh"], 384, 288, 200),
@@ -2548,9 +2551,9 @@ def tools_construct_load() -> None:
 def tools_precompute() -> list:
     """precompute --device on the card = on the CPU; check_tree; the
     card-built tree rendered by load --handler-bvh PATH against the host
-    build's frame.  The scene is two tori in a row (12,642 triangles),
-    past the packet kernels' 12,288, so load's --handler-bvh takes the
-    threaded walk (kernel G) on the card.  -> the card-built frame's
+    build's frame.  The scene is two tori in a row (12,642 triangles);
+    load's --handler-bvh takes the threaded walk (kernel G) on the card,
+    as at every size.  -> the card-built frame's
     kernel calls, for the replay."""
     import io
 

@@ -17,7 +17,10 @@ on the recomputed covering bounds (``cover_bounds``); kernel G
 packed once at build into wide records (:mod:`rt_rs_tpu_torch.bvh.wide`)
 and returns the same hits.  ``backend="packet"``
 routes intersection through the pbvh packet kernels over the same
-leaf-ordered prims instead (the same hits, ids included).
+leaf-ordered prims instead (the same hits, ids included).  ``"auto"``
+walks on every device (:func:`use_packet`): on the card the walk is the
+faster of the two at every scene size measured, and the packet kernels
+stay reachable through ``backend="packet"`` and the ``pbvh`` handler.
 """
 
 from __future__ import annotations
@@ -121,25 +124,24 @@ class BvhAccel:
 
 
 def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
-    """The ``backend`` rule of both tree handlers.  ``"auto"`` keeps the
-    shape of the JAX package's rule (``handlers/bvh.py:162-173``: the
-    packet kernels on the accelerator when the scene fits the resident
-    table, the threaded walk otherwise): packet on a CUDA device when
-    ``num_prims <= MAX_VMEM_CHUNKS * TRI_CHUNK`` (12,288 triangles),
-    threaded beyond it and on the CPU, as in the JAX package on its CPU
-    backend.  The cap is the JAX package's VMEM byte model, kept so the
-    two packages take the same path; which backend is faster on the card
-    below it is measured by ``chip_smoke.py`` (the ``bvh`` path's
-    orbits), not assumed."""
-    if backend != "auto":
-        return backend == "packet"
-    return device.type == "cuda" and num_prims <= pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
+    """The ``backend`` rule of ``bvh``: the packet kernels for
+    ``"packet"`` alone; ``"auto"`` and ``"threaded"`` take kernel G's
+    walk whatever the scene's size and the device.  The JAX package's
+    rule (``handlers/bvh.py:162-173``) takes the packet kernels on its
+    accelerator within 12,288 triangles, a cap set by the TPU's VMEM
+    byte model that says nothing of this card; on the H100 the walk
+    renders the teatime scene (6,322 triangles) chained in a quarter of
+    the packet kernels' frame time at 1920x1080 and in less at 384x288,
+    with the same bits.  ``num_prims`` and ``device`` are the rule's
+    inputs in both packages; neither changes this one's answer.
+    (``rf_bvh`` has a rule of its own: ``handlers/rf.py``.)"""
+    return backend == "packet"
 
 
 class TreeIntrs(IntrsHandler):
-    """The intersect entries both tree handlers share, in closest-hit,
-    emit-rows and any-hit modes: where ``accel.walk`` holds the threaded
-    walk's tree (contiguous or payload leaves), kernel G's tiled entry
+    """``bvh``'s intersect entries, in closest-hit, emit-rows and any-hit
+    modes (``rf_bvh`` overrides them and reuses the packet ones): where
+    ``accel.walk`` holds the threaded walk's tree, kernel G's tiled entry
     in its three modes (the rows read from the scene's shade table,
     passed at each call, so the accel holds no copy of it), and the flat
     entry for the flat path; where ``accel.chunks`` holds the packet
@@ -214,9 +216,10 @@ class BvhIntrs(TreeIntrs):
         precomputed checkpoint, bvh.rs:54-64), ``eps`` = ``Runtime``,
         neither = ``Default``.  ``backend``: ``"threaded"`` (kernel G's
         walk), ``"packet"`` (the pbvh kernels over the same leaf-ordered
-        prims; the BVH still fixes the order) or ``"auto"``
-        (:func:`use_packet`).  ``refine``: the packet backend's per-ray
-        cull policy (see ``PacketBvhIntrs``)."""
+        prims; the BVH still fixes the order) or ``"auto"``, the walk on
+        every device (:func:`use_packet`; the JAX package's packet cap
+        is its TPU's VMEM model, not this card's).  ``refine``: the
+        packet backend's per-ray cull policy (see ``PacketBvhIntrs``)."""
         check_modes(backend, refine)
         self.eps = eps
         self.target_item_count = target_item_count

@@ -338,13 +338,25 @@ def test_packet_backend_matches_threaded(torus, handler):
         assert (i2[hits] != i1[hits]).all()
 
 
-def test_backend_rule():
+@pytest.mark.parametrize(
+    "backend, num_prims, device, packet",
+    [
+        # "auto" walks on every device and past or within the JAX
+        # package's 12,288-triangle packet cap (its TPU's VMEM model)
+        *[("auto", n, dev, False) for dev in ("cpu", "cuda") for n in (6322, 12288, 12289)],
+        ("packet", 50562, "cpu", True),
+        ("packet", 6322, "cuda", True),
+        ("threaded", 10, "cuda", False),
+        ("threaded", 6322, "cpu", False),
+    ],
+)
+def test_backend_rule(backend, num_prims, device, packet):
     from rt_rs_tpu_torch.handlers.bvh import use_packet
 
-    cpu, card = torch.device("cpu"), torch.device("cuda")
-    assert not use_packet("auto", 6322, cpu) and use_packet("auto", 6322, card)
-    assert use_packet("auto", 12288, card) and not use_packet("auto", 12289, card)
-    assert use_packet("packet", 50562, cpu) and not use_packet("threaded", 10, card)
+    assert use_packet(backend, num_prims, torch.device(device)) is packet
+
+
+def test_backend_rule_refuses_unknown_modes():
     with pytest.raises(ValueError, match="backend"):
         get_handler("bvh", backend="nope")
     with pytest.raises(ValueError, match="refine"):

@@ -16,7 +16,10 @@ knobs ``narrow``, ``retile`` and ``fuse_bounce``.
 The card's checks (marked ``card``; this file imports no JAX, so it
 runs there without the tests' conftest): each mode's kernel against
 its twin and the mirror, run twice alike, with its counts equal to the
-mirror's, and the frames on the card, emit = gather:
+mirror's, the frames on the card, emit = gather, and the default ``bvh``
+Renderer (``backend="auto"``), which walks on the card within the JAX
+package's 12,288-triangle packet cap too, equal to pbvh's frames on the
+teatime scene and on its negative-material variant (the flat path):
 
     python3 -m pytest tests/test_torch_walk_modes.py -m card --noconftest -q
 """
@@ -35,7 +38,7 @@ from rt_rs_tpu_torch.bvh import wide
 from rt_rs_tpu_torch.handlers import get_handler
 from rt_rs_tpu_torch.ops import bvh_walk as bw
 from rt_rs_tpu_torch.ops import bvh_walk_rf
-from rt_rs_tpu_torch.scene.presets import deep_chain, no_prims, tiled_copies, torus_scene
+from rt_rs_tpu_torch.scene.presets import deep_chain, no_prims, tiled_copies, torus_ghost, torus_scene
 from tests.torch_rf_tree import rf_walk_build
 
 torch.set_num_threads(
@@ -364,3 +367,52 @@ def test_card_emit_frames_equal_gather_frames(handler, knob):
     assert launched[name("rows")] == CFG.bounces and launched[name("anyhit")] == CFG.bounces
     gather = renderer(handler, device=dev, force_rows=False, **KNOBS[knob]).render_frame()
     assert torch.equal(emit, gather)
+
+
+def default_renderer(handler: str, scene, size, device):
+    """``Renderer(scene)`` at the handler's defaults (``bvh``: backend
+    ``"auto"``)."""
+    return Renderer(scene, size=size, device=device, handler=handler)
+
+
+@pytest.mark.card
+def test_card_default_bvh_walks():
+    """``"auto"`` on the card builds kernel G's packed tree and no packet
+    table for the teatime scene (6,322 triangles, within the cap)."""
+    r = default_renderer("bvh", torus_scene(), (64, 48), card())
+    assert r.accel.walk is not None and r.accel.chunks is None
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("size", [(384, 288), (1920, 1080)], ids=["384x288", "1920x1080"])
+def test_card_default_bvh_frames_equal_pbvh(size):
+    """The default ``bvh`` frame of the teatime scene, through kernel G's
+    rows and any-hit modes, is pbvh's (the packet kernels') bit for
+    bit."""
+    from rt_rs_tpu_torch.ops import cuda
+
+    dev = card()
+    before = cuda.LAUNCHES.copy()
+    walk = default_renderer("bvh", torus_scene(), size, dev).render_frame()
+    launched = cuda.LAUNCHES - before
+    assert launched[bw.walk_name(False, "rows")] == CFG.bounces
+    assert not any(k.startswith(("mt_trace", "refine_cull")) for k in launched), launched
+    packet = default_renderer("pbvh", torus_scene(), size, dev).render_frame()
+    assert walk.mean() > 0.05
+    assert torch.equal(walk, packet)
+
+
+@pytest.mark.card
+def test_card_negative_material_default_bvh_equals_pbvh():
+    """A negative-material scene within the cap (``torus_ghost()``, 6,326
+    triangles) takes the flat path; through the default ``bvh`` it calls
+    kernel G's flat entry, and its frame is pbvh's bit for bit."""
+    from rt_rs_tpu_torch.ops import cuda
+
+    dev = card()
+    before = cuda.LAUNCHES.copy()
+    walk = default_renderer("bvh", torus_ghost(), (384, 288), dev).render_frame()
+    assert (cuda.LAUNCHES - before)[bw.walk_name(False)] > 0
+    packet = default_renderer("pbvh", torus_ghost(), (384, 288), dev).render_frame()
+    assert walk.mean() > 0.05
+    assert torch.equal(walk, packet)
