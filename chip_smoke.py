@@ -93,11 +93,12 @@ exits nonzero without printing a result):
    early exit, the flat path's ``torus_ghost()`` frames at 384x288 and
    1920x1080, the canyon through the transposed table at 640x480
    (every mt_tpose call), the threaded ``bvh`` torus frame at 384x288
-   and canyon frame at 640x480 (every bvh_walk call, also against the
-   wide design's mirror ``bvh_walk_wide_reference`` and run twice
-   alike), the ``rf_bvh`` torus and ``teapots3`` frames at 384x288
-   (every bvh_walk_rf call, run twice alike); then synthetic batches
-   through both walks, the records walk in its three modes:
+   and canyon frame at 640x480 (every bvh_walk_tiled call, also against
+   the wide design's mirror ``bvh_walk_tiled_wide_reference`` and run
+   twice alike), the ``rf_bvh`` torus and ``teapots3`` frames at
+   384x288 (every bvh_walk_rf call, run twice alike); then synthetic
+   batches through both walks, kernel G in its closest mode and the
+   records walk in its three modes:
    axis-parallel, NaN, invalid and excluded rays at the torus, tie rays
    at two coincident copies of it, and the same rays at ``deep_chain``
    and ``no_prims``, which every ray misses),
@@ -249,11 +250,12 @@ exits nonzero without printing a result):
    as the default call over the same lists, the fused shading call also
    as shade_post + shade_pre; the probes' kernels at the compare
    phase's calls, and mt_trace[closest] on mt_tpose's tc = 64 lists;
-   bvh_walk at the threaded torus frames' primary calls (its bound from
+   kernel G's three modes at the threaded torus frame's primary rows
+   call (also in closest mode) and first shadow call (its bound from
    the node steps and prim tests its twin, the binary walk, counts on
-   the same call; the wide walk's node visits and the packed records'
-   bytes from the mirror; the threaded canyon frame's primary call is
-   also printed).
+   the same rays; the wide walk's node visits and the packed records'
+   bytes from the mirror; the threaded canyon frame's primary rays in
+   closest mode are also printed).
    Each f32 kernel's bound also at the measured separate-FMA rate, its
    launches per wrapper call (torch.profiler; mt_tpose and mt_mxu must
    make PROBE_CALL_LAUNCHES), and each mt_trace call's list lengths.  The default-mode mt_trace
@@ -266,15 +268,11 @@ exits nonzero without printing a result):
    the early-exit calls and the probes' MT kernels also print the
    per-tile walks' times they replaced (WALK_MS, constants) and, for
    early exit, the entries the per-tile rule and the items test.
-7. Where the time goes: torch.profiler over canyon frames (default and
-   early exit, and through the transposed table) and torus 384x288 and
-   1080p frames (default; 1080p also knobs), device time by kernel kind and the device's idle
-   share, over flat ``torus_ghost()`` 1080p frames and over threaded
-   ``bvh`` / ``rf_bvh`` frames (canyon 640x480, torus 1080p) and
-   DynamicRenderer rebuild and refit frames at 1080p; then the dynamic
-   build's parts at 1080p profiled alone (gathers and shade table,
-   Morton codes and sort, permute, chunk table: device ms and launches)
-   against the frame's busy time.
+7. The dynamic build's parts at 1080p profiled alone (gathers and shade
+   table, Morton codes and sort, permute, chunk table: device ms and
+   launches) against a DynamicRenderer rebuild frame's busy time.  Where
+   a frame's device time goes, by kernel kind, is the benchmark's
+   breakdown (``rtbench/``).
 8. The ``chain`` path (:func:`phase_chain`; last, because single-call
    profiles taken after graph captures lost kernels): each case of
    CHAIN captures its graphs (a host read or a host-to-device copy
@@ -284,15 +282,13 @@ exits nonzero without printing a result):
    chained frames launch what N eager frames launch, kernel by kernel,
    with the counts set to 0 just before and read just after, and leave
    the host camera where the eager loop does; the device bytes of the
-   1080p graphs; the eager orbit against chain=16 (and chain=4 at
-   1080p) in interleaved turns (AB_ORDER), each with the device's idle
-   share.  The dynamic cases stack the wave's frames into the graph's
-   vertex buffers: their eager and chained orbits move the geometry.  The turns run in a process of their own (``python3
-   chip_smoke.py --chain-turns``), which never runs torch.profiler:
-   once used, it left each later eager launch of the process slower.
+   1080p graphs, captured at chain=16 and chain=4 (CHAIN4).  The
+   dynamic cases stack the wave's frames into the graph's vertex
+   buffers: their eager and chained orbits move the geometry.  The
+   benchmark (``rtbench/``) times chained orbits.
 
 The second-to-last lines are JSON objects of frame times (with the
-chain phase, the A/B, the mt_trace calls, shade_post at 1080p and its
+chain phase's checks, the A/B, the mt_trace calls, shade_post at 1080p and its
 launch floor, the parallel phase's ms/frame and native build times, the
 tools phase's protocol,
 mt_trace[closest] on mt_tpose's lists and the dynamic build) and
@@ -371,26 +367,6 @@ TPOSE_FRAME = (640, 480, 20)
 # share of its values allowed beyond REF_ATOL from the segmented
 # Renderer's frame (one flipped hit in 640x480 is 3 of 921,600 values)
 TPOSE_FAR_SHARE = 1e-4
-# (label, path, kept renderer, orbit steps) profiled in phase 7
-PROFILE = (
-    ("torus 384x288", "torus", "384x288", 3),
-    ("canyon segmented 640x480", "segmented", "640x480", 3),
-    ("canyon dma 640x480", "dma", "640x480", 3),
-    ("canyon segmented 1920x1080", "segmented", "1920x1080", 2),
-    ("canyon segmented early_exit 640x480", "knobs", "canyon 640x480", 3),
-    ("tpose canyon 640x480", "probes", "tpose canyon", 3),
-    ("torus 1920x1080", "torus", "1920x1080", 3),
-    ("knobs torus 1920x1080", "knobs", "1920x1080", 3),
-    ("torus_ghost flat 1920x1080", "flat", "1920x1080", 3),
-    ("bvh threaded canyon 640x480", "bvh", "bvh threaded canyon 640x480", 2),
-    ("bvh threaded torus 1920x1080", "bvh", "bvh threaded torus 1920x1080", 2),
-    ("rf_bvh threaded torus 1920x1080", "bvh", "rf_bvh threaded torus 1920x1080", 2),
-    ("lbvh torus 1920x1080", "lbvh", "1920x1080", 3),
-    ("dual torus 1920x1080", "dual", "1920x1080", 3),
-    ("dynamic rebuild torus 1920x1080", "dynamic", "rebuild 1920x1080", 3),
-    ("dynamic refit torus 1920x1080", "dynamic", "refit 1920x1080", 3),
-)
-
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "refine_cull": (
@@ -439,9 +415,9 @@ KERNELS = {
     "mt_mxu[highest]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[high]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[default]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
-    # hand-written for XLA code (a lax.while_loop), no pallas_call
-    "bvh_walk[bvh]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314"),
-    # the tiled entry's modes (the frame path's closest, rows and any-hit)
+    # hand-written for XLA code (a lax.while_loop), no pallas_call: kernel
+    # G's modes (the frame path's closest, rows and any-hit; the flat path
+    # takes closest)
     **{
         f"bvh_walk[bvh,{mode}]": ("rt_rs_tpu_torch/csrc/bvh_walk.cu", "rt_rs_tpu/handlers/bvh.py:314")
         for mode in ("closest", "rows", "anyhit")
@@ -536,7 +512,7 @@ CHAIN = {
     "dynamic rebuild torus 1920x1080": (lambda: Wavy(dynamic(1920, 1080), 0), 16, 16),
     "dynamic refit torus 1920x1080": (lambda: Wavy(dynamic(1920, 1080, refit=True), 0), 16, 16),
 }
-# cases also timed at chain=4, and whose graphs' device bytes are read
+# cases also captured and checked at chain=4, whose graphs' device bytes are read
 CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
 # The parallel path (phase_parallel): case -> (mesh shape, scene,
 # handler, handler kwargs, width, height), each rendered by
@@ -716,7 +692,6 @@ class Recorder:
             (shade_tile, "shade_bounce"),
             (tpose_table, "mt_tpose"),
             (mxu_mt, "mt_mxu"),
-            (bvh_walk, "bvh_walk"),
             (bvh_walk, "bvh_walk_tiled"),
             (bvh_walk_rf, "bvh_walk_rf_tiled"),
         ]
@@ -918,8 +893,6 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         else:
             errs[name] = max(errs[name], check_equal(f"{label} {name}#{i}", kern, twin))
         check_equal(f"{label} {name}#{i} run twice", pt.mt_trace(*a, **kw), kern)
-    for i, (a, kw, _) in enumerate(calls["bvh_walk"]):
-        check_walk(f"{label} {bw.walk_name(a[4].payload)}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["bvh_walk_tiled"]):
         check_walk_tiled(f"{label} {bw.walk_name(a[2].payload, kw['mode'])}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["bvh_walk_rf_tiled"]):
@@ -987,18 +960,6 @@ def check_post_synthetic(errs: dict) -> None:
     )
 
 
-def check_walk(what: str, a, kw, errs: dict) -> None:
-    """One bvh_walk call: the kernel bit-equal to its twin (the binary
-    lockstep loop) and to the wide design's mirror, and run twice alike."""
-    from rt_rs_tpu_torch.ops import bvh_walk as bw
-
-    name = bw.walk_name(a[4].payload)
-    kern = bw.bvh_walk(*a, **kw)
-    errs[name] = max(errs[name], check_equal(what, kern, bw.walk_reference(*a, **kw)))
-    check_equal(f"{what} vs the wide mirror", kern, bw.bvh_walk_wide_reference(*a, **kw))
-    check_equal(f"{what} run twice", bw.bvh_walk(*a, **kw), kern)
-
-
 def check_walk_tiled(what: str, a, kw, errs: dict) -> None:
     """One bvh_walk_tiled call: the kernel bit-equal to its twin (the
     binary walk; table[pid]; the closest verdict against the cap) and to
@@ -1024,23 +985,30 @@ def check_rf_walk(what: str, a, kw, errs: dict) -> None:
     check_equal(f"{what} run twice", rw.bvh_walk_rf_tiled(*a, **kw), kern)
 
 
-def rf_tiles(o, d, excl, valid, cap, r: int = 128):
-    """Flat rays (N a multiple of r) as the records walk's tiles ->
-    (payload [8, N / r, r], valid [N / r, r]), row 7 ``cap``."""
+def ray_tiles(o, d, excl, valid, cap, r: int = 128):
+    """Flat rays (N a multiple of r) as the walks' tiles -> (payload
+    [8, N / r, r], valid [N / r, r]), row 7 ``cap``."""
     import torch
 
     payload = torch.cat([o.T, d.T, excl[None].float(), cap[None]]).contiguous()
     return payload.reshape(8, -1, r), valid.reshape(-1, r)
 
 
-def flat_walk(call):
-    """A recorded bvh_walk_tiled call as the flat entry's call on the
-    same rays -> ((o, d, excl, valid, tree), kwargs, None)."""
+def closest_call(call):
+    """A recorded walk call as its closest mode's call on the same rays."""
+    a, kw, _ = call
+    return a, dict(kw, mode="closest", table=None), None
+
+
+def twin_walk_args(a, kw):
+    """A bvh_walk_tiled call's arguments as the binary twin's and the
+    wide mirror's (``walk_reference``, ``bvh_walk_wide_reference``) ->
+    ((o, d, excl, valid, tree), kwargs)."""
     from rt_rs_tpu_torch.ops import bvh_walk as bw
 
-    (payload, valid, tree), kw, _ = call
+    payload, valid, tree = a
     o, d, excl, flat_valid, _ = bw.tile_rays(payload, valid)
-    return (o, d, excl, flat_valid, tree), {k: kw[k] for k in ("t_min", "t_max", "eps")}, None
+    return (o, d, excl, flat_valid, tree), {k: kw[k] for k in ("t_min", "t_max", "eps")}
 
 
 def walk_rays(n: int, seed: int, num_prims: int, nan: int):
@@ -1078,12 +1046,14 @@ def edge_scenes() -> dict:
 
 
 def check_walk_synthetic(errs: dict) -> None:
-    """bvh_walk on synthetic batches in both leaf modes (check_walk):
-    walk_rays at torus_scene (NaN directions included: those rays enter
-    every node), at two coincident copies of the torus, whose duplicated
-    triangles tie at equal t on every hit, and at the edge_scenes (the
-    deep chain's through the scratch kernel; every ray misses the
-    scene with no prims)."""
+    """Kernel G's closest mode (check_walk_tiled) and the records walk's
+    three modes on synthetic batches: walk_rays at torus_scene (NaN
+    directions included: those rays enter every node), at two coincident
+    copies of the torus, whose duplicated triangles tie at equal t on
+    every hit, and at the edge_scenes (the deep chain's through the
+    scratch kernels; every ray misses the scene with no prims)."""
+    import torch
+
     from rt_rs_tpu_torch.bvh import wide
     from rt_rs_tpu_torch.config import ComputeConfig
     from rt_rs_tpu_torch.handlers import get_handler
@@ -1100,15 +1070,17 @@ def check_walk_synthetic(errs: dict) -> None:
         accel, _ = get_handler("bvh", backend="threaded", **hkw).build(scene, scene.pack(device=DEVICE))
         tree = accel.walk
         rays = walk_rays(4096, 7, max(scene.num_prims, 1), nan)
-        check_walk(f"synthetic {label} bvh", (*rays, tree), kw, errs)
+        payload, tv = ray_tiles(*rays, torch.zeros_like(rays[0][:, 0]))
+        a, akw = (payload, tv, tree), dict(kw, mode="closest")
+        check_walk_tiled(f"synthetic {label} {bw.walk_name(False, 'closest')}", a, akw, errs)
         if label == "deep chain" and not tree.stack > wide.LOCAL_STACK:
             raise AssertionError(f"{label} bvh: a stack of {tree.stack}, not past the local stack")
-        if label == "no prims" and bool(bw.bvh_walk(*rays, tree, **kw)[1].any()):
+        if label == "no prims" and bool(bw.bvh_walk_tiled(*a, **akw)[1].any()):
             raise AssertionError(f"{label} bvh: a ray hit a scene with no prims")
         say(
             f"[compare] synthetic {label} bvh ({scene.num_prims} tris, {nan} NaN rays of "
-            f"4096, walk stack {tree.stack} of {wide.LOCAL_STACK} local): bvh_walk bit-equal "
-            f"to its twin and the wide mirror, run twice alike"
+            f"4096, walk stack {tree.stack} of {wide.LOCAL_STACK} local): bvh_walk_tiled "
+            f"closest bit-equal to its twin and the wide mirror, run twice alike"
         )
         check_rf_synthetic(label, scene, hkw, rays, nan, errs)
 
@@ -1131,7 +1103,7 @@ def check_rf_synthetic(label: str, scene, hkw: dict, rays, nan: int, errs: dict)
     corners = (arrays.pa, arrays.pb, arrays.pc)
     t, pid = rw.bvh_walk_rf_reference(o, d, excl, valid, accel.records, *corners, **kw)
     cap = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0, torch.nextafter(t, t + 1), t * 0.5)
-    payload, tv = rf_tiles(o, d, excl, valid, cap)
+    payload, tv = ray_tiles(o, d, excl, valid, cap)
     for mode in ("closest", "rows", "anyhit"):
         table = arrays.shade_table.contiguous() if mode == "rows" else None
         check_rf_walk(f"synthetic {label} {rw.walk_name(mode)}", (payload, tv, accel.records, *corners), dict(kw, mode=mode, table=table), errs)
@@ -2917,22 +2889,6 @@ def check_chain(label: str, r, k: int, mult: float) -> dict:
     )
 
 
-def chain_orbit(r, n: int, mult: float, k: int | None, start):
-    """``r.animate`` over ``n`` orbit frames from camera ``start``, one
-    sync at the end -> (ms/frame by CUDA events, ms/frame on the host
-    clock); ``k`` None is the eager loop."""
-    import torch
-
-    r.camera = start
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    s.record()
-    r.animate(n, orbit_mult=mult, sync_every=n, chain=k)
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / n, (time.perf_counter() - t0) * 1e3 / n
-
-
 def busy_ms(r, frames: int = 2) -> float:
     """Device ms per eager frame (torch.profiler, the sum of its kernels)."""
     import torch
@@ -2949,52 +2905,15 @@ def busy_ms(r, frames: int = 2) -> float:
     return us / 1e3 / frames
 
 
-def chain_modes(label: str, k: int) -> dict[str, int | None]:
-    """A chain case's timed modes: the eager loop, chain=K, and chain=4
-    for CHAIN4."""
-    modes = {"eager": None, f"chain={k}": k}
-    if label in CHAIN4:
-        modes["chain=4"] = 4
-    return modes
-
-
-def chain_turns() -> None:
-    """``python3 chip_smoke.py --chain-turns``: the chain phase's timing,
-    in a process of its own that never runs torch.profiler (once used in
-    a process, it left each later eager launch slower: PERF.md §6).
-    Per case of CHAIN: one warm-up orbit per mode (the eager frames'
-    set-up, every dispatch's graph), then the modes' orbits in
-    interleaved turns (AB_ORDER), ms/frame by CUDA events.  Prints one
-    JSON line: case -> mode -> ms per turn."""
-    from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
-
-    out = {}
-    for label, (make, k, n) in CHAIN.items():
-        r = make()
-        start, mult = r.camera, 2.0 * math.pi / n / ORBIT_RATE
-        modes = chain_modes(label, k)
-        for kk in modes.values():
-            chain_orbit(r, n, mult, kk, start)
-        ms = {m: [] for m in modes}
-        for on in AB_ORDER:
-            for m, kk in modes.items():
-                if (kk is not None) == on:
-                    ms[m].append(chain_orbit(r, n, mult, kk, start)[0])
-        out[label] = ms
-    print(json.dumps(out), flush=True)
-
-
 def phase_chain(card: str) -> tuple[dict[str, int], dict]:
     """``Renderer.animate(chain=K)`` on every frame path (CHAIN): the
-    checks of :func:`check_chain`; then (e) the launch counts of N
-    chained frames (all graphs captured, counts set to 0 just before and
-    read just after) equal N eager frames', kernel by kernel, and (f) the
-    host camera after them equals the eager loop's; the device busy time
-    of profiled eager frames; then the eager orbit against chain=K (and
-    chain=4, CHAIN4) in interleaved turns (:func:`chain_turns`, in a
-    process of its own), with the device's idle share of each: busy over
-    each wall.  -> (the chained runs' launches, summed over the cases;
-    the results by case)."""
+    checks of :func:`check_chain` (at K, and at 4 for CHAIN4); then (e)
+    the launch counts of N chained frames (all graphs captured, counts
+    set to 0 just before and read just after) equal N eager frames',
+    kernel by kernel, and (f) the host camera after them equals the
+    eager loop's.  Timing chained against eager orbits is the
+    benchmark's (``rtbench/``).  -> (the chained runs' launches, summed
+    over the cases; the results by case)."""
     from rt_rs_tpu_torch.scene.camera import ORBIT_RATE
 
     total: collections.Counter[str] = collections.Counter()
@@ -3022,9 +2941,8 @@ def phase_chain(card: str) -> tuple[dict[str, int], dict]:
         if cam_chain != cam_loop:
             raise AssertionError(f"chain {label}: host camera {cam_chain} != the loop's {cam_loop}")
         total.update(chained)
-        r.camera = start
         launched = {x: c for x, c in chained.items() if c}
-        res.update(busy_ms=busy_ms(r), launches=launched)
+        res["launches"] = launched
         summary[label] = res
         extra = ""
         if label in CHAIN4:
@@ -3046,23 +2964,6 @@ def phase_chain(card: str) -> tuple[dict[str, int], dict]:
     if missing:
         raise AssertionError(f"chain: kernels never launched on the path: {missing}")
     say(f"[launches] chain: {dict(+total)}")
-    turns = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--chain-turns"],
-        cwd=ROOT, stdout=subprocess.PIPE, text=True, check=True,
-    ).stdout
-    for label, ms in json.loads(turns.strip().splitlines()[-1]).items():
-        res = summary[label]
-        busy = res["busy_ms"]
-        idle = {m: 1.0 - busy / sorted(v)[len(v) // 2] for m, v in ms.items()}
-        res.update(ms=ms, idle_share=idle)
-        say(
-            f"[chain time] {label}: ms/frame (CUDA events, orbits of {CHAIN[label][2]}, turns "
-            f"{AB_ORDER}, a process of their own) "
-            + ", ".join(f"{m} {[round(x, 3) for x in v]}" for m, v in ms.items())
-            + f"; device busy {busy:.3f} ms/frame (profiled eager frames), idle share "
-            + ", ".join(f"{m} {v:.3f}" for m, v in idle.items())
-            + f"; {card}"
-        )
     return {x: total[x] for x in KERNELS}, summary
 
 
@@ -3098,9 +2999,8 @@ WALK_NODE_OPS = 24
 WALK_PRIM_OPS = 49
 # bytes a walk reads per node stepped (bounds 24, links 8, count 4), per
 # leaf entered (its start 4, or its 8 payload slots 32) and per prim
-# tested (3 corners), and per ray (o, d, excl, valid; t and pid out).
+# tested (3 corners).
 WALK_NODE_BYTES = 36
-WALK_RAY_BYTES = 29 + 8
 MXU_FEATURES = 10
 MXU_PRODUCT_OPS = 2 * MXU_FEATURES * 4
 MXU_EPILOGUE_OPS = 3
@@ -3187,12 +3087,14 @@ def bounce_halves(a, kw):
 
 
 def walk_work(a, kw):
-    """The work of one recorded bvh_walk call, counted by its twin (the
-    binary walk: the bound counts its node steps whatever walks them)."""
+    """The work of one recorded bvh_walk_tiled call, counted by its
+    twin (the binary walk: the bound counts its node steps whatever walks
+    them)."""
     from rt_rs_tpu_torch.ops import bvh_walk as bw
 
     w = bw.WalkWork()
-    bw.walk_reference(*a, **kw, work=w)
+    fa, fkw = twin_walk_args(a, kw)
+    bw.walk_reference(*fa, **fkw, work=w)
     return w
 
 
@@ -3224,21 +3126,17 @@ def work(name: str, a, kw) -> tuple[int, int]:
         ops = w.records * WALK_NODE_OPS + w.prims * WALK_PRIM_OPS + 3 * w.rays
         out = {"closest": 8, "rows": 8 + 128, "anyhit": 1}[kw["mode"]]
         return ops, n * (32 + out)
-    if name.startswith("bvh_walk") and "," in name:
-        # a tiled mode: the closest walk's work on its rays (any-hit's
-        # stops sooner, so its bound lies below this), the payload's 32
-        # bytes a ray read and, for rows, the 128-byte row written
-        fa, fkw, _ = flat_walk((a, kw, None))
-        ops, nbytes = work(name.split(",")[0] + "]", fa, fkw)
-        n = fa[0].shape[0]
-        return ops, nbytes + n * (32 - WALK_RAY_BYTES + 8) + (n * 128 if name.endswith("rows]") else 0)
     if name.startswith("bvh_walk"):
-        w, n = walk_work(a, kw), a[0].shape[0]
+        # kernel G in a mode: the closest walk's work on its rays (any-hit's
+        # stops sooner, so its bound lies below this), the payload's 32
+        # bytes a ray read, t and pid written and, for rows, the 128-byte
+        # row written
+        w, n = walk_work(a, kw), a[1].numel()
         ops = w.node_steps * WALK_NODE_OPS + w.prim_tests * WALK_PRIM_OPS + 3 * n
-        leaf_bytes = 32 if a[4].payload else 4
+        leaf_bytes = 32 if a[2].payload else 4
         nbytes = (
-            n * WALK_RAY_BYTES + w.nodes_read * WALK_NODE_BYTES + w.leaves_read * leaf_bytes
-            + w.prims_read * 36
+            n * (32 + 8) + w.nodes_read * WALK_NODE_BYTES + w.leaves_read * leaf_bytes
+            + w.prims_read * 36 + (n * 128 if kw["mode"] == "rows" else 0)
         )
         return ops, nbytes
     if name.startswith("fma_peak"):
@@ -3643,12 +3541,10 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         "shade_bounce": (
             st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
         ),
-        # the threaded torus frames' primary rays through the flat entry
-        "bvh_walk[bvh]": (
-            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh torus"]["bvh_walk_tiled"][0]), 1,
-        ),
-        "bvh_walk[bvh] canyon 640x480": (
-            bw.bvh_walk, bw.walk_reference, flat_walk(recorded["bvh canyon"]["bvh_walk_tiled"][0]), 1,
+        # the threaded canyon frame's primary rays in closest mode
+        "bvh_walk[bvh,closest] canyon 640x480": (
+            bw.bvh_walk_tiled, bw.bvh_walk_tiled_reference,
+            closest_call(recorded["bvh canyon"]["bvh_walk_tiled"][0]), 1,
         ),
     }
     # the tiled modes on the same frames: the primary rows call (also in
@@ -3660,9 +3556,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         tiled = recorded[label][entry]
         rows_call = next(c for c in tiled if c[1]["mode"] == "rows")
         for mode in ("closest", "rows", "anyhit"):
-            call = next(c for c in tiled if c[1]["mode"] == mode) if mode != "closest" else (
-                rows_call[0], dict(rows_call[1], mode="closest", table=None), None
-            )
+            call = next(c for c in tiled if c[1]["mode"] == mode) if mode != "closest" else closest_call(rows_call)
             picks[name.format(mode)] = (kern, twin, call, 1)
     for name, (kern, twin, a, kw) in recorded["probes"].items():
         picks[name] = (kern, twin, (a, kw, None), 1)
@@ -3697,11 +3591,10 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
                 f"{records.depth} levels"
             )
         elif name.startswith("bvh_walk"):
-            if "," in name:
-                a, kw, _ = flat_walk((a, kw, None))
-            w, ww, tree = walk_work(a, kw), bw.WideWork(), a[4]
-            bw.bvh_walk_wide_reference(*a, **kw, work=ww)
-            n = a[0].shape[0]
+            fa, fkw = twin_walk_args(a, kw)
+            w, ww, tree = walk_work(a, kw), bw.WideWork(), a[2]
+            bw.bvh_walk_wide_reference(*fa, **fkw, work=ww)
+            n = fa[0].shape[0]
             extra += (
                 f", {n} rays: {w.node_steps} node steps, {w.prim_tests} prim tests "
                 f"({w.nodes_read} nodes, {w.leaves_read} leaves, {w.prims_read} prims read); "
@@ -3790,74 +3683,6 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     return times, {label: mt_call_ms(label, call, sep_rate, card) for label, call in mt_calls.items()}
 
 
-# kernel name fragment -> kind, for the profile's breakdown
-KINDS = (
-    ("mt_trace_items_kernel", "mt_trace"),  # the balanced design: its items
-    ("mt_trace_prologue_kernel", "mt_trace prologue"),  # and its scan and set-up
-    ("mt_stream_items_kernel", "mt_stream"),
-    ("mt_tpose_items_kernel", "mt_tpose"),
-    ("mt_tpose_prologue_kernel", "mt_tpose prologue"),
-    ("mt_stream_prologue_kernel", "mt_stream prologue"),  # the scan and set-up
-    ("mt_stream_expand_kernel", "mt_stream prologue"),  # and the words' expansion
-    ("refine_cull_kernel", "refine_cull"),
-    ("shade_pre_kernel", "shade_pre"),
-    ("shade_post_kernel", "shade_post"),
-    ("shade_bounce_kernel", "shade_bounce"),
-    ("bvh_walk_rf", "bvh_walk_rf"),
-    ("bvh_walk_kernel", "bvh_walk"),
-    ("bvh_walk_tiled", "bvh_walk"),
-    ("sort", "sort (compaction)"),
-    ("index", "gather / index"),
-    ("gather", "gather / index"),
-    ("scatter", "gather / index"),
-    ("reduce", "reductions"),
-    ("elementwise", "elementwise glue"),
-    ("memcpy", "copies"),
-    ("memset", "copies"),
-)
-
-
-def kind_of(kernel: str) -> str:
-    low = kernel.lower()
-    return next((kind for frag, kind in KINDS if frag in low), "other")
-
-
-def phase_profile(kept, card: str) -> None:
-    """Device time per frame by kernel kind, and the device's idle share
-    of the profiled wall time, over a few orbit steps."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for label, path, size, frames in PROFILE:
-        r = kept[path][size]
-        r.render_frame()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(frames):
-                r.render_frame(block=False)
-                r.orbit(1.0)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-        us, n = collections.Counter(), collections.Counter()
-        for e in prof.events():
-            if e.device_type == DeviceType.CPU:
-                continue
-            kind = kind_of(e.name)
-            us[kind] += e.time_range.elapsed_us()
-            n[kind] += 1
-        busy = sum(us.values()) / 1e3 / frames
-        parts = ", ".join(
-            f"{k} {us[k] / 1e3 / frames:.3f} ms ({n[k] / frames:.0f})"
-            for k, _ in us.most_common()
-        )
-        say(
-            f"[profile] {label}: {wall_ms:.3f} ms/frame profiled wall, "
-            f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; "
-            f"per frame by kind (launches): {parts}; {card}"
-        )
-
-
 def phase_dynamic_build(kept, card: str) -> dict:
     """Where a dynamic rebuild frame's build time goes, at 1080p: each
     part of the step before the trace (the corner gathers and the shade
@@ -3944,9 +3769,8 @@ def main(full: bool = True) -> None:
         recorded, torus_1080_ee, kept, kept["probes"]["rates"]["separate"], card
     )
     took("kernel times")
-    phase_profile(kept, card)
     builds = phase_dynamic_build(kept, card)
-    took("profile")
+    took("dynamic build")
     # Last: the phases above time single calls with torch.profiler, whose
     # traces lost kernels when they ran after graphs were captured.
     counts["chain"], frame_ms["chain"] = phase_chain(card)
@@ -3987,7 +3811,7 @@ def main(full: bool = True) -> None:
                 ),
                 "bvh_walk_canyon_640x480": dict(
                     zip(("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_at_separate_rate"),
-                        times["bvh_walk[bvh] canyon 640x480"])
+                        times["bvh_walk[bvh,closest] canyon 640x480"])
                 ),
                 "dynamic_build": builds,
                 "parallel": parallel,
@@ -4014,7 +3838,4 @@ def main(full: bool = True) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--chain-turns"]:
-        chain_turns()
-    else:
-        main()
+    main()

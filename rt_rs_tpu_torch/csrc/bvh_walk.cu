@@ -27,7 +27,8 @@
 // empty payload slots dropped, so one walk serves both leaf kinds.
 //
 // Modes (MODE below), on component-major ray tiles (rt_bvh_walk_tiled,
-// the tree handlers' tiled, rows and any-hit entries):
+// the bvh handler's tiled, rows and any-hit entries; its flat path pads
+// its rays into tiles for the closest mode):
 //   0 closest: (t, pid), as above;
 //   1 rows: the same, and the winner's row of the scene's shade table
 //     [P, 32] f32 written to rows [32, n] (row 0 for a miss or an
@@ -39,8 +40,6 @@
 //     closest one does, so blocked is the closest walk's verdict
 //     pid != 0 && t < cap bit for bit; nodes whose near lies beyond
 //     the cap are culled.
-// The flat entry (rt_bvh_walk: the flat frame path and negative
-// materials) is the closest mode on [n, 3] rays.
 //
 // The stack a walk needs grows with the tree's depth (about one entry a
 // binary level on a chain; the pack counts it).  Up to kLocalStack
@@ -50,13 +49,12 @@
 // thread a strided set of rays), so every tree the binary walk takes is
 // walked, in every mode.
 //
-// Layouts.  Flat: o, d [n, 3]; excl [n] i32; valid [n] u8 (torch bool)
-// -> t [n], pid [n].  Tiled: payload [8, n] f32, component-major over
-// the n = T * r ray slots (rows 0-5 o and d, row 6 the f32 exclusion
-// id, row 7 the cap), valid [n] u8 -> t, pid [n] (modes 0, 1), rows
+// Layouts.  Rays: payload [8, n] f32, component-major over the n = T *
+// r ray slots (rows 0-5 o and d, row 6 the f32 exclusion id, row 7 the
+// cap), valid [n] u8 (torch bool) -> t, pid [n] (modes 0, 1), rows
 // [32, n] (mode 1), blocked [n] u8 (mode 2); a thread reads its ray's
 // 8 words from 8 planes, so a warp's loads and stores are 128
-// contiguous bytes a plane.  Both: nodes [k, 8 * kWidth] i32: lo.x,
+// contiguous bytes a plane.  Tree: nodes [k, 8 * kWidth] i32: lo.x,
 // hi.x, lo.y, hi.y, lo.z, hi.z (kWidth f32 each), then kWidth child
 // words (> 0 a node, ~q a leaf whose prims start at q, 0 empty),
 // padding; prims [q, 12] i32: {a, pid}, {b - a, last}, {c - a, 0}.
@@ -145,28 +143,8 @@ struct Ray {
 
 enum Mode { kClosest = 0, kRows = 1, kAnyHit = 2 };
 
-// Where a walk's rays come from: load(i, ...) sets ray i's origin and
-// direction, its exclusion id and its cap (the tiled rays' row 7; the
-// flat rays have none), and returns whether it is valid.
-struct FlatRays {
-  const float* __restrict__ o;
-  const float* __restrict__ d;
-  const int* __restrict__ excl;
-  const uint8_t* __restrict__ valid;
-  __device__ __forceinline__ bool load(size_t i, Ray& r, int& ex,
-                                       float& cap) const {
-    r.ox = o[3 * i];
-    r.oy = o[3 * i + 1];
-    r.oz = o[3 * i + 2];
-    r.dx = d[3 * i];
-    r.dy = d[3 * i + 1];
-    r.dz = d[3 * i + 2];
-    ex = excl[i];
-    cap = 0.0f;
-    return valid[i] != 0;
-  }
-};
-
+// The walk's rays: load(i, ...) sets ray i's origin and direction, its
+// exclusion id and its cap (row 7), and returns whether it is valid.
 struct TileRays {
   const float* __restrict__ payload;  // [8, n]
   const uint8_t* __restrict__ valid;  // [n]
@@ -297,8 +275,8 @@ struct WalkCount {
 };
 
 // Ray i's walk in MODE -> out at slot i; its work added to `count`.
-template <int MODE, class Rays, class Stack>
-__device__ __forceinline__ void walk_ray(size_t i, const Rays& rays,
+template <int MODE, class Stack>
+__device__ __forceinline__ void walk_ray(size_t i, const TileRays& rays,
                                          Stack& stack,
                                          const float4* __restrict__ nodes,
                                          const float4* __restrict__ prims,
@@ -397,8 +375,8 @@ __device__ __forceinline__ void count_walks(const WalkCount& count,
 
 // One thread a ray, its stack in local memory (trees whose walk needs
 // at most kLocalStack entries).
-template <int MODE, class Rays>
-__device__ __forceinline__ void walk_local(const Rays& rays,
+template <int MODE>
+__device__ __forceinline__ void walk_local(const TileRays& rays,
                                            const float4* __restrict__ nodes,
                                            const float4* __restrict__ prims,
                                            int n, float t_min, float t_max,
@@ -418,9 +396,9 @@ __device__ __forceinline__ void walk_local(const Rays& rays,
 
 // Deeper trees: each thread walks rays g, g + threads, ... with its
 // stack of `depth` entries in `scratch` ([2, depth, threads] words).
-template <int MODE, class Rays>
+template <int MODE>
 __device__ __forceinline__ void walk_scratch(
-    const Rays& rays, const float4* __restrict__ nodes,
+    const TileRays& rays, const float4* __restrict__ nodes,
     const float4* __restrict__ prims, int* __restrict__ scratch, int n,
     int depth, float t_min, float t_max, float eps, float miss_t,
     const WalkOut& out, long long* __restrict__ trace, int counter) {
@@ -437,28 +415,7 @@ __device__ __forceinline__ void walk_scratch(
   count_walks<MODE>(count, trace, counter);
 }
 
-// The flat entry's kernels (closest hit of [n, 3] rays).
-__global__ void __launch_bounds__(kBlock)
-    bvh_walk_kernel(FlatRays rays, const float4* __restrict__ nodes,
-                    const float4* __restrict__ prims, int n, float t_min,
-                    float t_max, float eps, float miss_t, WalkOut out,
-                    long long* __restrict__ trace, int counter) {
-  walk_local<kClosest>(rays, nodes, prims, n, t_min, t_max, eps, miss_t, out,
-                       trace, counter);
-}
-
-__global__ void __launch_bounds__(kBlock)
-    bvh_walk_scratch_kernel(FlatRays rays, const float4* __restrict__ nodes,
-                            const float4* __restrict__ prims,
-                            int* __restrict__ scratch, int n, int depth,
-                            float t_min, float t_max, float eps, float miss_t,
-                            WalkOut out, long long* __restrict__ trace,
-                            int counter) {
-  walk_scratch<kClosest>(rays, nodes, prims, scratch, n, depth, t_min, t_max,
-                         eps, miss_t, out, trace, counter);
-}
-
-// The tiled entry's kernels, one per mode.
+// The kernels, one pair per mode.
 template <int MODE>
 __global__ void __launch_bounds__(kBlock)
     bvh_walk_tiled_kernel(TileRays rays, const float4* __restrict__ nodes,
@@ -504,38 +461,11 @@ cudaError_t launch_tiled(const TileRays& rays, const float4* nv,
 
 }  // namespace
 
-// scratch null: the local-stack kernel (depth <= kLocalStack); else
-// the scratch kernel on threads / kBlock blocks.
-RT_EXPORT int rt_bvh_walk(const float* o, const float* d, const int* excl,
-                          const uint8_t* valid, const int* nodes,
-                          const int* prims, int* scratch, int n, int depth,
-                          int threads, float t_min, float t_max, float eps,
-                          float miss_t, float* t_out, int* pid_out,
-                          long long* trace, int counter, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const float4* nv = reinterpret_cast<const float4*>(nodes);
-  const float4* pv = reinterpret_cast<const float4*>(prims);
-  const FlatRays rays{o, d, excl, valid};
-  const WalkOut out{t_out, pid_out, nullptr, nullptr, nullptr, (size_t)n};
-  if (scratch == nullptr) {
-    if (depth > kLocalStack) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    bvh_walk_kernel<<<blocks, kBlock, 0, stream>>>(
-        rays, nv, pv, n, t_min, t_max, eps, miss_t, out, trace, counter);
-  } else {
-    if (threads <= 0 || threads % kBlock != 0) return (int)cudaErrorInvalidValue;
-    bvh_walk_scratch_kernel<<<(unsigned)(threads / kBlock), kBlock, 0,
-                              stream>>>(rays, nv, pv, scratch, n, depth,
-                                        t_min, t_max, eps, miss_t, out, trace,
-                                        counter);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The tiled entry: payload [8, n], valid [n] -> by mode (0 closest, 1
-// rows, 2 any-hit) t_out, pid_out [n], rows_out [32, n] from table
-// [P, 32] (16-byte aligned), blocked_out [n]; the outputs a mode does
-// not write may be null.  scratch as for rt_bvh_walk.
+// payload [8, n], valid [n] -> by mode (0 closest, 1 rows, 2 any-hit)
+// t_out, pid_out [n], rows_out [32, n] from table [P, 32] (16-byte
+// aligned), blocked_out [n]; the outputs a mode does not write may be
+// null.  scratch null: the local-stack kernel (depth <= kLocalStack);
+// else the scratch kernel on threads / kBlock blocks.
 RT_EXPORT int rt_bvh_walk_tiled(const float* payload, const uint8_t* valid,
                                 const int* nodes, const int* prims,
                                 const float* table, int* scratch, int n,

@@ -32,10 +32,11 @@
 // * POST_RAYS = 128: a 384x288 frame's 54 subgroups of 2,048 rays make
 //   864 blocks, spread over the 132 SMs within ~7% of even.
 //
-// The designs it was measured against (1-D bulk copies into shared
-// memory, shared memory filled by 16-byte loads, two or four rays a
-// thread, reading liveness with the data, other block sizes) are in
-// experiments/post_ablation/, with the script that times them.
+// The designs it was measured against, each bit-checked first and all
+// slower (1-D bulk copies into shared memory, shared memory filled by
+// 16-byte loads, two or four rays a thread, reading liveness with the
+// data, other block sizes), and their times are in PERF.md section 6,
+// row 4 (PR 14).
 #include "shade_body.cuh"
 
 constexpr int POST_RAYS = 128;  // rays (threads) of a block

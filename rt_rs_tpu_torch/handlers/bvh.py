@@ -13,9 +13,11 @@ Counterpart of ``rt_rs_tpu/handlers/bvh.py`` (reference: ``BvhIntrs``,
 Traversal is the JAX package's stackless threaded walk over the
 preorder escape links (:meth:`~rt_rs_tpu_torch.bvh.BvhData.escape_links`)
 on the recomputed covering bounds (``cover_bounds``); kernel G
-(:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk`) walks the same tree
-packed once at build into wide records (:mod:`rt_rs_tpu_torch.bvh.wide`)
-and returns the same hits.  ``backend="packet"``
+(:func:`rt_rs_tpu_torch.ops.bvh_walk.bvh_walk_tiled`) walks the same
+tree packed once at build into wide records
+(:mod:`rt_rs_tpu_torch.bvh.wide`) and returns the same hits, on ray
+tiles in closest-hit, emit-rows and any-hit modes; the flat path pads
+its rays into tiles and takes the closest mode.  ``backend="packet"``
 routes intersection through the pbvh packet kernels over the same
 leaf-ordered prims instead (the same hits, ids included).  ``"auto"``
 walks on every device (:func:`use_packet`): on the card the walk is the
@@ -34,7 +36,7 @@ import torch
 from rt_rs_tpu_torch.bvh import BvhData, build_bvh
 from rt_rs_tpu_torch.bvh.wide import WalkTree, walk_tree
 from rt_rs_tpu_torch.config import ComputeConfig
-from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
+from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats, tiled_as_flat
 from rt_rs_tpu_torch.ops import bvh_walk
 from rt_rs_tpu_torch.ops import packet_trace as pt
 from rt_rs_tpu_torch.scene import Scene
@@ -140,14 +142,16 @@ def use_packet(backend: str, num_prims: int, device: torch.device) -> bool:
 
 class TreeIntrs(IntrsHandler):
     """``bvh``'s intersect entries, in closest-hit, emit-rows and any-hit
-    modes (``rf_bvh`` overrides them and reuses the packet ones): where
-    ``accel.walk`` holds the threaded walk's tree, kernel G's tiled entry
-    in its three modes (the rows read from the scene's shade table,
-    passed at each call, so the accel holds no copy of it), and the flat
-    entry for the flat path; where ``accel.chunks`` holds the packet
-    backend's resident table (built in leaf order), the pbvh kernels,
-    tagged with the ``refine`` policy.  Either way a frame takes the
-    emit branch of ``trace_tiled`` unless ``force_rows=False``."""
+    modes (``rf_bvh`` overrides the tiled ones and reuses the packet
+    ones): where ``accel.walk`` holds the threaded walk's tree, kernel
+    G's tiled entry in its three modes (the rows read from the scene's
+    shade table, passed at each call, so the accel holds no copy of it);
+    where ``accel.chunks`` holds the packet backend's resident table
+    (built in leaf order), the pbvh kernels, tagged with the ``refine``
+    policy.  Either way a frame takes the emit branch of ``trace_tiled``
+    unless ``force_rows=False``.  The flat path of a walked accel (both
+    handlers) takes the tiled closest entry on its rays padded into
+    tiles."""
 
     block_lanes = pt.TUNED_RAY_TILE  # rays per tile (the walk is order-free)
     refine: str
@@ -158,7 +162,7 @@ class TreeIntrs(IntrsHandler):
                 pt.packet_closest_hit, accel.chunks,
                 t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, ray_tile=pt.TUNED_RAY_TILE,
             )
-        return walk_fn(accel.walk, cfg)
+        return tiled_as_flat(self.intersect_tiled_fn(accel, arrays, cfg), self.block_lanes)
 
     def _packet(self, accel, cfg: ComputeConfig, **mode):
         fn = partial(
@@ -250,22 +254,6 @@ class BvhIntrs(TreeIntrs):
 def walk_prims(arrays: SceneArrays) -> tuple[torch.Tensor, ...]:
     """The corners (pa, pb, pc) the threaded walk tests, contiguous."""
     return tuple(x.contiguous() for x in (arrays.pa, arrays.pb, arrays.pc))
-
-
-def walk_fn(tree: WalkTree, cfg: ComputeConfig):
-    """The threaded walk as an ``intersect_fn`` (``_bvh_intersect`` /
-    ``_rf_intersect``).  ``valid`` None means every ray; ``t_cap`` is
-    accepted and ignored, as in the JAX walk."""
-
-    def walk(o, d, excl, valid=None, t_cap=None):
-        if valid is None:
-            valid = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
-        return bvh_walk.bvh_walk(
-            o.contiguous(), d.contiguous(), excl.to(torch.int32).contiguous(),
-            valid.contiguous(), tree, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-        )
-
-    return walk
 
 
 def walk_tiled_fn(tree: WalkTree, cfg: ComputeConfig, mode: str, table: torch.Tensor | None = None):

@@ -32,7 +32,7 @@ import torch
 from rt_rs_tpu_torch.bvh import BvhData, build_bvh
 from rt_rs_tpu_torch.bvh.rf import RfData, pack_rf
 from rt_rs_tpu_torch.config import ComputeConfig
-from rt_rs_tpu_torch.handlers.base import IntrsStats, tiled_as_flat
+from rt_rs_tpu_torch.handlers.base import IntrsStats
 from rt_rs_tpu_torch.handlers.bvh import TreeIntrs, check_modes, packet_chunks, reorder_scene_arrays
 from rt_rs_tpu_torch.ops import bvh_walk_rf
 from rt_rs_tpu_torch.ops import packet_trace as pt
@@ -95,11 +95,6 @@ class RfBvhIntrs(TreeIntrs):
 
     def stats(self, accel: RfAccel) -> IntrsStats:
         return IntrsStats(name="RF-BVH", size=accel.footprint)
-
-    def intersect_fn(self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig):
-        if accel.chunks is not None:
-            return super().intersect_fn(accel, arrays, cfg)
-        return tiled_as_flat(self.intersect_tiled_fn(accel, arrays, cfg), self.block_lanes)
 
     def intersect_tiled_fn(self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig):
         if accel.chunks is not None:

@@ -13,33 +13,38 @@ Two leaf modes share the walk:
 * **contiguous** (``bvh``): the leaf's prims are the scene rows
   ``leaf_start[node] ..`` (the arrays are in leaf order), every one
   tested;
-* **payload** (``rf_bvh``): the leaf's prims are read from 8 slots per
-  node, ``payload[node * 8 + k]``; a slot of 0 is empty and skipped.
+* **payload** (the JAX package's ``rf_bvh``): the leaf's prims are read
+  from 8 slots per node, ``payload[node * 8 + k]``; a slot of 0 is empty
+  and skipped.  The port's ``rf_bvh`` walks its records with a kernel
+  of its own (:mod:`rt_rs_tpu_torch.ops.bvh_walk_rf`); the payload
+  leaves remain the referee its tests hold that walk to
+  (``tests/torch_rf_tree.py``).
 
-:func:`bvh_walk` runs kernel G (``csrc/bvh_walk.cu``) on a CUDA tensor
-over the tree's packed wide records (:mod:`rt_rs_tpu_torch.bvh.wide`):
-one thread a ray, a stack (in local memory, or in a scratch buffer for
-a tree deeper than ``wide.LOCAL_STACK`` entries), the same leaves entered in the same
-order with the same best t, so the same prim tests in the same order
-and the loop's ``(t, pid)`` bit for bit (ties keep the first prim
-found).  The kernel reads nothing on the host, so a frame that calls it
-can be captured in a CUDA graph.  :func:`bvh_walk_reference` is the
-lockstep loop in plain PyTorch (rays that have finished are dropped from
-the batch, which changes no ray's tests), the twin that runs for CPU
-tensors; :func:`walk_reference` calls it with the wrapper's arguments.
-:func:`bvh_walk_wide_reference` is the plain mirror of the kernel's
-design (the wide nodes, the stack, the packed prims), for the tests and
-the card's checks, never the main path.
-
-:func:`bvh_walk_tiled` is kernel G on the frame path's component-major
-ray tiles (payload [8, T, r], the tree handlers' tiled entries), in
-three modes (:data:`WALK_MODES`): the closest hit; the closest hit with
-the winner's shade-table row, written as the [32, T, r] plane the
+:func:`bvh_walk_tiled` runs kernel G (``csrc/bvh_walk.cu``) on a CUDA
+tensor over the tree's packed wide records
+(:mod:`rt_rs_tpu_torch.bvh.wide`), on the frame path's component-major
+ray tiles (payload [8, T, r], the ``bvh`` handler's tiled entries; its
+flat path pads its rays into tiles): one thread a ray, a stack (in
+local memory, or in a scratch buffer for a tree deeper than
+``wide.LOCAL_STACK`` entries), the same leaves entered in the same order
+with the same best t, so the same prim tests in the same order and the
+loop's ``(t, pid)`` bit for bit (ties keep the first prim found).  It
+has three modes (:data:`WALK_MODES`): the closest hit; the closest hit
+with the winner's shade-table row, written as the [32, T, r] plane the
 shading kernels read (the emit branch of ``ops/shade.py::trace_tiled``,
 so no row is gathered); and any hit below each ray's cap (payload row
-7), the shadow verdict.  Its twin :func:`bvh_walk_tiled_reference` is
-the binary walk on the tile's rays, ``table[pid]`` for the rows, and the
-closest hit against the cap for any-hit.
+7), the shadow verdict.  The kernel reads nothing on the host, so a
+frame that calls it can be captured in a CUDA graph.
+
+:func:`bvh_walk_reference` is the lockstep loop in plain PyTorch (rays
+that have finished are dropped from the batch, which changes no ray's
+tests); :func:`walk_reference` calls it on a :class:`WalkTree`.  The
+twin :func:`bvh_walk_tiled_reference`, which runs for CPU tensors, is
+that loop on the tile's rays, ``table[pid]`` for the rows, and the
+closest hit against the cap for any-hit.  :func:`bvh_walk_wide_reference`
+is the plain mirror of the kernel's design (the wide nodes, the stack,
+the packed prims), for the tests and the card's checks, never the main
+path.
 """
 
 from __future__ import annotations
@@ -71,15 +76,13 @@ class WalkWork:
     prims_read: int = 0
 
 
-WALK_MODES = ("closest", "rows", "anyhit")  # the tiled entry's modes (MODE in csrc/bvh_walk.cu)
+WALK_MODES = ("closest", "rows", "anyhit")  # the kernel's modes (MODE in csrc/bvh_walk.cu)
 
 
-def walk_name(payload: bool, mode: str | None = None) -> str:
-    """The launch counter of one leaf kind: the flat entry's
-    (``bvh_walk[bvh]``) or, with ``mode``, the tiled entry's
+def walk_name(payload: bool, mode: str) -> str:
+    """The launch counter of one leaf kind in one mode
     (``bvh_walk[bvh,rows]``)."""
-    leaf = "rf" if payload else "bvh"
-    return f"bvh_walk[{leaf}]" if mode is None else f"bvh_walk[{leaf},{mode}]"
+    return f"bvh_walk[{'rf' if payload else 'bvh'},{mode}]"
 
 
 def node_slab(o, inv_d, bmin, bmax):
@@ -119,8 +122,9 @@ def bvh_walk_reference(
     eps: float,
     work: WalkWork | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch twin of kernel G (see :func:`bvh_walk`); ``work``,
-    if given, gets the walk's counts."""
+    """The binary walk in plain PyTorch, the loop kernel G matches bit
+    for bit (see :func:`bvh_walk_tiled`); ``work``, if given, gets the
+    walk's counts."""
     dev = o.device
     n = o.shape[0]
     end = node_min.shape[0]
@@ -193,8 +197,8 @@ def bvh_walk_reference(
 
 
 def walk_reference(o, d, excl, valid, tree: WalkTree, *, t_min: float, t_max: float, eps: float, work=None):
-    """:func:`bvh_walk_reference` on ``tree``'s binary tree, with
-    :func:`bvh_walk`'s arguments."""
+    """:func:`bvh_walk_reference` on ``tree``'s binary tree, rays as
+    :func:`tile_rays` gives them."""
     return bvh_walk_reference(
         o, d, excl, valid, *tree.binary, payload=tree.payload, t_min=t_min, t_max=t_max,
         eps=eps, work=work,
@@ -349,53 +353,6 @@ def scratch_threads(n: int, stack: int) -> int:
     return max(BLOCK, min(-(-n // BLOCK) * BLOCK, fit))
 
 
-def bvh_walk(
-    o: torch.Tensor,
-    d: torch.Tensor,
-    excl: torch.Tensor,
-    valid: torch.Tensor,
-    tree: WalkTree,
-    *,
-    t_min: float,
-    t_max: float,
-    eps: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel G (csrc/bvh_walk.cu): the threaded walk of rays ``o``,
-    ``d`` [N, 3] (``excl`` [N] int32 prim to skip, ``valid`` [N] bool;
-    an invalid ray walks nothing) over ``tree`` -> (t [N] f32, pid [N]
-    int32), the miss sentinel ``(t_max + 1, 0)`` where nothing is hit.
-    A tree whose walk needs more than ``wide.LOCAL_STACK`` stack entries
-    takes the scratch kernel, with a ``[2, tree.stack,
-    scratch_threads(N, tree.stack)]`` int32 buffer allocated here.  On
-    CPU tensors, the twin on ``tree``'s binary tree.  While tracing is
-    on, the kernel counts its valid rays, wide-node visits and prim
-    tests (``tracing.py``: ``walk_rays``, ``walk_nodes``,
-    ``walk_prims``); on the CPU :func:`bvh_walk_wide_reference` counts
-    them on the tree packed there."""
-    kw = dict(t_min=t_min, t_max=t_max, eps=eps)
-    if not o.is_cuda:
-        if tracing.counting(o.device):
-            _count_walk(o, d, excl, valid, tree, **kw)
-        return walk_reference(o, d, excl, valid, tree, **kw)
-    n, dev = o.shape[0], o.device
-    cuda.check("o", o, torch.float32, (n, 3), dev)
-    cuda.check("d", d, torch.float32, (n, 3), dev)
-    cuda.check("excl", excl, torch.int32, (n,), dev)
-    cuda.check("valid", valid, torch.bool, (n,), dev)
-    scratch, threads = _walk_stacks(tree, n, dev)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    pid = torch.empty((n,), dtype=torch.int32, device=dev)
-    cuda.call(
-        walk_name(tree.payload), "rt_bvh_walk",
-        o.data_ptr(), d.data_ptr(), excl.data_ptr(), valid.data_ptr(),
-        tree.nodes.data_ptr(), tree.prims.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        n, tree.stack, threads, float(t_min), float(t_max), float(eps),
-        float(np.float32(t_max + 1.0)), t.data_ptr(), pid.data_ptr(),
-        *tracing.kernel_args(dev, "walk_rays"),
-    )
-    return t, pid
-
-
 def _walk_stacks(tree: WalkTree, n: int, dev) -> tuple[torch.Tensor | None, int]:
     """Check ``tree``'s packed records for a launch on ``dev`` -> the
     scratch kernel's ``[2, tree.stack, threads]`` int32 buffer and
@@ -435,7 +392,7 @@ def _count_walk(o, d, excl, valid, tree: WalkTree, cap=None, **kw) -> None:
 
 def tile_rays(payload: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The rays of component-major tiles (payload [8, T, r], valid
-    [T, r]) as the flat walk takes them -> (o [N, 3], d [N, 3], excl [N]
+    [T, r]) as the twins take them -> (o [N, 3], d [N, 3], excl [N]
     int32, valid [N], cap [N]), N = T * r in slot order."""
     o = payload[0:3].reshape(3, -1).T.contiguous()
     d = payload[3:6].reshape(3, -1).T.contiguous()
@@ -514,8 +471,8 @@ def bvh_walk_tiled(
     (rows 0-5 o and d, row 6 the f32 exclusion id, row 7 the cap) and
     valid [T, r] bool, over ``tree``, in ``mode``:
 
-    * ``"closest"`` -> (t, pid) [T, r], :func:`bvh_walk`'s on the same
-      rays;
+    * ``"closest"`` -> (t, pid) [T, r], the miss sentinel
+      ``(t_max + 1, 0)`` where nothing is hit or the ray is invalid;
     * ``"rows"`` -> (t, pid, rows [32, T, r]), rows the winner's row of
       ``table`` (the scene's shade table [P, 32] f32, passed at each
       call and kept nowhere), row 0 for a miss or an invalid ray;
@@ -523,11 +480,15 @@ def bvh_walk_tiled(
       exclusion lies in ``(t_min, min(t_max, cap))``, the closest
       walk's verdict ``pid != 0 and t < cap`` bit for bit.
 
-    The scratch kernel takes a deep tree, as for :func:`bvh_walk`.  On
-    CPU tensors, the twin :func:`bvh_walk_tiled_reference`.  While
-    tracing is on the kernel counts as :func:`bvh_walk` does and, in the
-    any-hit mode, its valid and blocked rays (``walk_anyhit``,
-    ``walk_blocked``); on the CPU the wide mirror counts them."""
+    A tree whose walk needs more than ``wide.LOCAL_STACK`` stack entries
+    takes the scratch kernel, with a ``[2, tree.stack,
+    scratch_threads(T * r, tree.stack)]`` int32 buffer allocated here.
+    On CPU tensors, the twin :func:`bvh_walk_tiled_reference`.  While
+    tracing is on, the kernel counts its valid rays, wide-node visits
+    and prim tests (``tracing.py``: ``walk_rays``, ``walk_nodes``,
+    ``walk_prims``) and, in the any-hit mode, its valid and blocked rays
+    (``walk_anyhit``, ``walk_blocked``); on the CPU the wide mirror
+    counts them on the tree packed there."""
     if mode not in WALK_MODES:
         raise ValueError(f"unknown walk mode {mode!r}; expected one of {WALK_MODES}")
     if (mode == "rows") != (table is not None):

@@ -62,7 +62,6 @@ SIGNATURES = {
     "rt_fma_peak": [_P, _P, _I, _I, _I, _P],
     "rt_mt_tpose": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_mt_mxu": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
-    "rt_bvh_walk": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I, _P],
     "rt_bvh_walk_tiled": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
     "rt_bvh_walk_rf_tiled": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
 }

@@ -263,27 +263,42 @@ def test_walk_matches_jax(torus, handler):
     assert 0 < work.nodes_read <= nodes.num_nodes and 0 < work.prims_read <= torus.num_prims
 
 
+def _tiles(o, d, excl, valid, r: int = 60):
+    """Flat rays (N a multiple of ``r``) as ``tile_rays``-shaped tiles:
+    payload [8, N // r, r] (excl as f32 in row 6, no cap), valid
+    [N // r, r]."""
+    t = o.shape[0] // r
+    payload = torch.cat(
+        [o.T.reshape(3, t, r), d.T.reshape(3, t, r), excl.to(torch.float32).reshape(1, t, r), o.new_zeros((1, t, r))]
+    )
+    return payload.contiguous(), valid.reshape(t, r)
+
+
 def test_wrapper_runs_the_twin_on_cpu_and_counts(torus):
-    """On CPU tensors the wrapper is the twin on the accel's binary
-    tree; the counts of a walk grow with its rays, and a ray batch of
-    none walks nothing."""
+    """On CPU tensors the wrapper's closest mode is the twin on the
+    accel's binary tree, on the tiles' rays (``tile_rays`` gives them
+    back); the counts of a walk grow with its rays, and tiles of no ray
+    walk nothing."""
     h = get_handler("bvh", backend="threaded")
     accel, arrays = h.build(torus, torus.pack(device="cpu"))
     n = accel.nodes
     tree = (n.node_min, n.node_max, n.hit_link, n.miss_link, n.leaf_count, n.leaf_start)
     assert all(x is y for x, y in zip(accel.walk.binary, _walk_args(arrays, tree), strict=True))
     o, d, excl, valid = (torch.from_numpy(x[70:]) for x in _rays(torus, seed=9, n=370))  # no NaN rays
+    payload, tv = _tiles(o, d, excl, valid)
+    assert all(torch.equal(x, y) for x, y in zip(bw.tile_rays(payload, tv)[:4], (o, d, excl, valid)))
     win = dict(t_min=CFG.t_min, t_max=CFG.t_max, eps=CFG.eps)
-    a = bw.bvh_walk(o, d, excl, valid, accel.walk, **win)
+    a = bw.bvh_walk_tiled(payload, tv, accel.walk, mode="closest", **win)
     b = bw.bvh_walk_reference(o, d, excl, valid, *_walk_args(arrays, tree), payload=False, **win)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x.reshape(-1), y) for x, y in zip(a, b, strict=True))
     half, full = bw.WalkWork(), bw.WalkWork()
     bw.bvh_walk_reference(o[:150], d[:150], excl[:150], valid[:150], *_walk_args(arrays, tree), payload=False, work=half, **win)
     bw.bvh_walk_reference(o, d, excl, valid, *_walk_args(arrays, tree), payload=False, work=full, **win)
     assert 0 < half.node_steps < full.node_steps and 0 < half.prim_tests < full.prim_tests
-    t, pid = bw.bvh_walk(o[:0], d[:0], excl[:0], valid[:0], accel.walk, **win)
-    assert t.shape == pid.shape == (0,)
-    assert bw.walk_name(False) == "bvh_walk[bvh]" and bw.walk_name(True) == "bvh_walk[rf]"
+    t, pid = bw.bvh_walk_tiled(payload[:, :0], tv[:0], accel.walk, mode="closest", **win)
+    assert t.shape == pid.shape == (0, 60)
+    assert bw.walk_name(False, "closest") == "bvh_walk[bvh,closest]"
+    assert bw.walk_name(True, "anyhit") == "bvh_walk[rf,anyhit]"
 
 
 def _intersect(handler, scene, **kwargs):

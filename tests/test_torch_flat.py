@@ -178,14 +178,18 @@ def test_ghost_blocks_camera_but_not_light():
     assert (both & (neg.sum(-1) > pos.sum(-1) + 1e-4)).any(), "the ghost cast a shadow"
 
 
-def test_torus_ghost_matches_stored_jax_frame():
+@pytest.mark.parametrize("handler", ["pbvh", "bvh"])
+def test_torus_ghost_matches_stored_jax_frame(handler):
+    """The flat path through the packet kernels (pbvh) and through the
+    threaded walk (bvh, the default handler) against the stored JAX
+    frame."""
     scene = torus_ghost()
     assert scene.num_prims == 6326 and not scene.pack(device="cpu").no_negative_materials
-    ours = port_frame(scene, 96, 72)
+    ours = port_frame(scene, 96, 72, handler)
     ref = np.load(TORUS_GHOST_FRAME)["frame"]
     np.testing.assert_allclose(ours, ref, rtol=0, atol=ATOL)
     # The view panel blocks the camera rays that reach it.
-    plain = port_frame(torus_scene(), 96, 72)
+    plain = port_frame(torus_scene(), 96, 72, handler)
     assert ((ours.sum(-1) == 0.0) & (plain.sum(-1) > 0.0)).sum() > 50
 
 

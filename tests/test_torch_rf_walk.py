@@ -183,11 +183,14 @@ def test_twin_on_the_edges():
     assert not pid.any()
 
 
-def test_flat_entry_is_the_tiled_entry():
-    """rf_bvh's ``intersect_fn`` (the flat path) is the tiled entry on
-    the rays padded into tiles: the same hits, ids in scene order."""
+@pytest.mark.parametrize("handler", ["bvh", "rf_bvh"])
+def test_flat_entry_is_the_tiled_entry(handler):
+    """A tree handler's ``intersect_fn`` (the flat path) is its tiled
+    closest entry on the rays padded into tiles: the same hits as brute
+    force, ids rows of the handler's arrays (scene order for rf_bvh,
+    leaf order for bvh)."""
     scene = torus_scene()
-    h = get_handler("rf_bvh")
+    h = get_handler(handler)
     accel, arrays = h.build(scene, scene.pack(device="cpu"))
     o, d, excl, valid = rays(scene, 300, seed=8, nan=0)
     t, pid = h.intersect_fn(accel, arrays, CFG)(o, d, excl, valid)

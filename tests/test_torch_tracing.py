@@ -260,14 +260,13 @@ def test_card_kernels_count_as_their_twins(handler, monkeypatch):
     r = renderer(handler.split("_")[0], device=dev, size=(96, 72), **kw)
     logs = {}
     for owner, name in (
-        (shade_tile, "shade_post"), (shade_tile, "shade_bounce"), (pt, "mt_trace"), (bvh_walk, "bvh_walk"),
-        (bvh_walk, "bvh_walk_tiled"),
+        (shade_tile, "shade_post"), (shade_tile, "shade_bounce"), (pt, "mt_trace"), (bvh_walk, "bvh_walk_tiled"),
     ):
         record(monkeypatch, owner, name, logs.setdefault(name, []))
     r.render_frame()
     monkeypatch.undo()
     fns = {"shade_post": shade_tile.shade_post, "shade_bounce": shade_tile.shade_bounce,
-           "mt_trace": pt.mt_trace, "bvh_walk": bvh_walk.bvh_walk, "bvh_walk_tiled": bvh_walk.bvh_walk_tiled}
+           "mt_trace": pt.mt_trace, "bvh_walk_tiled": bvh_walk.bvh_walk_tiled}
     assert any(logs.values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         tracing.begin(dev, 0)

@@ -406,13 +406,14 @@ def test_card_default_bvh_frames_equal_pbvh(size):
 def test_card_negative_material_default_bvh_equals_pbvh():
     """A negative-material scene within the cap (``torus_ghost()``, 6,326
     triangles) takes the flat path; through the default ``bvh`` it calls
-    kernel G's flat entry, and its frame is pbvh's bit for bit."""
+    kernel G's closest mode on the rays padded into tiles, and its frame
+    is pbvh's bit for bit."""
     from rt_rs_tpu_torch.ops import cuda
 
     dev = card()
     before = cuda.LAUNCHES.copy()
     walk = default_renderer("bvh", torus_ghost(), (384, 288), dev).render_frame()
-    assert (cuda.LAUNCHES - before)[bw.walk_name(False)] > 0
+    assert (cuda.LAUNCHES - before)[bw.walk_name(False, "closest")] > 0
     packet = default_renderer("pbvh", torus_ghost(), (384, 288), dev).render_frame()
     assert walk.mean() > 0.05
     assert torch.equal(walk, packet)
