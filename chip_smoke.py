@@ -9,7 +9,8 @@ Twelve paths are driven, the frame paths through ``Renderer(...,
 device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
 
 * ``torus``: ``torus_scene()`` (6,322 triangles), one resident table,
-  kernel-emitted rows and any-hit shadows;
+  the emit branch (closest hits, any-hit shadows; the shading kernels
+  read each hit's row from the shade table);
 * ``segmented``: scenes beyond the resident table split into segments
   (``streaming_mode="segmented"``, ``seg_order="auto"``), the gather
   branch with closest-hit shadows: ``torus_row(2)`` (2 segments) and
@@ -149,8 +150,8 @@ exits nonzero without printing a result):
    to its twin; every kernel F call also bit-equal to kernels D + C on
    its halves.
 4. Paths.  Launch counters are reset right before each path and read
-   right after it; every kernel of the path must have launched (the
-   ``chain`` path runs last, as phase 8).
+   right after it; every kernel of the path must have launched, and no
+   rows mode (ROWS_MODES; the ``chain`` path runs last, as phase 8).
    torus: the 96x72 frame against the JAX package's stored frame
    (tests/data/torch_port_torus_96x72.npz, atol 2e-5), 384x288 and
    1920x1080 frames and orbits (30 and 12 frames).  segmented and dma:
@@ -431,51 +432,62 @@ KERNELS = {
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith(("fma_peak", "mt_tpose", "mt_mxu")))
 # path -> the kernels it must launch
 PATHS = {
-    "torus": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
+    "torus": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     "segmented": ("refine_cull", "mt_trace[closest]", "shade_pre", "shade_post"),
     "dma": ("mt_stream", "shade_pre", "shade_post"),
-    "knobs": (
-        "refine_cull", "mt_trace[rows,early_exit]", "mt_trace[anyhit]",
-        "mt_trace[closest,early_exit]", "shade_bounce",
-    ),
+    "knobs": ("refine_cull", "mt_trace[anyhit]", "mt_trace[closest,early_exit]", "shade_bounce"),
     # shade.render through pbvh's flat entry: shading is torch glue
     "flat": ("mt_trace[closest]",),
     "probes": PROBE_KERNELS,
-    # threaded and "auto" bvh frames (the emit branch: kernel G's rows and
-    # any-hit modes), rf_bvh frames (the records walk's), and the packet
+    # threaded and "auto" bvh frames (the emit branch: kernel G's closest
+    # and any-hit modes), rf_bvh frames (the records walk's), and the packet
     # backend's edge-scene frames
     "bvh": (
-        "bvh_walk[bvh,rows]", "bvh_walk[bvh,anyhit]", "bvh_walk_rf[rows]", "bvh_walk_rf[anyhit]",
-        "shade_pre", "shade_post", "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]",
+        "bvh_walk[bvh,closest]", "bvh_walk[bvh,anyhit]", "bvh_walk_rf[closest]",
+        "bvh_walk_rf[anyhit]", "shade_pre", "shade_post", "refine_cull", "mt_trace[closest]",
+        "mt_trace[anyhit]",
     ),
     # Renderer(handler="lbvh"): the chunk table built on the card
-    "lbvh": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
+    "lbvh": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     # DynamicRenderer: the table rebuilt (or refit) on the card each frame
-    "dynamic": ("refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
+    "dynamic": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     # pbvh with tri_chunk_fine: refined batches on the tc = 16 table
-    "dual": (
-        "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre",
-        "shade_post",
-    ),
+    "dual": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     # the tools, the study's protocol, the viewer and the GIF (phase_tools):
     # pbvh frames, and the threaded walk on the checkpoints precompute writes
     "tools": (
-        "refine_cull", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre", "shade_post",
-        "bvh_walk[bvh,rows]",
+        "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post",
+        "bvh_walk[bvh,closest]",
     ),
     # multi-device rendering (phase_parallel): rank 0's launches of one
     # frame per case, image bands and scene shards on ranks sharing the card
     "parallel": (
-        "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]", "shade_pre",
-        "shade_post", "bvh_walk[bvh,rows]",
+        "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post",
+        "bvh_walk[bvh,closest]",
     ),
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
-        "refine_cull", "mt_trace[closest]", "mt_trace[rows]", "mt_trace[anyhit]",
-        "mt_trace[rows,early_exit]", "mt_stream", "shade_pre", "shade_post", "shade_bounce",
-        "bvh_walk[bvh,rows]",
+        "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "mt_trace[closest,early_exit]",
+        "mt_stream", "shade_pre", "shade_post", "shade_bounce", "bvh_walk[bvh,closest]",
     ),
 }
+# The rows modes, which no path launches: the shading kernels read each
+# hit's row from the shade table.  The compare and kernel-time phases
+# still check and time them, on their frames' closest-hit calls
+# (:func:`with_rows_calls`).
+ROWS_MODES = ("mt_trace[rows]", "mt_trace[rows,early_exit]", "bvh_walk[bvh,rows]", "bvh_walk_rf[rows]")
+
+
+def check_launches(path: str, counts) -> None:
+    """Every kernel of ``path`` launched, and no rows mode."""
+    missing = [k for k in PATHS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched on the path: {missing}")
+    rows = {k: counts[k] for k in ROWS_MODES if counts[k]}
+    if rows:
+        raise AssertionError(f"{path}: a rows mode launched on the path: {rows}")
+
+
 # The knobs path's torus and segmented frames: the fused bounce kernel
 # and early exit (Renderer kwargs, handler kwargs).
 KNOBS = ({"fuse_bounce": True}, {"early_exit": True})
@@ -719,6 +731,43 @@ class Recorder:
             setattr(mod, name, fn)
 
 
+class with_rows_calls:
+    """Within it, each closest-hit call of ``r``'s emit-branch frame (the
+    primaries and the continuations; the shadows take the any-hit entry)
+    is also made through the rows entry on the same rays, beside it, and
+    that result dropped: no frame makes a rows call (the shading kernels
+    read each hit's row from the shade table), so the compare and
+    kernel-time phases record the rows modes' calls this way.  The frame
+    is unchanged; ``r``'s entries are restored on exit."""
+
+    def __init__(self, r):
+        self.r, self.key = r, None
+
+    def __enter__(self):
+        r = self.r
+        if not hasattr(r, "_bound") or not r.arrays.no_negative_materials:
+            return r
+        h = r._frame_handler()
+        closest, rows, anyhit = r._bound(h)
+        if rows is None:
+            return r
+
+        def both(payload, valid, t_cap=None, **kw):
+            out = closest(payload, valid, t_cap=t_cap, **kw)
+            if t_cap is None:
+                rows(payload, valid, **kw)
+            return out
+
+        both.supports_refine = getattr(closest, "supports_refine", False)
+        self.key, self.saved = id(h), r._entries[id(h)]
+        r._entries[id(h)] = (both, rows, anyhit)
+        return r
+
+    def __exit__(self, *exc):
+        if self.key is not None:
+            self.r._entries[self.key] = self.saved
+
+
 def renderer(
     width: int, height: int, scene=None, knobs=None, handler="pbvh", **handler_kwargs
 ):
@@ -908,14 +957,10 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         )
         check_equal(f"{label} mt_stream#{i} vs the split mirror", kern, ps.mt_stream_split_reference(*a, **kw))
         check_equal(f"{label} mt_stream#{i} run twice", ps.mt_stream(*a, **kw), kern)
-    for name, kern_fn, twin_fn in (
-        ("shade_pre", st.shade_pre, st.shade_pre_reference),
-        ("shade_post", st.shade_post, st.shade_post_reference),
-        ("shade_bounce", st.shade_bounce, st.shade_bounce_reference),
-    ):
+    for name in ("shade_pre", "shade_post", "shade_bounce"):
         for i, (a, kw, _) in enumerate(calls[name]):
-            kern = kern_fn(*a, **kw)
-            err, ulp = check_ulp(f"{label} {name}#{i}", kern, twin_fn(*a, **kw))
+            kern = getattr(st, name)(*a, **kw)
+            err, ulp = check_ulp(f"{label} {name}#{i}", kern, st.twin(name, *a, **kw))
             errs[name] = max(errs[name], err)
             ulps[name] = max(ulps.get(name, 0), ulp)
             if name == "shade_bounce":  # kernel F = kernel D + kernel C
@@ -928,11 +973,13 @@ def check_post_synthetic(errs: dict) -> None:
     """Kernel D on post_cases' synthetic inputs (r 256 / 128, k 1-3,
     liveness all / none / alternating / single, both blocked modes, T = 8
     and 8 x 45; NaN directions, shadow distances at exactly t_min, t_max
-    and the cap) bit-equal to its twin, and on k = 5 (past the kernel's
-    light-count instantiations) and r = 37 (a subgroup's last block
-    partly filled); then with each input a view 4 bytes into its storage
-    (the kernel reads every plane with 4-byte loads, so any alignment is
-    taken, as before the redesign)."""
+    and the cap; rows at permuted pids of the table) bit-equal to its
+    twin, and on k = 5 (past the kernel's light-count instantiations)
+    and r = 37 (a subgroup's last block partly filled); then with each
+    plane a view 4 bytes into its storage (the kernel reads every plane
+    with 4-byte loads, so any alignment is taken, as before the
+    redesign), and a table 4 bytes in refused (its rows are read as
+    16-byte vectors)."""
     import dataclasses
 
     import torch
@@ -945,7 +992,7 @@ def check_post_synthetic(errs: dict) -> None:
     cases += [dataclasses.replace(c, r=37) for c in cases if c.tiles == 8 and c.r == 128]
     for case in cases:
         a, kw = pc.post_args(case, DEVICE)
-        err = check_equal(f"synthetic shade_post {case.name}", st.shade_post(*a, **kw), st.shade_post_reference(*a, **kw))
+        err = check_equal(f"synthetic shade_post {case.name}", st.shade_post(*a, **kw), st.twin("shade_post", *a, **kw))
         errs["shade_post"] = max(errs["shade_post"], err)
     a, kw = pc.post_args(next(c for c in cases if c.liveness == "alternating" and not c.blocked_mode), DEVICE)
     views = []
@@ -953,10 +1000,20 @@ def check_post_synthetic(errs: dict) -> None:
         v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
         v.copy_(x)
         views.append(v)
-    check_equal("synthetic shade_post, inputs at a 4-byte offset", st.shade_post(*views, **kw), st.shade_post(*a, **kw))
+    check_equal(
+        "synthetic shade_post, planes at a 4-byte offset", st.shade_post(a[0], *views[1:], **kw),
+        st.shade_post(*a, **kw),
+    )
+    try:
+        st.shade_post(*views, **kw)
+    except ValueError as e:
+        if "16-byte aligned" not in str(e):
+            raise
+    else:
+        raise AssertionError("shade_post took a table 4 bytes into its storage")
     say(
-        f"[compare] synthetic shade_post: {len(cases)} cases bit-equal to the twin; inputs "
-        f"at a 4-byte storage offset equal the aligned call"
+        f"[compare] synthetic shade_post: {len(cases)} cases bit-equal to the twin; planes "
+        f"at a 4-byte storage offset equal the aligned call; a table there is refused"
     )
 
 
@@ -1441,7 +1498,9 @@ def phase_compare():
     transposed-table canyon frame (640x480), of the threaded ``bvh``
     torus frame (384x288) and canyon frame (640x480) and of the
     ``rf_bvh`` torus and ``teapots3`` (``torus_row(3)``) frames
-    (384x288: the records walk), kernel vs twin."""
+    (384x288: the records walk), kernel vs twin; emit-branch frames with
+    the rows mode's calls beside their closest-hit calls
+    (:func:`with_rows_calls`)."""
     import torch
 
     from rt_rs_tpu_torch.ops import packet_trace as pt
@@ -1469,18 +1528,11 @@ def phase_compare():
     }
     for label, make in cases.items():
         r = make()
-        with Recorder() as rec:
+        with Recorder() as rec, with_rows_calls(r):
             r.render_frame()
         calls = rec.calls
         t0 = time.perf_counter()
         replay(label, calls, errs, ulps)
-        if label == "torus":  # the primary rows call, also in closest-hit mode
-            a, kw, _ = calls["mt_trace"][0]
-            kw0 = dict(kw, mode="closest")
-            check_equal(
-                "torus mt_trace[closest]#0",
-                pt.mt_trace(*a[:4], **kw0), pt.mt_trace_reference(*a[:4], **kw0),
-            )
         if calls["mt_tpose"]:
             say(f"[compare] {label} mt_tpose calls: " + "; ".join(list_stats(a[3]) for a, _, _ in calls["mt_tpose"]))
         n_seg, n_stream = check_against_flat(label, calls)
@@ -2187,7 +2239,7 @@ def phase_paths(card: str):
     import torch
 
     counts, frame_ms, first, kept = {}, {}, {}, {}
-    for path, needed in PATHS.items():
+    for path in PATHS:
         if path in ("chain", "tools", "parallel"):  # phase_chain, phase_tools, phase_parallel
             continue
         t0 = time.perf_counter()
@@ -2210,9 +2262,7 @@ def phase_paths(card: str):
             ms, first[path], kept[path] = drive_path(path, card)
         counts[path] = read_counts()
         frame_ms.update(ms)
-        missing = [k for k in needed if counts[path][k] == 0]
-        if missing:
-            raise AssertionError(f"{path}: kernels never launched on the path: {missing}")
+        check_launches(path, counts[path])
         say(f"[launches] {path}: {counts[path]} ({time.perf_counter() - t0:.1f} s)")
     a, b = first["segmented"]["640x480"], first["dma"]["640x480"]
     if not torch.equal(a, b):
@@ -2402,9 +2452,7 @@ def phase_parallel(card: str, errs: dict) -> tuple[dict[str, int], dict]:
                 f"({w}x{h}); luminance {lum:.6f} on every rank (single {single:.6f}); "
                 f"{got[0]['ms']:.3f} ms/frame on rank 0 ({note}); launches {dict((k, v) for k, v in got[0]['launches'].items() if v)}; {card}"
             )
-    missing = [k for k in PATHS["parallel"] if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"parallel: kernels never launched on the path: {missing}")
+    check_launches("parallel", counts)
     rank0 = runs[0][1][0]
     for k, v in rank0["errs"].items():
         errs[k] = max(errs[k], v)
@@ -2557,11 +2605,11 @@ def tools_precompute() -> list:
     w, h = TOOLS_SIZE
     size = ["--width", str(w), "--height", str(h), "--device", DEVICE]
     for ckpt in ("card.bvh.json", "host.bvh.json"):
-        before = cuda.LAUNCHES["bvh_walk[bvh,rows]"]
+        before = cuda.LAUNCHES["bvh_walk[bvh,closest]"]
         rc = load.main(["--path", "row.json", "--handler-bvh", ckpt, *size, "--out", f"{ckpt}.png"])
         if rc != 0:
             raise AssertionError(f"load --handler-bvh {ckpt} exited {rc}")
-        if cuda.LAUNCHES["bvh_walk[bvh,rows]"] == before:
+        if cuda.LAUNCHES["bvh_walk[bvh,closest]"] == before:
             raise AssertionError(f"load --handler-bvh {ckpt}: the threaded walk never launched")
     frames, calls = {}, None
     for name in ("card", "host"):
@@ -2802,9 +2850,7 @@ def phase_tools(card: str, frame_ms: dict, errs: dict) -> tuple[dict[str, int], 
         recorded += tools_viewer()
         gif_ran = tools_gif()
         counts = {k: in_process[k] + v for k, v in read_counts().items()}
-    missing = [k for k in PATHS["tools"] if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"tools: kernels never launched on the path: {missing}")
+    check_launches("tools", counts)
     ulps: dict[str, int] = {}
     for label, calls in recorded:  # after the counts: these launches compare
         replay(label, calls, errs, ulps)
@@ -2960,9 +3006,7 @@ def phase_chain(card: str) -> tuple[dict[str, int], dict]:
             f"= the loop's{extra}"
         )
         del r
-    missing = [x for x in PATHS["chain"] if total[x] == 0]
-    if missing:
-        raise AssertionError(f"chain: kernels never launched on the path: {missing}")
+    check_launches("chain", total)
     say(f"[launches] chain: {dict(+total)}")
     return {x: total[x] for x in KERNELS}, summary
 
@@ -3070,16 +3114,23 @@ def tf32_ops(name: str, a, kw) -> int:
     return mxu_pairs(a) * MXU_PRODUCT_OPS * (3 if precision == "high" else 1)
 
 
+def twin_of(name: str):
+    """The twin of shading kernel ``name`` on the wrapper's arguments."""
+    from rt_rs_tpu_torch.ops import shade_tile as st
+
+    return lambda *a, **kw: st.twin(name, *a, **kw)
+
+
 def bounce_halves(a, kw):
     """A recorded shade_bounce call's arguments as its two halves ->
     ((shade_post args, kwargs), (shade_pre args, kwargs))."""
     from rt_rs_tpu_torch.ops import shade_tile as st
 
-    b = bind(st.shade_bounce_reference, a, kw)
+    b = bind(st.shade_bounce, a, kw)
     live, lights = b["live_sg2"], b["lights"]
-    post = [b[x] for x in ("rows", "payload", "t", "active_f", "sh_t", "sh_id_f", "caps")]
+    post = [b[x] for x in ("table", "pid", "payload", "t", "active_f", "sh_t", "sh_id_f", "caps")]
     post_kw = {x: b[x] for x in ("first_bounce", "t_min", "t_max", "blocked_mode")}
-    pre = [b[x] for x in ("rows2", "payload2", "t2", "pid2_f")]
+    pre = [b[x] for x in ("table", "pid2", "payload2", "t2")]
     return (
         ((*post, live[0], lights), post_kw),
         ((*pre, live[1], lights), {"emit_next": b["emit_next"]}),
@@ -3110,6 +3161,8 @@ def rf_walk_work(a, kw):
 
 def work(name: str, a, kw) -> tuple[int, int]:
     """-> (f32 operations, bytes) one recorded call needs."""
+    import torch
+
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
@@ -3207,25 +3260,26 @@ def work(name: str, a, kw) -> tuple[int, int]:
         ops = chunk_tests * tc * r * MT_OPS
         nbytes = n_tiles * r * (7 * 4 + 8) + _bytes(table, words, blockids, counts)
     elif name in ("shade_pre", "shade_post"):
-        fn = st.shade_pre_reference if name == "shade_pre" else st.shade_post_reference
-        b = bind(fn, a, kw)
-        t, live_sg, lights = b["t"], b["live_sg"], b["lights"]
+        b = bind(getattr(st, name), a, kw)
+        t, pid, live_sg, lights = b["t"], b["pid"], b["live_sg"], b["lights"]
         n_tiles, r = t.shape
         k = lights.shape[0]
-        live = min(n_tiles, int((live_sg != 0).sum()) * st.SUBGROUP) * r
+        lit = st._live_mask(live_sg, n_tiles).expand(n_tiles, r)
+        live = int(lit.sum())
+        # the table's rows read at least once each: 96 B (vectors 0-4 and
+        # 6) for shade_pre, 112 B (0-6) for shade_post
+        rows = int(torch.unique(pid[lit]).numel()) * (96 if name == "shade_pre" else 112)
         if name == "shade_pre":
             nxt = bool(b["emit_next"])
             ops = live * (HIT_NORMAL_OPS + k * PRE_LIGHT_OPS + (PRE_NEXT_OPS if nxt else 0))
-            reads = live * (19 + 6 + 2) * 4  # rows 0-17 and 24, rays, t, pid
+            reads = live * (1 + 6 + 1) * 4  # pid, rays, t
             writes = n_tiles * r * (10 * k + (8 if nxt else 0)) * 4
         else:
             per_light = 1 if b["blocked_mode"] else 3
             ops = live * (HIT_NORMAL_OPS + k * POST_LIGHT_OPS + POST_TAIL_OPS)
-            # rows 0-24 (albedo.z, row 23, is read after bounce 0 only), rays, t, active
-            rows = 24 if b["first_bounce"] else 25
-            reads = live * (rows + 6 + 2 + k * per_light) * 4
+            reads = live * (1 + 6 + 2 + k * per_light) * 4  # pid, rays, t, active
             writes = n_tiles * r * 3 * 4
-        nbytes = reads + writes + _bytes(live_sg, lights)
+        nbytes = rows + reads + writes + _bytes(live_sg, lights)
     else:
         raise KeyError(name)
     return ops, nbytes
@@ -3290,12 +3344,12 @@ def phase_ab(card: str) -> tuple[dict, dict]:
             f"order {AB_ORDER})"
         )
         if name.startswith("early_exit"):
-            with Recorder() as rec:
+            with Recorder() as rec, with_rows_calls(rs[True]):
                 rs[True].render_frame()
             listed = tested = items = 0
             for a, kw, _ in rec.calls["mt_trace"]:
                 b = bind(pt.mt_trace_reference, a, kw)
-                if b["ed"] is not None:
+                if b["ed"] is not None and b["mode"] == "closest":  # the frame's own calls
                     listed += int(b["counts"].sum())
                     tested += int(pt.entries_tested(**b).sum())
                     items += int(pt.exit_entries_tested(**b).sum())
@@ -3529,17 +3583,18 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             ps.mt_stream, ps.mt_stream_reference,
             max(dma["mt_stream"], key=lambda c: c[0][0].shape[1]), 1,
         ),
-        "shade_pre": (st.shade_pre, st.shade_pre_reference, torus["shade_pre"][0], 5),
-        "shade_post": (st.shade_post, st.shade_post_reference, torus["shade_post"][0], 5),
+        "shade_pre": (st.shade_pre, twin_of("shade_pre"), torus["shade_pre"][0], 5),
+        "shade_post": (st.shade_post, twin_of("shade_post"), torus["shade_post"][0], 5),
         "mt_trace[closest,early_exit]": (
             pt.mt_trace, pt.mt_trace_reference,
             max((c for c in seg_ee["mt_trace"] if c[1]["mode"] == "closest"), key=entries), 2,
         ),
         "mt_trace[rows,early_exit]": (
-            pt.mt_trace, pt.mt_trace_reference, torus_1080_ee["mt_trace"][0], 1,
+            pt.mt_trace, pt.mt_trace_reference,
+            next(c for c in torus_1080_ee["mt_trace"] if c[1]["mode"] == "rows"), 1,
         ),
         "shade_bounce": (
-            st.shade_bounce, st.shade_bounce_reference, knobs["shade_bounce"][0], 5,
+            st.shade_bounce, twin_of("shade_bounce"), knobs["shade_bounce"][0], 5,
         ),
         # the threaded canyon frame's primary rays in closest mode
         "bvh_walk[bvh,closest] canyon 640x480": (
@@ -3637,24 +3692,26 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         f"[time] mt_trace[closest] on mt_tpose's tc = 64 lists: kernel {b_ms:.4f} ms (device, "
         f"profiler); mt_tpose {times['mt_tpose'][0]:.4f} ms, {times['mt_tpose'][0] / b_ms:.3f} of it; {card}"
     )
-    with Recorder() as rec:
-        kept["torus"]["1920x1080"].render_frame()
+    with Recorder() as rec, with_rows_calls(kept["torus"]["1920x1080"]) as torus_1080:
+        torus_1080.render_frame()
     # shade_post at the torus 1080p frame's shapes (bounce 0's call), where
     # its body and not one launch's ramp sets its time.
     a, kw, _ = rec.calls["shade_post"][0]
+    t_1080 = bind(st.shade_post, a, kw)["t"]
     k_ms = profiled(lambda: st.shade_post(*a, **kw))[1]
     b_ms, by = bound("shade_post", a, kw)
-    t_ms = time_ms(lambda: st.shade_post_reference(*a, **kw), 2)
+    t_ms = time_ms(lambda: st.twin("shade_post", *a, **kw), 2)
     times["shade_post 1920x1080"] = (k_ms, t_ms, b_ms, by, None)
     say(
-        f"[time] shade_post torus 1920x1080 bounce 0 ({a[2].shape[0]} tiles): kernel {k_ms:.4f} "
+        f"[time] shade_post torus 1920x1080 bounce 0 ({t_1080.shape[0]} tiles): kernel {k_ms:.4f} "
         f"ms (device, profiler), twin {t_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
         f"{b_ms / k_ms:.2f} of the bound; {card}"
     )
     # shade_post's launch floor: an empty kernel on its grid, timed as
     # shade_post is, at the 1080p call's shapes and the 384x288 call's.
     floors, floor = {}, floor_launcher()
-    for label, t_in in (("1920x1080", a[2]), ("384x288", picks["shade_post"][2][0][2])):
+    t_384 = bind(st.shade_post, *picks["shade_post"][2][:2])["t"]
+    for label, t_in in (("1920x1080", t_1080), ("384x288", t_384)):
         floors[label] = profiled(lambda: floor(t_in))[1]
     times["shade_post floor"] = (floors["1920x1080"], floors["384x288"])
     for label, (ms_, bound_ms) in (
@@ -3662,7 +3719,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         ("1920x1080", (k_ms, b_ms)),
     ):
         floor = floors[label]
-        n_tiles, r = (a[2] if label == "1920x1080" else picks["shade_post"][2][0][2]).shape
+        n_tiles, r = (t_1080 if label == "1920x1080" else t_384).shape
         blocks = n_tiles // st.SUBGROUP * -(-st.SUBGROUP * r // st.POST_RAYS)
         say(
             f"[time] shade_post at {label}: kernel {ms_:.4f} ms, bytes bound {bound_ms:.4f} ms, "

@@ -65,15 +65,17 @@
 // the rays walk and summed in one block reduction.
 //
 // What bounds it on this card: latency.  A ray reads its 7 or 8 words
-// and writes 1-2 (or 34 with its row), and the tree, prims and shade
-// table (a few MB) stay in L2, but each step waits on the load before
-// it.  The binary walk made ~17 dependent node steps a primary ray,
+// and writes 2 (closest: t, pid) or one byte (any-hit), the modes the
+// frames call; the rows mode writes 34 words a slot (1.06 GB a 1080p
+// frame of four calls), and no frame calls it: the shading kernels read
+// each hit's row from the table by pid.  The tree and prims (a few MB)
+// stay in L2, but each step waits on the load before it.  The binary walk made ~17 dependent node steps a primary ray,
 // each two round trips (the box, then the link); here a node is one
 // 128-byte line of independent 16-byte loads (box and links together),
 // ~4 of them a torus primary ray, and a prim three 16-byte loads.  A
 // call of ~100K rays is one wave and lasts as long as its slowest
 // warp's chain of such loads.  The rows epilogue is 8 independent
-// 16-byte loads of one L2-resident row and 32 coalesced stores.
+// 16-byte loads of one L2-resident row and 32 coalesced stores a ray.
 // The loop is "while-while": nodes until the ray holds a leaf or is
 // done, then the leaf's prims, so a warp whose lanes are in different
 // phases issues each body once per phase change, not every step.  No

@@ -3,25 +3,56 @@
 // all three run the same code and the fused kernel is bit-equal to the
 // two it fuses.  Each body handles ray `idx` of the component-major
 // planes (plane = T * r floats); `live` is its 8-tile subgroup's flag:
-// a dead subgroup writes zeros in every output, as on the TPU.  The
-// post body's arithmetic (shade_post_color) takes its operands through
-// an accessor, so that kernel D can stage them in shared memory while
-// kernel F reads them from global memory, with the same operations.
+// a dead subgroup writes zeros in every output, as on the TPU.  A ray's
+// hit row is read from the resident shade table [P + 1, 32] at its pid
+// (TableRow); the frame writes no [32, T, r] plane of rows.  The post
+// body's arithmetic (shade_post_color) takes its operands through an
+// accessor, so that kernel D can load them into registers in its own
+// order while kernel F reads them as it goes, with the same operations.
 #pragma once
 
 #include "common.cuh"
 
+// Shade-table columns a kernel reads, as a mask of the row's 16-byte
+// vectors (vector q holds columns 4q..4q+3): shade_pre reads columns
+// 0-17 and 24 (vectors 0-4 and 6), shade_post columns 0-24 (0-6).
+constexpr unsigned kPreVectors = 0x5Fu;
+constexpr unsigned kPostVectors = 0x7Fu;
+
+// One hit's row of the shade table [P + 1, 32] (128-byte rows, the
+// table 16-byte aligned: the wrappers check it), the vectors of VECTORS
+// read with one 16-byte load each.  The table is a few MB at most and
+// stays in L2 across a frame's calls.  row(c) is column c.
+template <unsigned VECTORS>
+struct TableRow {
+  float v[28];
+
+  __device__ __forceinline__ void load(const float* __restrict__ table, int pid) {
+    const float4* src = reinterpret_cast<const float4*>(table + (long)pid * 32);
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const float4 x = (VECTORS >> q & 1u) ? __ldg(src + q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * q + 0] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  }
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
+};
+
 // shade_pre for one ray (rt_rs_tpu/ops/pallas/shade_tile.py::
-// _pre_subgroup): the hit point and interpolated unit normal; for each
-// light li the shadow ray (origin offset 0.001 along +-n toward the
-// light's side, unit direction, excl = pid, row 7 = the light distance)
-// at tile li * T + tile of sh_pay [8, k * T, r], its cap (= the
-// distance) and its contribution mask (the light can change the
-// colour: ls > 0 and (diffuse side > 0 or specular sdot > 0 or spec
-// power <= 0)); then, with emit_next, the reflected continuation ray.
+// _pre_subgroup) on its hit row table[pid]: the hit point and
+// interpolated unit normal; for each light li the shadow ray (origin
+// offset 0.001 along +-n toward the light's side, unit direction, excl =
+// pid, row 7 = the light distance) at tile li * T + tile of sh_pay
+// [8, k * T, r], its cap (= the distance) and its contribution mask
+// (the light can change the colour: ls > 0 and (diffuse side > 0 or
+// specular sdot > 0 or spec power <= 0)); then, with emit_next, the
+// reflected continuation ray.
 __device__ __forceinline__ void shade_pre_ray(
-    const float* __restrict__ rows, const float* __restrict__ payload,
-    const float* __restrict__ t_in, const float* __restrict__ pid_f,
+    const float* __restrict__ table, const int* __restrict__ pid_in,
+    const float* __restrict__ payload, const float* __restrict__ t_in,
     const float* __restrict__ lights, int k, long plane, long idx, bool live,
     int emit_next, float* __restrict__ sh_pay, float* __restrict__ caps,
     float* __restrict__ masks, float* __restrict__ next) {
@@ -37,15 +68,18 @@ __device__ __forceinline__ void shade_pre_ray(
     return;
   }
 
-  auto row = [&](int c) { return rows[c * plane + idx]; };
+  const int pid_i = pid_in[idx];
   const float ox = payload[0 * plane + idx];
   const float oy = payload[1 * plane + idx];
   const float oz = payload[2 * plane + idx];
   const float dx = payload[3 * plane + idx];
   const float dy = payload[4 * plane + idx];
   const float dz = payload[5 * plane + idx];
-  const float pid = pid_f[idx];
-  const HitNormal h = hit_normal(row, ox, oy, oz, dx, dy, dz, t_in[idx]);
+  const float t = t_in[idx];
+  TableRow<kPreVectors> row;
+  row.load(table, pid_i);
+  const float pid = (float)pid_i;
+  const HitNormal h = hit_normal(row, ox, oy, oz, dx, dy, dz, t);
   const float spec_pow = row(24);
 
   for (int li = 0; li < k; ++li) {
@@ -106,14 +140,15 @@ __device__ __forceinline__ void shade_pre_ray(
   }
 }
 
-// Where shade_post_color reads a ray's operands.  PostGlobal reads them
-// from the component-major planes in global memory (kernel F); kernel D
-// stages them in shared memory first (shade_post.cu::PostStaged).  An
-// accessor gives row(c) (shade-table column c), pay(c) (payload row c),
-// t(), active(), sh_t(li) / sh_id(li) / cap(li) of light li and
+// Where shade_post_color reads a ray's operands.  PostGlobal reads the
+// hit row into registers and the rest from the component-major planes
+// in global memory where the arithmetic uses them (kernel F); kernel D
+// loads every operand into registers first (shade_post.cu::PostRegs).
+// An accessor gives row(c) (shade-table column c), pay(c) (payload row
+// c), t(), active(), sh_t(li) / sh_id(li) / cap(li) of light li and
 // light(li, c) of the lights [k, 4].
 struct PostGlobal {
-  const float* __restrict__ rows;
+  TableRow<kPostVectors> rw;
   const float* __restrict__ payload;
   const float* __restrict__ t_in;
   const float* __restrict__ active_f;
@@ -123,7 +158,7 @@ struct PostGlobal {
   const float* __restrict__ lights;
   long plane, idx;
 
-  __device__ __forceinline__ float row(int c) const { return rows[c * plane + idx]; }
+  __device__ __forceinline__ float row(int c) const { return rw(c); }
   __device__ __forceinline__ float pay(int c) const { return payload[c * plane + idx]; }
   __device__ __forceinline__ float t() const { return t_in[idx]; }
   __device__ __forceinline__ float active() const { return active_f[idx]; }
@@ -193,6 +228,7 @@ __device__ __forceinline__ void shade_post_color(
   // albedo.z attenuation for bounce > 0 (compute.wgsl:258-265)
   const float scale = first_bounce ? 1.0f : row(23);
   const bool act = in.active() > 0.0f;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float contrib = (row(18 + c) * da + sa) * scale;
     color[c] = act ? contrib : 0.0f;
@@ -200,9 +236,11 @@ __device__ __forceinline__ void shade_post_color(
 }
 
 // shade_post for ray `idx` of the planes in global memory (kernel F):
-// shade_post_color where `live`, zeros where not; out is [3, T, r].
+// shade_post_color on its hit row table[pid] where `live`, zeros where
+// not; out is [3, T, r].
 __device__ __forceinline__ void shade_post_ray(
-    const float* __restrict__ rows, const float* __restrict__ payload,
+    const float* __restrict__ table, const int* __restrict__ pid,
+    const float* __restrict__ payload,
     const float* __restrict__ t_in, const float* __restrict__ active,
     const float* __restrict__ sh_t, const float* __restrict__ sh_id,
     const float* __restrict__ caps, const float* __restrict__ lights, int k,
@@ -212,7 +250,8 @@ __device__ __forceinline__ void shade_post_ray(
     for (int c = 0; c < 3; ++c) out[c * plane + idx] = 0.0f;
     return;
   }
-  const PostGlobal in{rows, payload, t_in, active, sh_t, sh_id, caps, lights, plane, idx};
+  PostGlobal in{{}, payload, t_in, active, sh_t, sh_id, caps, lights, plane, idx};
+  in.rw.load(table, pid[idx]);
   float color[3];
   shade_post_color(in, k, first_bounce, blocked_mode, t_min, t_max, color);
   for (int c = 0; c < 3; ++c) out[c * plane + idx] = color[c];

@@ -7,25 +7,30 @@
 // shade_body.cuh, shared with kernel F).  Rays of a subgroup with no
 // live ray get zeros.
 //
-// Layouts: rows [32, T, r], payload [8, T, r], t / active [T, r],
-// sh_t / sh_id / caps [k, T, r], live_sg [T / 8] i32, lights [k, 4]
-// -> out [3, T, r]; T is a multiple of 8.  While the trace buffer's flag
+// Layouts: table [P + 1, 32] (the scene's shade table, 16-byte
+// aligned), pid [T, r] i32 (each ray's hit, 0 for a dead ray), payload
+// [8, T, r], t / active [T, r], sh_t / sh_id / caps [k, T, r], live_sg
+// [T / 8] i32, lights [k, 4] -> out [3, T, r]; T is a multiple of 8.  While the trace buffer's flag
 // is set (tracing.py), block 0 adds T * r to counter + 1 (slots.b) and
 // each live block its rays with active set to counter (live_rays.b).
 //
-// What bounds it on this card: memory.  A ray reads rows 0-24 (23 only
-// after bounce 0), 6 payload rows, t, active and 1 (blocked_mode) or 3
-// floats a light, and writes 3 floats, at ~50 flops a light: far below
-// the balance point.  At 384x288 (one partial wave) a call is as long as
-// its chain of round trips, so the design keeps that chain short:
+// What bounds it on this card: memory.  A ray of a live subgroup reads
+// pid, 6 payload rows, t, active and 1 (blocked_mode) or 3 floats a
+// light from the planes, and 112 B of its table row (vectors 0-6:
+// columns 0-27), and writes 3 floats, at ~50 flops a light: far below
+// the balance point.  The table stays in L2 (0.8 MB for 6,322
+// triangles), so DRAM sees (9 + K or 3 K) floats in and 3 out a ray.  At
+// 384x288 (one partial wave) a call is as long as its chain of round
+// trips, so the design keeps that chain short:
 //
 // * A block covers POST_RAYS consecutive rays of one 8-tile subgroup, so
 //   its liveness is one word, uniform across the block, read before any
 //   data: a dead block writes its zeros with 16-byte stores and reads
 //   nothing else.
-// * A live thread issues every load of its ray (25 + 6 + 2 + K or 3 K
-//   planes) before any arithmetic, into registers: one round trip for
-//   all its bytes after the flag's.  The kernel is instantiated for each
+// * A live thread issues every load of its planes (pid, 6 payload rows,
+//   t, active, K or 3 K) before any arithmetic, into registers, then its
+//   row's 7 vectors, which depend on pid: two round trips for all its
+//   bytes after the flag's.  The kernel is instantiated for each
 //   light count K = 1..4 and both modes, so a thread holds exactly the
 //   planes its call reads; other counts take K = 0, which reads the light
 //   planes where the arithmetic uses them.
@@ -57,14 +62,15 @@ template <int K, int BLOCKED>
 struct PostRegs {
   static constexpr int KS = K > 0 ? K : 1;
   static constexpr int KC = K > 0 && !BLOCKED ? K : 1;
-  float r[25], p[6], tt, act, st[KS], sid[KC], cp[KC];
+  TableRow<kPostVectors> rw;
+  float p[6], tt, act, st[KS], sid[KC], cp[KC];
   const float* __restrict__ sh_t_g;
   const float* __restrict__ sh_id_g;
   const float* __restrict__ caps_g;
   const float* __restrict__ lights;
   long plane, idx;
 
-  __device__ __forceinline__ float row(int c) const { return r[c]; }
+  __device__ __forceinline__ float row(int c) const { return rw(c); }
   __device__ __forceinline__ float pay(int c) const { return p[c]; }
   __device__ __forceinline__ float t() const { return tt; }
   __device__ __forceinline__ float active() const { return act; }
@@ -82,13 +88,13 @@ struct PostRegs {
 
 template <int K, int BLOCKED>
 __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
-    const float* __restrict__ rows, const float* __restrict__ payload,
-    const float* __restrict__ t_in, const float* __restrict__ active,
-    const float* __restrict__ sh_t, const float* __restrict__ sh_id,
-    const float* __restrict__ caps, const int* __restrict__ live_sg,
-    const float* __restrict__ lights, int k, int n_tiles, int r,
-    int first_bounce, float t_min, float t_max, float* __restrict__ out,
-    long long* __restrict__ trace, int counter) {
+    const float* __restrict__ table, const int* __restrict__ pid,
+    const float* __restrict__ payload, const float* __restrict__ t_in,
+    const float* __restrict__ active, const float* __restrict__ sh_t,
+    const float* __restrict__ sh_id, const float* __restrict__ caps,
+    const int* __restrict__ live_sg, const float* __restrict__ lights, int k,
+    int n_tiles, int r, int first_bounce, float t_min, float t_max,
+    float* __restrict__ out, long long* __restrict__ trace, int counter) {
   const long plane = (long)n_tiles * r;
   const int sg_rays = SUBGROUP_TILES * r;
   const int per_sg = (sg_rays + POST_RAYS - 1) / POST_RAYS;
@@ -112,9 +118,7 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
   const bool mine = (int)threadIdx.x < n;
   const long idx = ray0 + (mine ? threadIdx.x : 0);
   PostRegs<K, BLOCKED> in;
-#pragma unroll
-  for (int c = 0; c < 25; ++c)  // row 23 (albedo.z) is read after bounce 0 only
-    in.r[c] = (c == 23 && first_bounce) ? 0.0f : rows[c * plane + idx];
+  const int hit = pid[idx];
 #pragma unroll
   for (int c = 0; c < 6; ++c) in.p[c] = payload[c * plane + idx];
   in.tt = t_in[idx];
@@ -129,6 +133,7 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
       }
     }
   }
+  in.rw.load(table, hit);
   in.sh_t_g = sh_t, in.sh_id_g = sh_id, in.caps_g = caps, in.lights = lights;
   in.plane = plane, in.idx = idx;
   float color[3];
@@ -142,9 +147,10 @@ __global__ void __launch_bounds__(POST_RAYS) shade_post_kernel(
 }
 
 template <int BLOCKED>
-static void launch(unsigned blocks, cudaStream_t stream, const float* rows,
-                   const float* payload, const float* t_in, const float* active,
-                   const float* sh_t, const float* sh_id, const float* caps,
+static void launch(unsigned blocks, cudaStream_t stream, const float* table,
+                   const int* pid, const float* payload, const float* t_in,
+                   const float* active, const float* sh_t, const float* sh_id,
+                   const float* caps,
                    const int* live_sg, const float* lights, int k, int n_tiles,
                    int r, int first_bounce, float t_min, float t_max,
                    float* out, long long* trace, int counter) {
@@ -155,17 +161,18 @@ static void launch(unsigned blocks, cudaStream_t stream, const float* rows,
     case 3: kernel = shade_post_kernel<3, BLOCKED>; break;
     case 4: kernel = shade_post_kernel<4, BLOCKED>; break;
   }
-  kernel<<<blocks, POST_RAYS, 0, stream>>>(rows, payload, t_in, active, sh_t,
-                                            sh_id, caps, live_sg, lights, k,
-                                            n_tiles, r, first_bounce, t_min,
+  kernel<<<blocks, POST_RAYS, 0, stream>>>(table, pid, payload, t_in, active,
+                                            sh_t, sh_id, caps, live_sg, lights,
+                                            k, n_tiles, r, first_bounce, t_min,
                                             t_max, out, trace, counter);
 }
 
-RT_EXPORT int rt_shade_post(const float* rows, const float* payload,
-                            const float* t_in, const float* active,
-                            const float* sh_t, const float* sh_id,
-                            const float* caps, const int* live_sg,
-                            const float* lights, int k, int n_tiles, int r,
+RT_EXPORT int rt_shade_post(const float* table, const int* pid,
+                            const float* payload, const float* t_in,
+                            const float* active, const float* sh_t,
+                            const float* sh_id, const float* caps,
+                            const int* live_sg, const float* lights, int k,
+                            int n_tiles, int r,
                             int first_bounce, int blocked_mode, float t_min,
                             float t_max, float* out, long long* trace,
                             int counter, cudaStream_t stream) {
@@ -173,8 +180,8 @@ RT_EXPORT int rt_shade_post(const float* rows, const float* payload,
   const long blocks = (long)(n_tiles / SUBGROUP_TILES) * per_sg;
   if (blocks > 0)
     (blocked_mode ? launch<1> : launch<0>)(
-        (unsigned)blocks, stream, rows, payload, t_in, active, sh_t, sh_id,
-        caps, live_sg, lights, k, n_tiles, r, first_bounce, t_min, t_max, out,
+        (unsigned)blocks, stream, table, pid, payload, t_in, active, sh_t,
+        sh_id, caps, live_sg, lights, k, n_tiles, r, first_bounce, t_min, t_max, out,
         trace, counter);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ ray tile ``r`` (256: the resident tiles; 128: ``"dma"`` and the flat
 adapter), the light count ``k``, the subgroups' liveness (all, none,
 alternating, a single live subgroup), ``blocked_mode`` and the tile count
 ``T`` (a multiple of 8); ``first_bounce`` follows ``k``, so both ways
-occur.  The rays hit a well-shaped triangle (unit legs at right angles)
+occur.  Each ray's hit row lies at its pid in a shade table of one row
+a ray (pids a seeded permutation, row 0 zeros).  The rays hit a
+well-shaped triangle (unit legs at right angles)
 inside it, with corner normals near the face normal, as real hits on a
 smooth mesh do: the JAX kernel runs on XLA:CPU, which
 contracts multiplies and adds into FMAs, and an ill-conditioned hit
@@ -87,9 +89,9 @@ def _unit(rng, n: int) -> np.ndarray:
 
 
 def post_arrays(case: PostCase, seed: int = SEED) -> tuple[tuple[np.ndarray, ...], dict]:
-    """-> (rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg,
-    lights) as float32 / int32 arrays, and shade_post's keyword
-    arguments."""
+    """-> (table, pid, payload, t, active_f, sh_t, sh_id_f, caps,
+    live_sg, lights) as float32 / int32 arrays, shade_post's arguments,
+    and its keyword arguments."""
     rng = np.random.default_rng([seed, case.r, case.k, case.tiles])
     T, r, k = case.tiles, case.r, case.k
     n = T * r
@@ -141,8 +143,12 @@ def post_arrays(case: PostCase, seed: int = SEED) -> tuple[tuple[np.ndarray, ...
         sh_t[:, at_cap] = caps[:, at_cap].astype(np.float32)
         sh_id[:, (idx % 7 == 1) | (idx % 11 == 2) | at_cap] = 7
     f32 = lambda x, *shape: np.ascontiguousarray(x, dtype=np.float32).reshape(shape)  # noqa: E731
+    pid = rng.permutation(n) + 1
+    table = np.zeros((n + 1, 32))
+    table[pid] = rows.T
     arrays = (
-        f32(rows, 32, T, r), f32(payload, 8, T, r), f32(t, T, r), f32(active, T, r),
+        f32(table, n + 1, 32), pid.astype(np.int32).reshape(T, r), f32(payload, 8, T, r),
+        f32(t, T, r), f32(active, T, r),
         f32(sh_t, k, T, r), f32(sh_id, k, T, r), f32(caps.astype(np.float32), k, T, r),
         live_words(case.liveness, T // 8), f32(lights, k, 4),
     )

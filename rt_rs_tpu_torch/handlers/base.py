@@ -78,7 +78,9 @@ class IntrsHandler(abc.ABC):
     def intersect_tiled_rows_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):
         """Closest hit that also emits the winners' shade-table rows:
         ``(payload, valid, t_cap=None) -> (t, pid, rows [32, T, r])``.
-        ``None`` (default) = unsupported."""
+        ``None`` (default) = unsupported.  A frame takes the emit branch
+        where it is offered, but calls the closest-hit entry: the
+        shading kernels read each hit's row from the shade table."""
         return None
 
     def intersect_tiled_anyhit_fn(self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig):

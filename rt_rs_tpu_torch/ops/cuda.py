@@ -57,7 +57,7 @@ SIGNATURES = {
     "rt_mt_trace": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _I, _P],
     "rt_mt_stream": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rt_shade_pre": [_P] * 6 + [_I, _I, _I, _I] + [_P] * 4 + [_P],
-    "rt_shade_post": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
+    "rt_shade_post": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
     "rt_shade_bounce": [_P] * 13 + [_I] * 6 + [_F, _F] + [_P] * 5 + [_P, _I, _P],
     "rt_fma_peak": [_P, _P, _I, _I, _I, _P],
     "rt_mt_tpose": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _P],

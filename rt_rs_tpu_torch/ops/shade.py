@@ -22,11 +22,13 @@ layouts take their primary rays from the same per-component arithmetic,
 so a ray is the same bits in either.
 
 ``trace_tiled``'s emit-rows branch (resident tables, and the threaded
-walk's trees through kernel G's rows and any-hit modes) and gather
-branch (segmented and streamed tables, and resident tables too large
-for the rows table) are ported, with all of its knobs: the fused bounce kernel
+walks' trees, with any-hit shadows) and gather branch (segmented and
+streamed tables, and resident tables too large for the rows table) are
+ported, with all of its knobs: the fused bounce kernel
 (``fuse_bounce``), the zero-contribution shadow cull (``shadow_cull``),
-live-tile compaction (``retile``) and split tiles (``narrow``).
+live-tile compaction (``retile``) and split tiles (``narrow``).  On
+either branch the intersect calls return (t, pid) and the shading
+kernels read each hit's row from the scene's shade table by its pid.
 """
 
 from __future__ import annotations
@@ -517,16 +519,20 @@ def trace_tiled(
 ) -> torch.Tensor:
     """The bounce loop over component-major ray tiles -> color [3, T, r].
 
-    With ``intersect_rows_fn`` (the emit branch) every closest-hit call
-    also returns the winners' shade rows, so no row is gathered; shadow
-    rays of all lights go in one batch to ``intersect_anyhit_fn`` (the
-    occlusion bound rides payload row 7), or to ``intersect_fn`` in
-    closest-hit mode when there is no any-hit entry.  Without it (the
-    gather branch) each bounce makes one closest-hit call over the
-    light-major shadow rays with the next bounce's rays appended (caps
-    ``t_max``), and gathers the hits' rows from the scene's shade
-    table.  Bounce and shadow batches opt into the per-ray cull when
-    the entry advertises ``supports_refine``.
+    With ``intersect_rows_fn`` offered (the emit branch, the JAX
+    package's kernel-emitted rows) each bounce makes its own
+    closest-hit call, and the shadow rays of all lights go in one batch
+    to ``intersect_anyhit_fn`` (the occlusion bound rides payload row
+    7), or to ``intersect_fn`` in closest-hit mode when there is no
+    any-hit entry.  Without it (the gather branch) each bounce makes one
+    closest-hit call over the light-major shadow rays with the next
+    bounce's rays appended (caps ``t_max``).  On both branches every
+    closest-hit call is ``intersect_fn``'s, returning (t, pid) only: the
+    shading kernels read each hit's row from the scene's resident shade
+    table at ``table[pid]``, so no call emits or gathers a [32, T, r]
+    plane of rows, and ``intersect_rows_fn`` itself is never called.
+    Bounce and shadow batches opt into the per-ray cull when the entry
+    advertises ``supports_refine``.
 
     The knobs are the JAX package's; each is output-exact (the frame is
     the default frame bit for bit), and all default off:
@@ -582,10 +588,9 @@ def trace_tiled(
     lights = torch.stack(light_rows).contiguous()  # [k, 4]
     sub = shade_tile.SUBGROUP
     emit = intersect_rows_fn is not None
-    table = scene.shade_table
+    table = scene.shade_table.contiguous()
     # Bounce and shadow calls may run on split tiles; primaries never.
     n_intersect_fn = _narrowed(intersect_fn, r, narrow)
-    n_rows_fn = _narrowed(intersect_rows_fn, r, narrow)
     n_anyhit_fn = _narrowed(intersect_anyhit_fn, r, narrow)
 
     def refine_kw(fn):
@@ -593,12 +598,10 @@ def trace_tiled(
         # rays diverge within a tile); primaries keep the interval cull.
         return {"refine": True} if getattr(fn, "supports_refine", False) else {}
 
-    def liveness(t, pid, active, rows, pay, o2c):
-        """Validity update, the ``retile`` permutation (before the row
-        gather, so only the per-ray state moves) and, in the gather
-        branch, the hits' rows (row 0, zeros, for dead rays; the emit
-        branch's rows of dead rays hold their hit's row instead: every
-        consumer masks them)."""
+    def liveness(t, pid, active, pay, o2c):
+        """Validity update and the ``retile`` permutation.  A dead ray's
+        pid becomes 0, so the shading kernels read row 0 for it: every
+        consumer masks dead rays."""
         pid = torch.where(active, pid, 0)
         valid_b = (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
         active = active & valid_b
@@ -607,12 +610,8 @@ def trace_tiled(
             inv = _invert_perm(perm)
             o2c = inv if o2c is None else inv[o2c]
             t, pid, active, pay = t[perm], pid[perm], active[perm], pay[:, perm]
-            if rows is not None:
-                rows = rows[:, perm]
-        if rows is None:
-            rows = table[pid.reshape(-1).to(torch.int64)].T.reshape(32, t_tiles, r)
         live_sg = active.reshape(t_tiles // sub, sub * r).any(dim=1).to(torch.int32)
-        return t.contiguous(), pid, rows.contiguous(), active, live_sg, pay, o2c
+        return t.contiguous(), pid.contiguous(), active, live_sg, pay, o2c
 
     def add_color(color, contrib, o2c):
         """A bounce's contribution, in its own tile order, added to the
@@ -628,16 +627,10 @@ def trace_tiled(
             sh = sh & (cmasks > 0.0)
         return sh.reshape(k * t_tiles, r)
 
-    if emit:
-        t, pid, rows = intersect_rows_fn(payload, valid)
-    else:
-        (t, pid), rows = intersect_fn(payload, valid), None
-    t, pid, rows, active, live_sg, payload, o2c = liveness(
-        t, pid, valid, rows, payload, None
-    )
+    t, pid = intersect_fn(payload, valid)
+    t, pid, active, live_sg, payload, o2c = liveness(t, pid, valid, payload, None)
     sh_pay, caps, cmasks, nxt = shade_tile.shade_pre(
-        rows, payload, t, pid.to(torch.float32), live_sg, lights,
-        emit_next=cfg.bounces > 1,
+        table, pid, payload, t, live_sg, lights, emit_next=cfg.bounces > 1
     )
 
     for bounce in range(cfg.bounces):
@@ -645,7 +638,6 @@ def trace_tiled(
         sh_valid = shadow_valid(active, cmasks)
         sh_caps = caps.reshape(k * t_tiles, r)
         blocked_mode = emit and intersect_anyhit_fn is not None
-        rows2 = None
         if blocked_mode:
             blocked = n_anyhit_fn(
                 sh_pay, sh_valid, t_cap=sh_caps, **refine_kw(n_anyhit_fn)
@@ -671,9 +663,9 @@ def trace_tiled(
             if not last:
                 t2, pid2 = st[n_sh:], sid[n_sh:]
         if emit and not last:
-            t2, pid2, rows2 = n_rows_fn(nxt, active, **refine_kw(n_rows_fn))
+            t2, pid2 = n_intersect_fn(nxt, active, **refine_kw(n_intersect_fn))
         post = (
-            rows, payload, t, active.to(torch.float32), sh_t.contiguous(),
+            table, pid, payload, t, active.to(torch.float32), sh_t.contiguous(),
             sh_id.to(torch.float32).contiguous(), caps,
         )
         post_kw = dict(
@@ -688,14 +680,11 @@ def trace_tiled(
         # liveness may retile the next bounce's state; this bounce's
         # shade_post still runs in the current order (o2c), the new
         # order (o2c2) takes over after it.
-        t2, pid2, rows2, active2, live_sg2, nxt, o2c2 = liveness(
-            t2, pid2, active, rows2, nxt, o2c
-        )
-        pre = (rows2, nxt, t2, pid2.to(torch.float32))
+        t2, pid2, active2, live_sg2, nxt, o2c2 = liveness(t2, pid2, active, nxt, o2c)
         emit_next = bounce + 2 < cfg.bounces
         if fuse_bounce:
             contrib, sh_pay, caps, cmasks, nxt2 = shade_tile.shade_bounce(
-                *post, *pre, torch.stack([live_sg, live_sg2]), lights,
+                *post, pid2, nxt, t2, torch.stack([live_sg, live_sg2]), lights,
                 emit_next=emit_next, **post_kw,
             )
             color = color + contrib
@@ -704,9 +693,9 @@ def trace_tiled(
                 color, shade_tile.shade_post(*post, live_sg, lights, **post_kw), o2c
             )
             sh_pay, caps, cmasks, nxt2 = shade_tile.shade_pre(
-                *pre, live_sg2, lights, emit_next=emit_next
+                table, pid2, nxt, t2, live_sg2, lights, emit_next=emit_next
             )
-        rows, payload, t, pid = rows2, nxt, t2, pid2
+        payload, t, pid = nxt, t2, pid2
         active, live_sg, nxt, o2c = active2, live_sg2, nxt2, o2c2
 
     return color

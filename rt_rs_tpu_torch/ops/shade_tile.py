@@ -15,9 +15,14 @@ shading runs as two kernels split at the intersect calls:
   three kernels share their per-ray bodies (csrc/shade_body.cuh).
 
 All follow the TPU kernels' subgroup rule: a subgroup of 8 tiles with
-no live ray writes zeros; a live subgroup computes every lane.  The
-plain-PyTorch twins (``*_reference``) compute the same f32 operations
-in the same order; CPU tensors run the twin, CUDA tensors the kernel.
+no live ray writes zeros; a live subgroup computes every lane.  Each
+takes a bounce's hits as ``pid`` and reads a hit's shade row from the
+scene's resident shade table at ``table[pid]`` (the TPU kernels take
+the rows as a [32, T, r] plane that the intersect call emits; on the
+card the row is an indexed load).  The plain-PyTorch twins
+(``*_reference``) take that plane and compute the same f32 operations
+in the same order; CPU tensors run the twin on ``table_rows(table,
+pid)``, CUDA tensors the kernel.
 """
 
 from __future__ import annotations
@@ -80,6 +85,22 @@ def _hit_normal(rows, payload, t):
     return (hx, hy, hz), (nx * rn, ny * rn, nz * rn)
 
 
+def table_rows(table: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
+    """The hits' rows of the shade table as the twins' component-major
+    plane: ``table`` [P + 1, 32], ``pid`` [T, r] -> [32, T, r],
+    contiguous (torch's CPU kernels may round a strided operand's pow or
+    sqrt otherwise than a contiguous one's)."""
+    return table[pid.reshape(-1).to(torch.int64)].T.reshape(32, *pid.shape).contiguous()
+
+
+def _check_table(table, dev) -> None:
+    """The shade table: [P + 1, 32] f32, 16-byte aligned (the kernels
+    read a row as 16-byte vectors)."""
+    cuda.check("table", table, torch.float32, (table.shape[0], 32), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: must be 16-byte aligned (the kernels read 16-byte vectors)")
+
+
 def _live_mask(live_sg: torch.Tensor, n_tiles: int) -> torch.Tensor:
     """[T, 1] bool: the tile's subgroup holds a live ray."""
     return (live_sg != 0).repeat_interleave(SUBGROUP)[:n_tiles, None]
@@ -104,7 +125,9 @@ def _side_offset(side: torch.Tensor) -> torch.Tensor:
 
 
 def shade_pre_reference(rows, payload, t, pid_f, live_sg, lights, emit_next: bool):
-    """Plain-PyTorch twin of kernel C (see :func:`shade_pre`)."""
+    """Plain-PyTorch twin of kernel C (see :func:`shade_pre`), on the
+    hits' rows as a plane (``rows = table_rows(table, pid)``) and ``pid_f
+    = pid`` in f32."""
     n_tiles = t.shape[0]
     live = _live_mask(live_sg, n_tiles)
     zero = torch.zeros((), dtype=torch.float32, device=t.device)
@@ -157,10 +180,11 @@ def shade_pre_reference(rows, payload, t, pid_f, live_sg, lights, emit_next: boo
     return sh_pay, caps_t, masks_t, nxt
 
 
-def shade_pre(rows, payload, t, pid_f, live_sg, lights, emit_next: bool):
+def shade_pre(table, pid, payload, t, live_sg, lights, emit_next: bool):
     """Kernel C (csrc/shade_pre.cu).
 
-    rows [32, T, r], payload [8, T, r], t / pid_f [T, r] f32, live_sg
+    table [P + 1, 32] (the scene's shade table), pid [T, r] int32 (the
+    hits; 0 for a dead ray), payload [8, T, r], t [T, r] f32, live_sg
     [T / 8] int32, lights [k, 4] (pos, strength; headlight first) ->
     (sh_pay [8, k * T, r], caps [k, T, r], masks [k, T, r] 1.0/0.0,
     next [8, T, r] or None).  ``sh_pay`` holds light k's shadow rays
@@ -169,14 +193,14 @@ def shade_pre(rows, payload, t, pid_f, live_sg, lights, emit_next: bool):
     any-hit call takes.  A mask of 0 means the light cannot change the
     ray's colour whatever the shadow verdict."""
     if not t.is_cuda:
-        return shade_pre_reference(rows, payload, t, pid_f, live_sg, lights, emit_next)
+        return twin("shade_pre", table, pid, payload, t, live_sg, lights, emit_next)
     n_tiles, r = t.shape
     k = lights.shape[0]
     dev = t.device
-    cuda.check("rows", rows, torch.float32, (32, n_tiles, r), dev)
+    _check_table(table, dev)
+    cuda.check("pid", pid, torch.int32, (n_tiles, r), dev)
     cuda.check("payload", payload, torch.float32, (8, n_tiles, r), dev)
     cuda.check("t", t, torch.float32, (n_tiles, r), dev)
-    cuda.check("pid_f", pid_f, torch.float32, (n_tiles, r), dev)
     cuda.check("live_sg", live_sg, torch.int32, (n_tiles // SUBGROUP,), dev)
     cuda.check("lights", lights, torch.float32, (k, 4), dev)
     if n_tiles % SUBGROUP:
@@ -191,7 +215,7 @@ def shade_pre(rows, payload, t, pid_f, live_sg, lights, emit_next: bool):
     )
     cuda.call(
         "shade_pre", "rt_shade_pre",
-        rows.data_ptr(), payload.data_ptr(), t.data_ptr(), pid_f.data_ptr(),
+        table.data_ptr(), pid.data_ptr(), payload.data_ptr(), t.data_ptr(),
         live_sg.data_ptr(), lights.data_ptr(), k, n_tiles, r, int(emit_next),
         sh_pay.data_ptr(), caps.data_ptr(), masks.data_ptr(), cuda.ptr(nxt),
     )
@@ -202,7 +226,8 @@ def shade_post_reference(
     rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, *,
     first_bounce: bool, t_min: float, t_max: float, blocked_mode: bool = False,
 ):
-    """Plain-PyTorch twin of kernel D (see :func:`shade_post`)."""
+    """Plain-PyTorch twin of kernel D (see :func:`shade_post`), on the
+    hits' rows as a plane (``rows = table_rows(table, pid)``)."""
     dev = t.device
     live = _live_mask(live_sg, t.shape[0])
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -253,13 +278,14 @@ def shade_post_reference(
 
 
 def shade_post(
-    rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, *,
+    table, pid, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, *,
     first_bounce: bool, t_min: float, t_max: float, blocked_mode: bool = False,
     bounce: int | None = None,
 ):
     """Kernel D (csrc/shade_post.cu) -> colour contribution [3, T, r].
 
-    rows [32, T, r], payload [8, T, r] (this bounce's rays), t /
+    table [P + 1, 32] (the scene's shade table), pid [T, r] int32 (the
+    hits; 0 for a dead ray), payload [8, T, r] (this bounce's rays), t /
     active_f [T, r] f32, sh_t / sh_id_f / caps [k, T, r] f32 (in
     ``blocked_mode`` sh_t is the any-hit mask as 1.0/0.0 and sh_id_f is
     not read), live_sg [T / 8] int32, lights [k, 4].  ``bounce``: the
@@ -271,13 +297,15 @@ def shade_post(
     )
     if not t.is_cuda:
         _count_bounce(bounce, active_f, live_sg)
-        return shade_post_reference(
-            rows, payload, t, active_f, sh_t, sh_id_f, caps, live_sg, lights, **kw
+        return twin(
+            "shade_post", table, pid, payload, t, active_f, sh_t, sh_id_f, caps, live_sg,
+            lights, **kw,
         )
     n_tiles, r = t.shape
     k = lights.shape[0]
     dev = t.device
-    cuda.check("rows", rows, torch.float32, (32, n_tiles, r), dev)
+    _check_table(table, dev)
+    cuda.check("pid", pid, torch.int32, (n_tiles, r), dev)
     cuda.check("payload", payload, torch.float32, (8, n_tiles, r), dev)
     cuda.check("t", t, torch.float32, (n_tiles, r), dev)
     cuda.check("active_f", active_f, torch.float32, (n_tiles, r), dev)
@@ -292,8 +320,8 @@ def shade_post(
     counter = None if bounce is None else tracing.bounce_counter(bounce)
     cuda.call(
         "shade_post", "rt_shade_post",
-        rows.data_ptr(), payload.data_ptr(), t.data_ptr(), active_f.data_ptr(),
-        sh_t.data_ptr(), sh_id_f.data_ptr(), caps.data_ptr(),
+        table.data_ptr(), pid.data_ptr(), payload.data_ptr(), t.data_ptr(),
+        active_f.data_ptr(), sh_t.data_ptr(), sh_id_f.data_ptr(), caps.data_ptr(),
         live_sg.data_ptr(), lights.data_ptr(), k, n_tiles, r,
         int(first_bounce), int(blocked_mode), float(t_min), float(t_max),
         out.data_ptr(), *tracing.kernel_args(dev, counter),
@@ -318,8 +346,8 @@ def shade_bounce_reference(
 
 
 def shade_bounce(
-    rows, payload, t, active_f, sh_t, sh_id_f, caps,
-    rows2, payload2, t2, pid2_f, live_sg2, lights, *,
+    table, pid, payload, t, active_f, sh_t, sh_id_f, caps,
+    pid2, payload2, t2, live_sg2, lights, *,
     first_bounce: bool, t_min: float, t_max: float, emit_next: bool,
     blocked_mode: bool = False, bounce: int | None = None,
 ):
@@ -328,34 +356,36 @@ def shade_bounce(
     T, r], sh_pay [8, k * T, r], caps [k, T, r], masks [k, T, r], next
     [8, T, r] or None).
 
-    The first seven arguments are shade_post's for bounce b, ``rows2``
-    [32, T, r], ``payload2`` [8, T, r], ``t2`` / ``pid2_f`` [T, r]
-    shade_pre's for bounce b + 1; ``live_sg2`` [2, T / 8] int32 holds
-    the two bounces' subgroup flags (row 0: b, row 1: b + 1).
-    ``bounce`` (b) is counted as :func:`shade_post` counts it."""
+    The first eight arguments are shade_post's for bounce b, ``pid2``
+    [T, r] int32, ``payload2`` [8, T, r] and ``t2`` [T, r] shade_pre's
+    for bounce b + 1, on the same ``table``; ``live_sg2`` [2, T / 8]
+    int32 holds the two bounces' subgroup flags (row 0: b, row 1: b +
+    1).  ``bounce`` (b) is counted as :func:`shade_post` counts it."""
     kw = dict(
         first_bounce=first_bounce, t_min=t_min, t_max=t_max,
         emit_next=emit_next, blocked_mode=blocked_mode,
     )
-    args = (rows, payload, t, active_f, sh_t, sh_id_f, caps, rows2, payload2, t2, pid2_f)
     if not t.is_cuda:
         _count_bounce(bounce, active_f, live_sg2[0])
-        return shade_bounce_reference(*args, live_sg2, lights, **kw)
+        return twin(
+            "shade_bounce", table, pid, payload, t, active_f, sh_t, sh_id_f, caps,
+            pid2, payload2, t2, live_sg2, lights, **kw,
+        )
     n_tiles, r = t.shape
     k = lights.shape[0]
     dev = t.device
+    _check_table(table, dev)
+    cuda.check("pid", pid, torch.int32, (n_tiles, r), dev)
+    cuda.check("pid2", pid2, torch.int32, (n_tiles, r), dev)
     for name, x, shape in (
-        ("rows", rows, (32, n_tiles, r)),
         ("payload", payload, (8, n_tiles, r)),
         ("t", t, (n_tiles, r)),
         ("active_f", active_f, (n_tiles, r)),
         ("sh_t", sh_t, (k, n_tiles, r)),
         ("sh_id_f", sh_id_f, (k, n_tiles, r)),
         ("caps", caps, (k, n_tiles, r)),
-        ("rows2", rows2, (32, n_tiles, r)),
         ("payload2", payload2, (8, n_tiles, r)),
         ("t2", t2, (n_tiles, r)),
-        ("pid2_f", pid2_f, (n_tiles, r)),
         ("lights", lights, (k, 4)),
     ):
         cuda.check(name, x, torch.float32, shape, dev)
@@ -374,10 +404,32 @@ def shade_bounce(
     counter = None if bounce is None else tracing.bounce_counter(bounce)
     cuda.call(
         "shade_bounce", "rt_shade_bounce",
-        *(x.data_ptr() for x in args), live_sg2.data_ptr(), lights.data_ptr(),
+        *(x.data_ptr() for x in (
+            table, pid, payload, t, active_f, sh_t, sh_id_f, caps, pid2, payload2, t2,
+        )),
+        live_sg2.data_ptr(), lights.data_ptr(),
         k, n_tiles, r, int(first_bounce), int(blocked_mode), int(emit_next),
         float(t_min), float(t_max), color.data_ptr(), sh_pay.data_ptr(),
         caps_out.data_ptr(), masks.data_ptr(), cuda.ptr(nxt),
         *tracing.kernel_args(dev, counter),
     )
     return color, sh_pay, caps_out, masks, nxt
+
+
+def twin(name: str, *args, **kw):
+    """The twin of kernel ``name`` (``"shade_pre"``, ``"shade_post"`` or
+    ``"shade_bounce"``) on that wrapper's arguments, on their device:
+    the plane-reading ``*_reference`` with each pid's rows gathered as
+    ``table_rows(table, pid)`` (and, for the pre half, the pid as f32)."""
+    if name == "shade_pre":
+        table, pid, *rest = args
+        pre = (table_rows(table, pid), *rest[:2], pid.to(torch.float32), *rest[2:])
+        return shade_pre_reference(*pre, **kw)
+    if name == "shade_post":
+        table, pid, *rest = args
+        return shade_post_reference(table_rows(table, pid), *rest, **kw)
+    table, pid, *post, pid2, payload2, t2, live_sg2, lights = args
+    return shade_bounce_reference(
+        table_rows(table, pid), *post, table_rows(table, pid2), payload2, t2,
+        pid2.to(torch.float32), live_sg2, lights, **kw,
+    )

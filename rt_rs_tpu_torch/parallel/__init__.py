@@ -15,7 +15,9 @@ device is a rank of a ``torch.distributed`` group
   slice only, and each intersect call ends in ``all_reduce`` merges
   over the shard group: MIN of t, then MIN of the global prim id among
   the shards whose t equals it (the sequential first-strictly-smaller
-  rule), MAX-select of the winner's kernel-emitted rows, SUM for
+  rule), MAX-select of the winner's kernel-emitted rows (the rows
+  entry, which picks the emit branch; no frame calls it, the shading
+  kernels read the winner's row from the whole shade table), SUM for
   any-hit.  The shard index is a plain int on each rank, so a shard's
   kernels compute global prim ids themselves (``pid_base``), and every
   shard keeps the whole rows table, which is indexed by global id;

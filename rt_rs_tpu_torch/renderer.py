@@ -412,10 +412,10 @@ class Renderer(_ChainDispatch):
 
     def _bound(self, h: IntrsHandler) -> tuple:
         """``h``'s intersect entries under the current config ->
-        (closest hit, rows or None, any-hit or None): kernel-emitted
-        rows with any-hit shadows where the handler offers them and
-        ``force_rows`` / ``rows_default`` asks for them, else the gather
-        branch; for a negative-material scene, (the flat closest hit,
+        (closest hit, rows or None, any-hit or None): the emit branch
+        (separate bounce calls, any-hit shadows) where the handler offers
+        a rows entry and ``force_rows`` / ``rows_default`` asks for it,
+        else the gather branch; for a negative-material scene, (the flat closest hit,
         None, None)."""
         entries = self._entries.get(id(h))
         if entries is None and not self.arrays.no_negative_materials:

@@ -429,17 +429,19 @@ def bounce_state():
     payload, valid, _ = shade.camera_ray_tiles(
         pos, torch.tensor(r.camera.at, dtype=torch.float32), 64, 48, 256, block=r.block
     )
-    intersect_fn, rows_fn, anyhit_fn = r._bound(r.handler)
+    intersect_fn, _, anyhit_fn = r._bound(r.handler)
 
     def live(active):
         return active.reshape(-1, 8 * 256).any(dim=1).to(torch.int32)
 
-    t, pid, rows = rows_fn(payload, valid)
+    table = r.arrays.shade_table
+    t, pid = intersect_fn(payload, valid)
     active = valid & (pid != 0) & (t < c.t_max) & (t > c.t_min)
+    pid = torch.where(active, pid, 0)
     lights = torch.cat([r.arrays.light_pos, r.arrays.light_strength[:, None]], dim=1)
     k, n_tiles = lights.shape[0], t.shape[0]
     sh, caps, masks, nxt = shade_tile.shade_pre(
-        rows, payload, t, pid.float(), live(active), lights, emit_next=True
+        table, pid, payload, t, live(active), lights, emit_next=True
     )
     sh_valid = (active[None] & (masks > 0)).reshape(k * n_tiles, -1)
     kw = dict(t_cap=caps.reshape(k * n_tiles, -1), refine=True)
@@ -449,11 +451,12 @@ def bounce_state():
         True: (blocked, blocked),
         False: (st.reshape(caps.shape), sid.reshape(caps.shape).float()),
     }
-    t2, pid2, rows2 = rows_fn(nxt, active, refine=True)
+    t2, pid2 = intersect_fn(nxt, active, refine=True)
     active2 = active & (pid2 != 0) & (t2 < c.t_max) & (t2 > c.t_min)
+    pid2 = torch.where(active2, pid2, 0)
     return dict(
-        post=(rows, payload, t, active.float()), caps=caps, shadows=shadows,
-        pre=(rows2, nxt, t2, pid2.float()), live=torch.stack([live(active), live(active2)]),
+        table=table, post=(pid, payload, t, active.float()), caps=caps, shadows=shadows,
+        pre=(pid2, nxt, t2), live=torch.stack([live(active), live(active2)]),
         lights=lights.contiguous(), active=active.numpy(), active2=active2.numpy(),
     )
 
@@ -471,22 +474,28 @@ def test_shade_bounce(bounce_state, blocked_mode, emit_next):
     """The twin of kernel F is bit-equal to shade_post + shade_pre, and
     matches the JAX package's shade_bounce (interpret mode)."""
     s = bounce_state
+    table = s["table"]
     sh_t, sh_id = s["shadows"][blocked_mode]
-    args = (*s["post"], sh_t, sh_id, s["caps"], *s["pre"], s["live"], s["lights"])
+    args = (table, *s["post"], sh_t, sh_id, s["caps"], *s["pre"], s["live"], s["lights"])
     flags = dict(first_bounce=True, t_min=T_MIN, t_max=T_MAX, blocked_mode=blocked_mode)
     ours = shade_tile.shade_bounce(*args, emit_next=emit_next, **flags)
     post = shade_tile.shade_post(
-        *s["post"], sh_t, sh_id, s["caps"], s["live"][0], s["lights"], **flags
+        table, *s["post"], sh_t, sh_id, s["caps"], s["live"][0], s["lights"], **flags
     )
-    pre = shade_tile.shade_pre(*s["pre"], s["live"][1], s["lights"], emit_next=emit_next)
+    pre = shade_tile.shade_pre(table, *s["pre"], s["live"][1], s["lights"], emit_next=emit_next)
     for a, b in zip(ours, (post, *pre), strict=True):
         if a is None or b is None:
             assert a is None and b is None
         else:
             np.testing.assert_array_equal(a.numpy(), b.numpy())  # NaN == NaN
     color, sh, caps, masks, nxt = ours
+    (pid, *post), (pid2, nxt2, t2) = s["post"], s["pre"]
+    jargs = (
+        shade_tile.table_rows(table, pid), *post, sh_t, sh_id, s["caps"],
+        shade_tile.table_rows(table, pid2), nxt2, t2, pid2.float(), s["live"], s["lights"],
+    )
     jcolor, jsh, jcaps, jmasks, jnxt = jst.shade_bounce(
-        *(_j(x) for x in args), emit_next=emit_next, interpret=True, **flags
+        *(_j(x) for x in jargs), emit_next=emit_next, interpret=True, **flags
     )
     a, a2 = s["active"], s["active2"]
     k = s["lights"].shape[0]

@@ -473,13 +473,14 @@ def test_card_kernel_equals_the_twin(label):
 
 @pytest.mark.card
 def test_card_frames_walk_the_records():
-    """On the card rf_bvh's frames launch the records walk in rows and
+    """On the card rf_bvh's frames launch the records walk in closest and
     any-hit modes and no other walk, and equal the gather branch's."""
     dev = card()
     before = cuda.LAUNCHES.copy()
     emit = Renderer(torus_scene(), size=(96, 72), device=dev, handler="rf_bvh").render_frame()
     launched = cuda.LAUNCHES - before
-    assert launched[rw.walk_name("rows")] == CFG.bounces and launched[rw.walk_name("anyhit")] == CFG.bounces
+    assert launched[rw.walk_name("closest")] == CFG.bounces and launched[rw.walk_name("anyhit")] == CFG.bounces
+    assert launched[rw.walk_name("rows")] == 0
     assert not any(k.startswith(("bvh_walk[", "mt_trace")) for k in launched)
     gather = Renderer(torus_scene(), size=(96, 72), device=dev, handler="rf_bvh", force_rows=False).render_frame()
     assert torch.equal(emit, gather)

@@ -139,7 +139,7 @@ def test_live_rays_equal_the_active_rays(monkeypatch):
     live = [0] * tracing.BOUNCES
     slots = [0] * tracing.BOUNCES
     for args, kw in posts + bounces:
-        active_f = args[3]
+        active_f = args[4]  # after the table, pid, payload and t
         live[kw["bounce"]] += int(active_f.bool().sum())
         slots[kw["bounce"]] += active_f.numel()
     assert len(bounces) == r.config.compute.bounces - 1 and len(posts) == 1
@@ -192,9 +192,9 @@ def test_walk_counts_equal_the_wide_walk(monkeypatch):
         if kw["mode"] == "anyhit":
             anyhit += int(valid.sum())
             blocked += int(out.sum())
-    # primaries and the next bounces' rays with their rows, a shadow call a bounce
+    # primaries and the next bounces' rays, a shadow call a bounce
     bounces = r.config.compute.bounces
-    assert [kw["mode"] for _, kw in calls] == ["rows"] + ["anyhit", "rows"] * (bounces - 1) + ["anyhit"]
+    assert [kw["mode"] for _, kw in calls] == ["closest"] + ["anyhit", "closest"] * (bounces - 1) + ["anyhit"]
     assert (snap["walk_rays"], snap["walk_nodes"], snap["walk_prims"]) == (rays, nodes, prims)
     assert (snap["walk_anyhit"], snap["walk_blocked"]) == (anyhit, blocked)
     assert nodes >= rays > 0 and prims > 0 and 0 < blocked < anyhit

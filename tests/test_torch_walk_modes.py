@@ -9,9 +9,10 @@ leaf kinds, on seeded ray tiles with axis-parallel and NaN directions,
 invalid and excluded rays; the any-hit verdict at its edges (a cap at,
 just above and below the hit, above and below ``t_max``, NaN; the hit's
 prim excluded; ``t_min`` on a hit; invalid rays).  Threaded ``bvh`` and
-``rf_bvh`` frames through the emit branch (rows and any-hit shadows)
-equal the gather branch (``force_rows=False``) bit for bit, with the
-knobs ``narrow``, ``retile`` and ``fuse_bounce``.
+``rf_bvh`` frames through the emit branch (closest hits and any-hit
+shadows, the shading reading the hits' rows from the table) equal the
+gather branch (``force_rows=False``) bit for bit, with the knobs
+``narrow``, ``retile`` and ``fuse_bounce``.
 
 The card's checks (marked ``card``; this file imports no JAX, so it
 runs there without the tests' conftest): each mode's kernel against
@@ -243,13 +244,13 @@ def record_modes(monkeypatch, handler: str) -> list:
 @pytest.mark.parametrize("knob", list(KNOBS))
 @pytest.mark.parametrize("handler", HANDLERS)
 def test_emit_frames_equal_gather_frames(handler, knob, monkeypatch):
-    """The threaded frame through the emit branch (rows, any-hit
+    """The threaded frame through the emit branch (closest hits, any-hit
     shadows) is the gather branch's bit for bit, and each branch calls
-    the tiled entry in its own modes."""
+    the tiled entry in its own modes: no frame calls the rows mode."""
     modes = record_modes(monkeypatch, handler)
     emit = renderer(handler, **KNOBS[knob]).render_frame()
     bounces = CFG.bounces
-    assert modes == ["rows"] + ["anyhit", "rows"] * (bounces - 1) + ["anyhit"]
+    assert modes == ["closest"] + ["anyhit", "closest"] * (bounces - 1) + ["anyhit"]
     modes.clear()
     gather = renderer(handler, force_rows=False, **KNOBS[knob]).render_frame()
     assert modes == ["closest"] * (1 + bounces)
@@ -356,7 +357,7 @@ def test_card_modes_equal_the_twin(handler, label):
 @pytest.mark.parametrize("handler", HANDLERS)
 def test_card_emit_frames_equal_gather_frames(handler, knob):
     """On the card the emit branch's frame is the gather branch's bit
-    for bit, and its kernels launched in their modes."""
+    for bit, and its kernels launched in their modes (no rows mode)."""
     from rt_rs_tpu_torch.ops import cuda
 
     dev = card()
@@ -364,7 +365,8 @@ def test_card_emit_frames_equal_gather_frames(handler, knob):
     emit = renderer(handler, device=dev, **KNOBS[knob]).render_frame()
     name = bvh_walk_rf.walk_name if handler == "rf_bvh" else (lambda mode: bw.walk_name(False, mode))
     launched = cuda.LAUNCHES - before
-    assert launched[name("rows")] == CFG.bounces and launched[name("anyhit")] == CFG.bounces
+    assert launched[name("closest")] == CFG.bounces and launched[name("anyhit")] == CFG.bounces
+    assert launched[name("rows")] == 0
     gather = renderer(handler, device=dev, force_rows=False, **KNOBS[knob]).render_frame()
     assert torch.equal(emit, gather)
 
@@ -387,7 +389,7 @@ def test_card_default_bvh_walks():
 @pytest.mark.parametrize("size", [(384, 288), (1920, 1080)], ids=["384x288", "1920x1080"])
 def test_card_default_bvh_frames_equal_pbvh(size):
     """The default ``bvh`` frame of the teatime scene, through kernel G's
-    rows and any-hit modes, is pbvh's (the packet kernels') bit for
+    closest and any-hit modes, is pbvh's (the packet kernels') bit for
     bit."""
     from rt_rs_tpu_torch.ops import cuda
 
@@ -395,7 +397,7 @@ def test_card_default_bvh_frames_equal_pbvh(size):
     before = cuda.LAUNCHES.copy()
     walk = default_renderer("bvh", torus_scene(), size, dev).render_frame()
     launched = cuda.LAUNCHES - before
-    assert launched[bw.walk_name(False, "rows")] == CFG.bounces
+    assert launched[bw.walk_name(False, "closest")] == CFG.bounces
     assert not any(k.startswith(("mt_trace", "refine_cull")) for k in launched), launched
     packet = default_renderer("pbvh", torus_scene(), size, dev).render_frame()
     assert walk.mean() > 0.05
