@@ -40,20 +40,40 @@ class Cell:
         )
 
 
+def reference_frames(cell: Cell, seed: int, ids, views, device, dtype=torch.float32) -> list[np.ndarray]:
+    """The reference's colours of each view (camera position, target,
+    pixel indices) of window frames ``ids``, computed in ``dtype``.  Where
+    the cell's traffic kind gives geometry (``geometry``), each frame is
+    traced in its own scene: the configuration's, with that frame's
+    vertex arrays."""
+    t = cell.traffic
+    width, height = int(t["width"]), int(t["height"])
+    compute = cell.config["compute"]
+    geometry = getattr(spec.kind(t["kind"]), "geometry", None)
+    if geometry is None:
+        return Reference(cell.scene, compute, device, dtype).frames(views, width, height)
+    return [
+        Reference(dataclasses.replace(cell.scene, vert_pos=vp, vert_norm=vn), compute, device, dtype).frames(
+            [view], width, height
+        )[0]
+        for (vp, vn), view in zip(geometry(t, seed, cell.scene, ids), views)
+    ]
+
+
 def judge(cell: Cell, seed: int, samples, device, control_dtype=None) -> tuple[bool, dict, list[float]]:
     """Compare the window's sampled pixels with the reference ->
     (correct, the numbers beside their limits, each frame's share off).
     ``control_dtype``: put the reference computed in that type in the
     program's place (the control)."""
     t = cell.traffic
-    width, height = int(t["width"]), int(t["height"])
-    cams = spec.kind(t["kind"]).cameras(t, seed, cell.scene, [i for i, _, _ in samples])
+    ids = [i for i, _, _ in samples]
+    cams = spec.kind(t["kind"]).cameras(t, seed, cell.scene, ids)
     views = [(pos, at, pix) for (pos, at), (_, pix, _) in zip(cams, samples)]
-    want = Reference(cell.scene, cell.config["compute"], device).frames(views, width, height)
+    want = reference_frames(cell, seed, ids, views, device)
     if control_dtype is None:
         got = [np.asarray(px) for _, _, px in samples]
     else:
-        got = Reference(cell.scene, cell.config["compute"], device, control_dtype).frames(views, width, height)
+        got = reference_frames(cell, seed, ids, views, device, control_dtype)
     values, per_frame = check.numbers(list(zip(got, want)))
     ok, checks = check.verdict(values, cell.limits)
     return ok, checks, per_frame
@@ -81,8 +101,8 @@ def run(
     w = spec.workload(bench, name)
     dev = torch.device(device)
     runner = Runner(cell.scene, cell.config, cell.traffic, device)
-    accel_bytes = accel.tensor_bytes(runner.r.accel, dev)
-    stats = runner.r.stats
+    accel_bytes = accel.tensor_bytes(runner.structure(), dev)
+    stats = f"{type(runner.r).__name__}.stats {runner.r.stats}"
     runner.warm_up(seed)
     setup_s = guard.process_age_s()
     win = runner.window(seed, seconds)
@@ -103,7 +123,7 @@ def run(
     failed = sum(1 for s in per_frame if s > checks["worst_frame"]["limit"])
 
     log(f"window: {win.frames} frames in {win.wall_s:.6f} s; setup {setup_s:.6f} s")
-    log(f"accel_bytes {accel_bytes} (the port's structure on the card); Renderer.stats {stats}")
+    log(f"accel_bytes {accel_bytes} (the port's structure on the card); {stats}")
     for what, xs in win.series.items():
         q = np.percentile(np.asarray(xs) * 1e3, [0, 25, 50, 75, 100])
         log(f"ms per {what}, min / quartiles / max: {' / '.join(f'{v:.4f}' for v in q)} over {len(xs)}")

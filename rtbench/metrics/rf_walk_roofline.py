@@ -4,8 +4,8 @@ seconds a frame of the kernels whose base name starts ``bvh_walk_rf``.
 
 The floor counts what any walk of the frame must move, whatever the
 tree: every primary ray of the cell's traffic is valid, so its 32
-bytes of payload are read and its 128-byte shade row is written, at
-the H100's 3.35 TB/s of HBM bandwidth.  The pixels come from
+bytes of payload are read and its hit, ``t`` and ``pid`` (8 bytes), is
+written, at the H100's 3.35 TB/s of HBM bandwidth.  The pixels come from
 ``rtbench/traffic/orbit_1080.json``, the traffic of the cells this
 metric is declared for, and never from the program's counters, so no
 later cull or layout can raise the floor.  Where no such kernel ran
@@ -18,7 +18,7 @@ from rtbench.trace import matches
 
 TRAFFIC = pathlib.Path(__file__).resolve().parent.parent / "traffic" / "orbit_1080.json"
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes a second (chip_smoke.PEAK_BYTES)
-RAY_BYTES = 32 + 128  # a primary ray's payload read and its shade row written
+RAY_BYTES = 32 + 8  # a primary ray's payload read, then its t and pid written
 PREFIXES = ("bvh_walk_rf",)
 
 

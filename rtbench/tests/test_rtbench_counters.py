@@ -14,7 +14,7 @@ import sys
 import pytest
 
 from rtbench import counters, spans, spec
-from rtbench.trace import Trace
+from rtbench.trace import Trace, base_name
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
@@ -82,7 +82,8 @@ def test_counter_readers_read_a_snapshot_of_the_window(monkeypatch):
     assert read["walk_prims_per_ray"] == pytest.approx(1.5)
     assert read["capture_s"] == 0.4 and read["build_s"] == 0.07
     assert spec.metric_reader("live_share.384").read(t) == read["live_share"]
-    assert spec.metric_reader("cull_entries_m.384").read(t) == read["cull_entries_m"]
+    for name in ("walk_nodes_per_ray", "walk_prims_per_ray"):
+        assert spec.metric_reader(f"{name}.384").read(t) == read[name]
 
 
 @pytest.mark.parametrize("snap", [None, "stale"])
@@ -141,7 +142,9 @@ def test_readers_read_the_programs_snapshot():
 @pytest.mark.parametrize("cell", [w["name"] for w in spec.benchmark()["workloads"]])
 def test_traced_run_reads_the_programs_counters(cell):
     """A ``--trace 1`` run reads every per-layer metric of the cell, the
-    port's counters and spans within their ranges."""
+    port's counters and spans within their ranges: the counters of the
+    kernels the cell runs (the packet kernels, kernel G or the records
+    walk), found by name in the trace's breakdown."""
     import torch
 
     if not torch.cuda.is_available():
@@ -155,10 +158,19 @@ def test_traced_run_reads_the_programs_counters(cell):
     assert res["correct"], res["checks"]
     m = {k: v["value"] for k, v in res["metrics"].items()}
     assert set(m) == {x["name"] for x in spec.metrics_of(spec.benchmark(), "per_layer", cell)}
-    share = "live_share.384" if cell.endswith("384") else "live_share"
-    assert 0.0 < m[share] <= 1.0
-    assert m["capture_s"] > 0.0 and m["build_s"] > 0.0
-    if cell.startswith("teatime"):
-        assert m["cull_entries_m.384" if cell.endswith("384") else "cull_entries_m"] > 0.0
-    else:
-        assert m["walk_nodes_per_ray"] >= 1.0
+
+    def reading(name):
+        return m[name + ".384"] if cell.endswith("384") else m[name]
+
+    assert 0.0 < reading("live_share") <= 1.0
+    assert m["capture_s"] > 0.0 and m.get("build_s", 1.0) > 0.0  # DynamicRenderer times no rt.build
+    # what the cell runs, by the kernels its traced window spent most on
+    ran = {base_name(n) for n, _ in res["breakdown"]["device_ops"]}
+
+    if any(n.startswith("mt_trace") for n in ran):  # the packet kernels
+        assert reading("cull_entries_m") > 0.0
+    if "bvh_walk_tiled_kernel" in ran:  # kernel G
+        assert reading("walk_nodes_per_ray") >= 1.0 and 0.0 < reading("walk_blocked_share") < 1.0
+    if "bvh_walk_rf_kernel" in ran:  # the records walk
+        assert m["rf_records_per_ray"] >= 1.0
+    assert ran & {"mt_trace_items_kernel", "bvh_walk_tiled_kernel", "bvh_walk_rf_kernel"}

@@ -61,13 +61,14 @@ def test_counter_readers_read_nothing_where_nothing_was_counted(monkeypatch, sna
 
 
 def test_roofline_arithmetic():
-    """The floor is 1920 x 1080 primary rays x 160 bytes at 3.35 TB/s,
-    0.0990 ms a frame; over 1.5 ms of bvh_walk_rf* a frame (3 ms in 2
-    frames; kernel G and shading not counted) that is 6.60%."""
+    """The floor is 1920 x 1080 primary rays x 40 bytes (32 read, t and
+    pid written) at 3.35 TB/s, 0.0248 ms a frame; over 1.5 ms of
+    bvh_walk_rf* a frame (3 ms in 2 frames; kernel G and shading not
+    counted) that is 1.65%."""
     reader = spec.metric_reader("rf_walk_roofline")
     mix = spec.traffic("orbit_1080")
-    floor = mix["width"] * mix["height"] * 160 / 3.35e12
-    assert reader.floor_s() == pytest.approx(floor) and floor == pytest.approx(0.0990e-3, rel=1e-3)
+    floor = mix["width"] * mix["height"] * 40 / 3.35e12
+    assert reader.floor_s() == pytest.approx(floor) and floor == pytest.approx(0.02476e-3, rel=1e-3)
     assert reader.read(window()) == pytest.approx(100.0 * floor / 1.5e-3)
     assert reader.read(window(frames=1)) == pytest.approx(100.0 * floor / 3.0e-3)
     assert reader.read(window(device=[("bvh_walk_tiled_kernel", 0.0, 0.002)])) is None  # kernel G alone

@@ -40,9 +40,15 @@ def test_reads_nothing_where_nothing_was_counted(monkeypatch, snap):
 
 
 def test_declared_for_the_walks_cell_only():
-    (m,) = [x for x in spec.benchmark()["per_layer"] if x["name"] == "walk_blocked_share"]
+    """Declared for the cells that walk kernel G: the 1080p ones under
+    ``frame_ms``, the 384x288 one apart under ``frame_ms.384``."""
+    per_layer = {x["name"]: x for x in spec.benchmark()["per_layer"]}
+    m, m384 = per_layer["walk_blocked_share"], per_layer["walk_blocked_share.384"]
     assert (m["unit"], m["better"], m["layer"], m["moves"]) == ("share", "higher", "kernels", "frame_ms")
-    assert m["workloads"] == ["teapots3.orbit_1080"]
+    assert m["workloads"] == ["teatime.orbit_1080", "teapots3.orbit_1080"]
+    assert (m384["unit"], m384["better"], m384["layer"], m384["moves"]) == ("share", "higher", "kernels", "frame_ms.384")
+    assert m384["workloads"] == ["teatime.orbit_384"]
+    assert spec.metric_reader("walk_blocked_share.384").read is spec.metric_reader("walk_blocked_share").read
 
 
 def test_reads_the_programs_snapshot():

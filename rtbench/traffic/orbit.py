@@ -10,7 +10,8 @@ the frames of one ``animate`` call, which syncs the device at its end;
 the starting angle; frame ``i`` of a window is ``i`` steps on from it.
 
 A kind module gives :func:`strata`, :func:`cameras`, :func:`warm_up`
-and :func:`loop`; ``rtbench/drive.py`` calls them.
+and :func:`loop`, and may give ``geometry`` (see ``breathe.py``);
+``rtbench/drive.py`` calls them.
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ def warm_up(runner, seed: int) -> None:
 
 
 def loop(runner, seconds: float, sampler=None, series=None) -> tuple[int, float]:
-    """``animate`` calls of ``frames_per_sync`` frames until ``seconds``
-    have passed at the end of one -> (frames, wall seconds).  Offers
+    """``animate`` calls of ``frames_per_sync`` frames, through
+    ``runner.animate`` (which hands the program a kind's geometry), until
+    ``seconds`` have passed at the end of one -> (frames, wall seconds).  Offers
     each frame to ``sampler``; appends each call's seconds a frame to
     ``series["frame, by sync"]``."""
     mix = runner.mix
@@ -62,8 +64,8 @@ def loop(runner, seconds: float, sampler=None, series=None) -> tuple[int, float]
 
     t0 = tb = time.perf_counter()
     while True:
-        runner.r.animate(
-            batch, orbit_mult=float(mix["mult"]), sync_every=batch, on_frame=on_frame, chain=int(mix["chain"])
+        runner.animate(
+            batch, done, orbit_mult=float(mix["mult"]), sync_every=batch, on_frame=on_frame, chain=int(mix["chain"])
         )
         done += batch
         now = time.perf_counter()
