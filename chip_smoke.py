@@ -50,7 +50,11 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   ``refit=True``: per frame the corner gathers, the shade table and the
   chunk table on the card, then the packet kernels; with the on-device
   builds (ops/lbvh, ``build_bvh_device``, ``build_accel_device``,
-  ``device_chunks``) held to the same code on the CPU;
+  ``device_chunks``) held to the same code on the CPU; and the walked
+  refit (``backend="threaded"``) on ``torus_row(3)`` (18,962 triangles,
+  past the chunk table's cap): per frame ``wide_refit``
+  (``csrc/wide_refit.cu``) rewrites kernel G's packed tree, then kernel
+  G walks it, each frame held to the CPU's walked frame;
 * ``dual``: pbvh with ``tri_chunk_fine=16`` (the refined batches sweep
   a second, tc = 16 table), resident torus and segmented canyon;
 * ``tools``: the user-facing layer, in a temporary directory
@@ -77,7 +81,8 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   CUDA graph of K orbit frames per dispatch, on every frame path above
   (torus, segmented and dma canyon, knobs, flat, blank, naive, the
   threaded ``bvh`` torus, ``lbvh``), and ``DynamicRenderer.animate(chain=K)``
-  (rebuild and refit, the per-frame build inside the graph).
+  (rebuild and refit, the per-frame build inside the graph; the walked
+  refit on ``torus_row(3)``).
 
 Phases (each prints its own lines; any failure raises and the script
 exits nonzero without printing a result):
@@ -416,6 +421,9 @@ KERNELS = {
     "mt_mxu[highest]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[high]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
     "mt_mxu[default]": ("rt_rs_tpu_torch/csrc/mt_mxu.cu", "experiments/mxu_mt.py:50"),
+    # DynamicRenderer's per-frame refit of kernel G's tree: no TPU kernel
+    # (the JAX package refits a chunk table in XLA ops)
+    "wide_refit": ("rt_rs_tpu_torch/csrc/wide_refit.cu", "none: the walked dynamic path is the port's"),
     # hand-written for XLA code (a lax.while_loop), no pallas_call: kernel
     # G's modes (the frame path's closest, rows and any-hit; the flat path
     # takes closest)
@@ -449,8 +457,12 @@ PATHS = {
     ),
     # Renderer(handler="lbvh"): the chunk table built on the card
     "lbvh": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
-    # DynamicRenderer: the table rebuilt (or refit) on the card each frame
-    "dynamic": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
+    # DynamicRenderer: the table rebuilt (or refit) on the card each frame,
+    # and the walk's tree refit each frame
+    "dynamic": (
+        "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post", "wide_refit",
+        "bvh_walk[bvh,closest]", "bvh_walk[bvh,anyhit]",
+    ),
     # pbvh with tri_chunk_fine: refined batches on the tc = 16 table
     "dual": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     # the tools, the study's protocol, the viewer and the GIF (phase_tools):
@@ -468,7 +480,7 @@ PATHS = {
     # animate(chain=K): the frame paths above inside captured CUDA graphs
     "chain": (
         "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "mt_trace[closest,early_exit]",
-        "mt_stream", "shade_pre", "shade_post", "shade_bounce", "bvh_walk[bvh,closest]",
+        "mt_stream", "shade_pre", "shade_post", "shade_bounce", "bvh_walk[bvh,closest]", "wide_refit",
     ),
 }
 # The rows modes, which no path launches: the shading kernels read each
@@ -523,6 +535,8 @@ CHAIN = {
     "dynamic refit torus 384x288": (lambda: Wavy(dynamic(384, 288, refit=True), 0), 16, 32),
     "dynamic rebuild torus 1920x1080": (lambda: Wavy(dynamic(1920, 1080), 0), 16, 16),
     "dynamic refit torus 1920x1080": (lambda: Wavy(dynamic(1920, 1080, refit=True), 0), 16, 16),
+    "dynamic walk teapots3 384x288": (lambda: Wavy(walked(384, 288), 0), 16, 32),
+    "dynamic walk teapots3 1920x1080": (lambda: Wavy(walked(1920, 1080), 0), 16, 16),
 }
 # cases also captured and checked at chain=4, whose graphs' device bytes are read
 CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
@@ -690,7 +704,7 @@ class Recorder:
 
     def __init__(self):
         from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
-        from rt_rs_tpu_torch.ops import bvh_walk, bvh_walk_rf, packet_stream, packet_trace, shade_tile
+        from rt_rs_tpu_torch.ops import bvh_walk, bvh_walk_rf, packet_stream, packet_trace, shade_tile, wide_refit
 
         self.targets = [
             (packet_trace, "refine_cull"),
@@ -706,6 +720,7 @@ class Recorder:
             (mxu_mt, "mt_mxu"),
             (bvh_walk, "bvh_walk_tiled"),
             (bvh_walk_rf, "bvh_walk_rf_tiled"),
+            (wide_refit, "wide_refit"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -863,6 +878,58 @@ def dynamic(width: int, height: int, scene=None, device: str | None = None, **kw
     )
 
 
+def walked(width: int, height: int, device: str | None = None):
+    """A DynamicRenderer of ``torus_row(3)`` (18,962 triangles, past the
+    chunk table's cap) on the walked refit."""
+    from rt_rs_tpu_torch.scene.presets import torus_row
+
+    return dynamic(width, height, torus_row(3), device=device, refit=True, backend="threaded")
+
+
+def check_refit(what: str, a, errs: dict) -> None:
+    """A recorded wide_refit call: the kernel on a copy of the tree's
+    records equals the twin on another, bit for bit, and a second run
+    leaves the same bits (the tree itself holds a later frame's
+    records by now)."""
+    from rt_rs_tpu_torch.bvh import wide
+    from rt_rs_tpu_torch.ops import wide_refit as wr
+
+    pa, pb, pc, tree, refit = a
+
+    def copy():
+        return wide.WalkTree(binary=(), payload=False, nodes=tree.nodes.clone(), prims=tree.prims.clone())
+
+    kern, twin = copy(), copy()
+    wr.wide_refit(pa, pb, pc, kern, refit)
+    wr.wide_refit_reference(pa, pb, pc, twin, refit)
+    errs["wide_refit"] = max(errs["wide_refit"], check_equal(what, (kern.nodes, kern.prims), (twin.nodes, twin.prims)))
+    again = (kern.nodes.clone(), kern.prims.clone())
+    wr.wide_refit(pa, pb, pc, kern, refit)
+    check_equal(f"{what} run twice", (kern.nodes, kern.prims), again)
+
+
+def attach_binary(r, calls) -> None:
+    """A walked dynamic frame's recorded kernel G calls given the binary
+    tree their twin steps through (the card's structure keeps none): the
+    rest pose's links of ``r``'s scene and the covering bounds refit at
+    the frame's pose from the recorded refit's corners."""
+    import dataclasses
+
+    from rt_rs_tpu_torch.bvh import build_bvh, wide
+    from rt_rs_tpu_torch.handlers.bvh import accel_from_bvh_data
+    from rt_rs_tpu_torch.ops import wide_refit as wr
+
+    if not calls["wide_refit"]:
+        return
+    (pa, pb, pc, tree, _), _, _ = calls["wide_refit"][-1]
+    data = build_bvh(r.scene, eps=0.02, target_item_count=2)
+    n = accel_from_bvh_data(data, r.scene, pa.device)
+    links = (n.hit_link, n.miss_link, n.leaf_count, n.leaf_start)
+    lo, hi = wr.binary_refit(pa, pb, pc, wide.binary_refit_topology(*links, r.scene.num_prims))
+    full = dataclasses.replace(tree, binary=(lo, hi, *links, pa, pb, pc))
+    calls["bvh_walk_tiled"] = [((p, v, full), kw, out) for (p, v, _), kw, out in calls["bvh_walk_tiled"]]
+
+
 class Wavy:
     """A DynamicRenderer driven by :func:`wave` with a Renderer's
     interface for the phases: ``render_frame`` renders frame ``frame``
@@ -946,6 +1013,8 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         check_walk_tiled(f"{label} {bw.walk_name(a[2].payload, kw['mode'])}#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["bvh_walk_rf_tiled"]):
         check_rf_walk(f"{label} {rw.walk_name(kw['mode'])}#{i}", a, kw, errs)
+    for i, (a, _, _) in enumerate(calls["wide_refit"]):
+        check_refit(f"{label} wide_refit#{i}", a, errs)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -1523,6 +1592,7 @@ def phase_compare():
         "rf_bvh teapots3": lambda: renderer(*TORUS_REPLAY, torus_row(3), handler="rf_bvh"),
         "bvh canyon": lambda: renderer(*CANYON_REPLAY, torus_canyon(), handler="bvh", **THREADED),
         "dynamic rebuild torus": lambda: Wavy(dynamic(*TORUS_REPLAY), DYNAMIC_FRAME),
+        "dynamic walk teapots3": lambda: Wavy(walked(*TORUS_REPLAY), DYNAMIC_FRAME),
         "dual torus": lambda: renderer(*TORUS_REPLAY, tri_chunk_fine=FINE_TC),
         "dual canyon segmented": lambda: canyon(*CANYON_REPLAY, "segmented", tri_chunk_fine=FINE_TC),
     }
@@ -1531,6 +1601,8 @@ def phase_compare():
         with Recorder() as rec, with_rows_calls(r):
             r.render_frame()
         calls = rec.calls
+        if isinstance(r, Wavy):
+            attach_binary(r.r, calls)
         t0 = time.perf_counter()
         replay(label, calls, errs, ulps)
         if calls["mt_tpose"]:
@@ -2178,12 +2250,33 @@ def check_builds() -> dict:
     return secs
 
 
+def walk_referee_frames() -> None:
+    """The walked refit of ``torus_row(3)`` at 96x72, at the rest pose
+    and at frame DYNAMIC_FRAME of the wave, bit-equal to the static
+    ``bvh`` Renderer of a scene holding that pose's vertices over the
+    rest pose's tree (whose covering bounds are recomputed on them)."""
+    import copy
+
+    from rt_rs_tpu_torch.bvh import build_bvh
+
+    w = Wavy(walked(96, 72), None)
+    data = build_bvh(w.r.scene, eps=0.02, target_item_count=2)
+    for frame in (None, DYNAMIC_FRAME):
+        w.frame = frame
+        posed = copy.deepcopy(w.r.scene)
+        if frame is not None:
+            posed.vert_pos = w.verts(frame)[0]
+        ref = renderer(96, 72, posed, handler="bvh", data=data)
+        same_frame(f"dynamic walk teapots3 96x72 frame {frame} vs the static bvh referee", w.render_frame(), ref.render_frame())
+
+
 def drive_dynamic(card: str) -> tuple[dict, dict]:
     """The dynamic path: the on-device builds against the CPU
     (:func:`check_builds`); DynamicRenderer at 96x72, rebuild and refit,
     at the rest pose and at frame DYNAMIC_FRAME of the wave, against the
-    JAX package's stored frames; first frames at 384x288 and 1080p
-    (their orbits run in the chain phase's turns, eager against
+    JAX package's stored frames; the walked refit of ``torus_row(3)`` at
+    96x72 (:func:`walk_referee_frames`); first frames at 384x288 and 1080p, the walk's
+    too (their orbits run in the chain phase's turns, eager against
     ``animate(chain=16)``)."""
     import numpy as np
 
@@ -2200,11 +2293,13 @@ def drive_dynamic(card: str) -> tuple[dict, dict]:
                 f"[frame] dynamic {mode} torus 96x72 {pose} vs the JAX package's stored frame: "
                 f"max abs {err:.3g} (atol {REF_ATOL})"
             )
+    walk_referee_frames()
     kept = {}
-    for mode in ("rebuild", "refit"):
+    for mode in ("rebuild", "refit", "walk"):
         for w, h in (TORUS_REPLAY, PROBE_SIZE):
-            r = Wavy(dynamic(w, h, refit=mode == "refit"), 0)
-            check_frame(f"dynamic {mode} torus {w}x{h} frame 0", r.render_frame(), w, h)
+            r = Wavy(walked(w, h) if mode == "walk" else dynamic(w, h, refit=mode == "refit"), 0)
+            scene = "teapots3" if mode == "walk" else "torus"
+            check_frame(f"dynamic {mode} {scene} {w}x{h} frame 0", r.render_frame(), w, h)
             kept[f"{mode} {w}x{h}"] = r
     kept["build_bvh_device_s"] = secs
     return {}, kept
@@ -3192,6 +3287,17 @@ def work(name: str, a, kw) -> tuple[int, int]:
             + w.prims_read * 36 + (n * 128 if kw["mode"] == "rows" else 0)
         )
         return ops, nbytes
+    if name == "wide_refit":
+        # the refit: each prim's corners read once (36 B) with its row and
+        # flag (8 B), its record written (48 B); each slot's word and range
+        # read (12 B) and its six box words written (24 B), the unions
+        # re-reading corners from L2; operations: a prim's 9 edge
+        # subtractions, 12 min / max a prim box a slot under it, 5 for a
+        # slot's wobble an axis
+        pa, _, _, tree, refit = a
+        q, u = refit.prim_meta.shape[0], refit.slot_word.shape[0]
+        spans = int((refit.slot_range[:, 1] - refit.slot_range[:, 0]).sum())
+        return 9 * q + 12 * spans + 15 * u, q * (36 + 8 + 48) + u * (12 + 24)
     if name.startswith("fma_peak"):
         from rt_rs_tpu_torch.experiments import roofline
 
@@ -3559,6 +3665,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
+    from rt_rs_tpu_torch.ops import wide_refit as wr
 
     torus, seg, dma, knobs, seg_ee = (
         recorded[k]
@@ -3615,6 +3722,8 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             picks[name.format(mode)] = (kern, twin, call, 1)
     for name, (kern, twin, a, kw) in recorded["probes"].items():
         picks[name] = (kern, twin, (a, kw, None), 1)
+    # the walked refit of teapots3 (one call a frame)
+    picks["wide_refit"] = (wr.wide_refit, wr.wide_refit_reference, recorded["dynamic walk teapots3"]["wide_refit"][0], 5)
     times = {}
     for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
         ev_ms = time_ms(lambda: kern(*a, **kw), 50)
@@ -3638,6 +3747,13 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
+        if name == "wide_refit":
+            refit = a[4]
+            spans = refit.slot_range[:, 1] - refit.slot_range[:, 0]
+            extra += (
+                f", {refit.prim_meta.shape[0]} prims, {spans.numel()} slots ({refit.block_slots} by a "
+                f"block; the longest {int(spans.max())} prims, {int(spans.sum())} prim boxes unioned)"
+            )
         if name.startswith("bvh_walk_rf"):
             w, records = rf_walk_work(a, kw), a[2]
             extra += (

@@ -66,6 +66,9 @@ NODE_WORDS = 8 * WIDTH  # 6 bounds rows and the child words, padded to 32 B
 PRIM_WORDS = 12
 LOCAL_STACK = 64  # stack entries kept in local memory (kLocalStack in csrc/bvh_walk.cu)
 SLOTS = 8  # payload slots per node (the RF leaf record)
+# Child slots over more packed prims than this are refit by a whole
+# block of csrc/wide_refit.cu, the others by one warp.
+REFIT_BLOCK_RANGE = 256
 
 
 class WideTreeError(ValueError):
@@ -186,6 +189,20 @@ def _collapse(fst, snd, leaf, has, area):
     return frontiers, np.array(parents, dtype=np.int64), need
 
 
+def wobbled(lo: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Boxes [N, 3] with the walk's wobble applied, as
+    ``bvh_walk.node_slab`` rounds it: ``lo - wob``, ``hi + wob``."""
+    wob = 2e-6 + 1e-5 * torch.maximum(lo.abs(), hi.abs())
+    return lo - wob, hi + wob
+
+
+def surface_areas(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Half the surface area of each box [M, 3] in f64: what a collapse
+    ranks interior children by."""
+    ext = hi.astype(np.float64) - lo.astype(np.float64)
+    return ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+
+
 def pack_walk(
     node_min: torch.Tensor,
     node_max: torch.Tensor,
@@ -198,10 +215,15 @@ def pack_walk(
     pc: torch.Tensor,
     *,
     payload: bool,
+    area: np.ndarray | None = None,
 ) -> WalkTree:
     """The binary tree the twin walks -> its :class:`WalkTree`, the
-    packed records on the tree's device.  Raises :class:`WideTreeError`
-    where an invariant fails (see the module's docstring)."""
+    packed records on the tree's device.  ``area`` [M] ranks the
+    interior children a collapse expands (default: the surface areas of
+    the given boxes); the boxes of a moved pose packed with the rest
+    pose's areas keep the rest pose's wide topology.  Raises
+    :class:`WideTreeError` where an invariant fails (see the module's
+    docstring)."""
     binary = (node_min, node_max, hit_link, miss_link, leaf_count, leaves, pa, pb, pc)
     bmin, bmax = node_min.cpu(), node_max.cpu()
     hit, miss, count, slots = (x.cpu().numpy().astype(np.int64) for x in (hit_link, miss_link, leaf_count, leaves))
@@ -225,8 +247,8 @@ def pack_walk(
     for i in inner[::-1]:  # children follow their parent
         has[i] = has[fst[i]] | has[snd[i]]
 
-    ext = hi.astype(np.float64) - lo.astype(np.float64)
-    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    if area is None:
+        area = surface_areas(lo, hi)
     frontiers, parents, need = _collapse(fst, snd, leaf, has, area)
 
     # Packed prims in leaf preorder (node order): where each leaf starts.
@@ -244,8 +266,7 @@ def pack_walk(
     prim_rec[:, 8:11] = (c - a).view(torch.int32)
 
     # Slab bounds with the wobble, as node_slab rounds them.
-    wob = 2e-6 + 1e-5 * torch.maximum(bmin.abs(), bmax.abs())
-    lo_w, hi_w = (x.view(torch.int32).numpy() for x in (bmin - wob, bmax + wob))
+    lo_w, hi_w = (x.view(torch.int32).numpy() for x in wobbled(bmin, bmax))
     kids = np.full((len(frontiers), WIDTH), -1, dtype=np.int64)
     for k, front in enumerate(frontiers):
         kids[k, : len(front)] = front
@@ -276,4 +297,157 @@ def walk_tree(binary: tuple[torch.Tensor, ...], *, payload: bool) -> WalkTree:
     return WalkTree(binary=binary, payload=payload)
 
 
-__all__ = ["WalkTree", "WideTreeError", "pack_walk", "walk_tree", "WIDTH", "LOCAL_STACK"]
+@dataclasses.dataclass(frozen=True)
+class RefitMap:
+    """What ``ops/wide_refit.py`` reads to rewrite a packed tree's boxes
+    and prims from new corners, fixed at the pack (:func:`refit_map`):
+
+    * ``prim_meta`` [Q, 2] int32: each packed prim's row of the corner
+      arrays (its pid, word 3 of its record) and its ``last`` flag (word
+      7);
+    * ``slot_word`` [U] int32: each used child slot's word in the node
+      records, ``node * NODE_WORDS + slot`` (the slot's ``lo.x``);
+    * ``slot_range`` [U, 2] int32: the packed prims under that slot,
+      ``[first, end)``; the slots longest range first, so that a kernel
+      starts its longest reductions first.
+
+    ``rows`` is the row count the corner arrays must have, and
+    ``block_slots`` the leading slots of more than
+    :data:`REFIT_BLOCK_RANGE` prims."""
+
+    prim_meta: torch.Tensor
+    slot_word: torch.Tensor
+    slot_range: torch.Tensor
+    rows: int
+    block_slots: int
+
+
+def refit_map(tree: WalkTree, rows: int) -> RefitMap:
+    """The fixed map a per-frame refit of ``tree``'s packed records
+    reads, on the records' device, for corner arrays of ``rows`` rows.
+
+    A child slot's box is the union of the prims under it.  The prims
+    are packed in leaf preorder, so each slot's prims should be one
+    contiguous range of packed prims; this reads the ranges off the
+    records and checks it, raising :class:`WideTreeError` where it
+    fails: each leaf word ``~q`` owns the prims from ``q`` to the next
+    one marked last, every packed prim lies in exactly one leaf, an
+    interior child's prims are its node's slots' ranges, which must abut,
+    and the root's are all of them."""
+    if tree.nodes is None or tree.prims is None:
+        raise ValueError("tree: no packed records (wide.pack_walk packs them)")
+    nodes, prims = tree.nodes.cpu().numpy(), tree.prims.cpu().numpy()
+    k_n, q = nodes.shape[0], prims.shape[0]
+    words = nodes[:, 6 * WIDTH : 7 * WIDTH].astype(np.int64)
+    if (k := _first_bad(((prims[:, 3] < 1) | (prims[:, 3] >= rows)))) is not None:
+        raise WideTreeError(f"packed prim {k}: pid {prims[k, 3]} outside [1, {rows})")
+    ends = np.flatnonzero(prims[:, 7] != 0) + 1
+    if q == 0 or ends.size == 0 or ends[-1] != q:
+        raise WideTreeError("packed prims: the last one is not marked last")
+    first = np.concatenate([[0], ends[:-1]])
+    leaf_first = ~words[words < 0]
+    if leaf_first.size != first.size or not np.array_equal(np.sort(leaf_first), first):
+        raise WideTreeError("leaf words do not own every packed prim exactly once")
+    leaf_end = dict(zip(first.tolist(), ends.tolist()))
+    span = np.zeros((k_n, 2), dtype=np.int64)
+    rng = np.zeros((k_n, WIDTH, 2), dtype=np.int64)
+    for k in range(k_n - 1, -1, -1):  # children follow their parent
+        used = []
+        for s in range(WIDTH):
+            w = int(words[k, s])
+            if w < 0:
+                rng[k, s] = (~w, leaf_end[~w])
+            elif w > 0:
+                if w <= k:
+                    raise WideTreeError(f"node {k}: child {w} does not follow it")
+                rng[k, s] = span[w]
+            else:
+                continue
+            used.append(rng[k, s])
+        if not used:
+            raise WideTreeError(f"node {k}: no child")
+        part = sorted(tuple(r) for r in used)
+        if any(a[1] != b[0] for a, b in zip(part, part[1:])):
+            raise WideTreeError(f"node {k}: its children's prims are not one contiguous range")
+        span[k] = (part[0][0], part[-1][1])
+    if tuple(span[0]) != (0, q):
+        raise WideTreeError(f"the root's prims are {tuple(span[0])}, not all {q}")
+    k_idx, s_idx = np.nonzero(words != 0)
+    ranges = rng[k_idx, s_idx]
+    lengths = ranges[:, 1] - ranges[:, 0]
+    order = np.argsort(-lengths, kind="stable")
+    dev = tree.nodes.device
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    return RefitMap(
+        prim_meta=i32(prims[:, [3, 7]]),
+        slot_word=i32((k_idx * NODE_WORDS + s_idx)[order]),
+        slot_range=i32(ranges[order]),
+        rows=rows,
+        block_slots=int((lengths > REFIT_BLOCK_RANGE).sum()),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RefitWalk:
+    """One frame's walked structure of ``DynamicRenderer``: the tree
+    kernel G (or, on the CPU, the twin) walks, and the fixed map its
+    refit read (None on the CPU, where the binary tree is refit)."""
+
+    tree: WalkTree
+    refit: RefitMap | None
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryRefit:
+    """The binary tree's topology for refitting its covering bounds in
+    torch ops (``ops/wide_refit.py::binary_refit``), fixed at the build:
+    each bounded corner row and its leaf (``rows``, ``leaf`` [R] int64),
+    and the interior nodes by depth, deepest first (``levels``: (node,
+    first child, second child) int64 tensors per depth)."""
+
+    rows: torch.Tensor
+    leaf: torch.Tensor
+    levels: tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
+    num_nodes: int
+
+
+def binary_refit_topology(
+    hit_link: torch.Tensor, miss_link: torch.Tensor, leaf_count: torch.Tensor, leaves: torch.Tensor,
+    num_prims: int,
+) -> BinaryRefit:
+    """:class:`BinaryRefit` of the contiguous-leaf tree the links
+    describe (:func:`_children` checks them), on ``leaves``' device.  A
+    leaf bounds its rows ``leaves[i] ..`` that hold one of the scene's
+    ``num_prims`` prims (1-based rows), as ``BvhData.cover_bounds``
+    bounds the prims it holds."""
+    hit, miss, count, start = (x.cpu().numpy().astype(np.int64) for x in (hit_link, miss_link, leaf_count, leaves))
+    leaf = count > 0
+    fst, snd = _children(hit, miss, leaf)
+    c = np.where(leaf, count, 0)
+    owner = np.repeat(np.arange(c.size), c)
+    rows = start[owner] + np.arange(owner.size) - (np.cumsum(c) - c)[owner]
+    keep = (rows >= 1) & (rows <= num_prims)
+    depth = np.zeros(c.size, dtype=np.int64)
+    for i in np.nonzero(~leaf)[0].tolist():  # parents before children
+        depth[fst[i]] = depth[snd[i]] = depth[i] + 1
+    inner = np.nonzero(~leaf)[0]
+    dev = leaves.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
+
+    levels = tuple(
+        (t(inner[sel]), t(fst[inner[sel]]), t(snd[inner[sel]]))
+        for d in sorted(set(depth[inner].tolist()), reverse=True)
+        if (sel := depth[inner] == d).any()
+    )
+    return BinaryRefit(rows=t(rows[keep]), leaf=t(owner[keep]), levels=levels, num_nodes=int(c.size))
+
+
+__all__ = [
+    "BinaryRefit", "RefitMap", "RefitWalk", "WalkTree", "WideTreeError", "binary_refit_topology", "pack_walk",
+    "refit_map", "walk_tree", "WIDTH", "LOCAL_STACK",
+]

@@ -39,6 +39,22 @@ from rt_rs_tpu_torch.scene import Scene
 from rt_rs_tpu_torch.scene.arrays import SceneArrays
 
 
+# The chunk table's bound, the JAX package's resident cap (12,288 triangles).
+TABLE_CAP = pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
+
+
+def table_chunks(p: int, tri_chunk: int) -> int:
+    """The chunks of a table of ``p`` triangles, padded to CHUNK_ALIGN."""
+    nc = max(1, -(-p // tri_chunk))
+    return -(-nc // pt.CHUNK_ALIGN) * pt.CHUNK_ALIGN
+
+
+def chunk_table_fits(p: int, tri_chunk: int) -> bool:
+    """Whether ``p`` triangles fit the device table at ``tri_chunk``
+    (:data:`TABLE_CAP`), as :func:`device_chunks` decides."""
+    return table_chunks(p, tri_chunk) * tri_chunk <= TABLE_CAP
+
+
 def device_chunks(
     pa: torch.Tensor,
     pb: torch.Tensor,
@@ -61,15 +77,14 @@ def device_chunks(
     bound."""
     pa, pb, pc = pa[1:], pb[1:], pc[1:]
     p = pa.shape[0]
-    nc = max(1, -(-p // tri_chunk))
-    nc = -(-nc // pt.CHUNK_ALIGN) * pt.CHUNK_ALIGN
-    cap = pt.MAX_VMEM_CHUNKS * pt.TRI_CHUNK
-    if nc * tri_chunk > cap:
+    nc = table_chunks(p, tri_chunk)
+    if not chunk_table_fits(p, tri_chunk):
         raise ValueError(
             f"{p} triangles -> {nc} chunks x {tri_chunk} exceed the on-device LBVH "
-            f"table's bound of {cap} triangles (the JAX package's resident cap); "
+            f"table's bound of {TABLE_CAP} triangles (the JAX package's resident cap); "
             "scenes beyond it render through the static 'bvh' or 'pbvh' handlers, "
-            "and no dynamic path takes them"
+            "or animated through DynamicRenderer(refit=True), whose walk refits a "
+            "tree every frame at any size"
         )
     pad = nc * tri_chunk - p
 

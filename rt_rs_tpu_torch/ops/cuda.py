@@ -64,6 +64,7 @@ SIGNATURES = {
     "rt_mt_mxu": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "rt_bvh_walk_tiled": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
     "rt_bvh_walk_rf_tiled": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
+    "rt_wide_refit": [_P] * 4 + [_I] + [_P] * 2 + [_I, _I] + [_P] * 2 + [_P, _I, _P],
 }
 
 

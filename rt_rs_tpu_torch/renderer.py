@@ -17,11 +17,12 @@ CUDA graph, on the CPU the same frames eagerly.  ``render_frame`` stays
 eager.
 
 ``DynamicRenderer`` renders animated geometry: each frame gathers the
-prims' corners from new vertex tensors, rebuilds the chunk table on the
-device (a Morton sort, or, with ``refit=True``, new bounds over the
-rest pose's order) and traces it through the same kernels.  Its
-``animate(chain=K)`` captures K such steps, rebuild included, in one
-CUDA graph.
+prims' corners from new vertex tensors and rebuilds its structure on the
+device, then traces it through the same kernels: the chunk table (a
+Morton sort, or, with ``refit=True``, new bounds over the rest pose's
+order) for the packet kernels, or kernel G's wide tree, built once at
+the rest pose and refit every frame.  Its ``animate(chain=K)`` captures
+K such steps, rebuild included, in one CUDA graph.
 """
 
 from __future__ import annotations
@@ -38,11 +39,17 @@ import numpy as np
 import torch
 
 from rt_rs_tpu_torch import tracing
+from rt_rs_tpu_torch.bvh import build_bvh, wide
 from rt_rs_tpu_torch.config import ComputeConfig, Config
 from rt_rs_tpu_torch.handlers import get_handler
-from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats
-from rt_rs_tpu_torch.handlers.lbvh import build_accel_device, chunk_footprint, device_chunks
-from rt_rs_tpu_torch.ops import cuda, shade
+from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats, tiled_as_flat
+from rt_rs_tpu_torch.handlers.bvh import (
+    BvhIntrs, TreeIntrs, accel_from_bvh_data, check_modes, reorder_scene_arrays, walk_tiled_fn,
+)
+from rt_rs_tpu_torch.handlers.lbvh import (
+    build_accel_device, chunk_footprint, chunk_table_fits, device_chunks,
+)
+from rt_rs_tpu_torch.ops import cuda, shade, wide_refit
 from rt_rs_tpu_torch.ops import packet_trace as pt
 from rt_rs_tpu_torch.ops.lbvh import centroid_codes, morton_order
 from rt_rs_tpu_torch.scene import Scene
@@ -156,10 +163,43 @@ class _ChainIO:
 @dataclasses.dataclass
 class _DynamicIO(_ChainIO):
     """:class:`_ChainIO` with the K frames' vertex positions and
-    normals [K, V, 3] (filled before each dispatch)."""
+    normals (``verts`` [2, K, V, 3], filled before each dispatch) and, on
+    a card, two pinned host buffers of that shape which the dispatches
+    fill in turn, each with the event of its last upload (``staging``;
+    None on the CPU)."""
 
-    vert_pos: torch.Tensor
-    vert_norm: torch.Tensor
+    verts: torch.Tensor
+    staging: list | None = None
+    turn: int = 0
+
+    @property
+    def vert_pos(self) -> torch.Tensor:
+        return self.verts[0]
+
+    @property
+    def vert_norm(self) -> torch.Tensor:
+        return self.verts[1]
+
+    def upload(self, vert_pos, vert_norm) -> None:
+        """Frame ``j``'s arrays ``vert_pos[j]``, ``vert_norm[j]`` [V, 3]
+        (stacked NumPy arrays, or sequences of arrays) into ``verts``: on
+        a card stacked into the next pinned buffer, once the upload that
+        last read it has run, and from there to the device in one
+        asynchronous copy; on the CPU directly.  The stacking is NumPy's,
+        one call an array, which costs the host less than a torch copy a
+        frame."""
+        if self.staging is None:
+            host = self.verts
+        else:
+            host, uploaded = self.staging[self.turn]
+            self.turn ^= 1
+            uploaded.synchronize()
+        out = host.numpy()
+        np.stack([np.asarray(v) for v in vert_pos], out=out[0])
+        np.stack([np.asarray(v) for v in vert_norm], out=out[1])
+        if self.staging is not None:
+            self.verts.copy_(host, non_blocking=True)
+            uploaded.record()
 
 
 @dataclasses.dataclass
@@ -592,23 +632,61 @@ class Renderer(_ChainDispatch):
         return io.frames, io.poses, h
 
 
+def dynamic_walks(backend: str, refit: bool, num_prims: int, tri_chunk: int) -> bool:
+    """``DynamicRenderer``'s backend rule -> whether it walks kernel G's
+    tree refit every frame (else the chunk table and the packet
+    kernels):
+
+    * ``"packet"``: the chunk table, bounded by the JAX package's
+      12,288 triangles (a larger scene raises at its first frame);
+    * ``"threaded"``: the walk, at every scene size; it needs
+      ``refit=True``, since the tree is built on the host once, at the
+      rest pose;
+    * ``"auto"``: the chunk table where the scene fits its bound at
+      ``tri_chunk`` (:func:`~rt_rs_tpu_torch.handlers.lbvh.chunk_table_fits`),
+      the walk past it with ``refit=True``; a rebuild past it raises at
+      its first frame, as ``"packet"`` does.  Whether ``"auto"`` should
+      walk at every size, as the ``bvh`` handler's does, is left to a
+      measurement of the packet cell against the walk."""
+    if backend == "threaded" and not refit:
+        raise ValueError(
+            "backend='threaded' needs refit=True: the walk's tree is built on the host "
+            "once, at the rest pose, and refit on the device every frame; a per-frame "
+            "rebuild runs on the device for the chunk table only (backend='packet')"
+        )
+    if backend == "packet":
+        return False
+    return backend == "threaded" or (refit and not chunk_table_fits(num_prims, tri_chunk))
+
+
 class DynamicRenderer(_ChainDispatch):
     """Animated geometry with a per-frame rebuild on the device.
 
     Counterpart of the JAX package's ``DynamicRenderer``.  One frame
     step gathers the prims' corners from the frame's vertex positions
-    and normals, rebuilds the shade table, builds the chunk table on the
-    device (:func:`~rt_rs_tpu_torch.handlers.lbvh.build_accel_device`,
-    or :func:`~rt_rs_tpu_torch.handlers.lbvh.device_chunks` over the
-    rest pose's order with ``refit=True``) and renders through the
-    packet kernels: the tiled path with rows and any-hit shadows, or the
-    flat one for a scene with a real ``material = -1`` prim.  Every
-    host decision (the rows gate, the path) is taken at construction, so
-    a step reads nothing back from the device and a CUDA graph can
-    capture it (``animate(chain=K)``).
+    and normals, rebuilds the shade table, rebuilds the structure on
+    the device and renders through it: the tiled path with any-hit
+    shadows, or the flat one for a scene with a real ``material = -1``
+    prim.  Two structures (``backend``, :func:`dynamic_walks`):
 
-    The table is bounded by the JAX package's 12,288 triangles: a larger
-    scene raises ``ValueError`` at its first frame."""
+    * the chunk table of the packet kernels
+      (:func:`~rt_rs_tpu_torch.handlers.lbvh.build_accel_device`, or
+      :func:`~rt_rs_tpu_torch.handlers.lbvh.device_chunks` over the rest
+      pose's Morton order with ``refit=True``), with its rows table,
+      bounded by the JAX package's 12,288 triangles;
+    * kernel G's wide tree (``refit=True``): the ``bvh`` handler's tree
+      built once on the host at the rest pose and packed once, then each
+      frame its boxes and prims rewritten from the corners by
+      :func:`~rt_rs_tpu_torch.ops.wide_refit.wide_refit` and walked in
+      the closest and any-hit modes, at every scene size.  On the CPU,
+      where nothing is packed, the twin walks the binary tree, its
+      covering bounds refit in torch ops
+      (:func:`~rt_rs_tpu_torch.ops.wide_refit.binary_refit`).
+
+    Every host decision (the rows gate, the path) is taken at
+    construction, so a step reads nothing back from the device and a
+    CUDA graph can capture it (``animate(chain=K)``).  The construction
+    is timed as the set-up step ``rt.build`` (``tracing.setup``)."""
 
     def __init__(
         self,
@@ -620,25 +698,34 @@ class DynamicRenderer(_ChainDispatch):
         tri_chunk: int | None = None,
         refine: bool = True,
         device: str | torch.device = "cuda",
+        backend: str = "auto",
     ):
         """``device`` as for :class:`Renderer` (default ``"cuda"``).
 
-        ``refit=True`` sorts once, at the rest pose, and bakes that
-        order into the corner gathers; each frame then only rebuilds the
-        table's bounds and contents.  A stale order loosens the chunks'
-        bounds but never changes a result: re-create the renderer when
-        the geometry drifts far from the rest pose.
+        ``refit=True`` fixes the structure's order at the rest pose and
+        each frame only rebuilds its bounds and contents: the chunk
+        table sorts once and bakes that order into the corner gathers;
+        the walk builds its tree once and bakes its leaf order in.  A
+        stale order loosens the bounds but never changes a result:
+        re-create the renderer when the geometry drifts far from the
+        rest pose.  ``backend`` (``"auto"``, ``"threaded"`` or
+        ``"packet"``, the ``bvh`` handler's values) picks the structure
+        by :func:`dynamic_walks`.
 
         ``force_rows`` overrides the kernel-emitted-rows default (on):
-        rows need a scene without negative materials, a finite shade
-        table at the rest pose and a rows table within
+        the chunk table's rows need a scene without negative materials,
+        a finite shade table at the rest pose and a rows table within
         :func:`~rt_rs_tpu_torch.ops.packet_trace.rows_budget_ok` at the
-        chunk height ``tri_chunk`` (None: DYNAMIC_TRI_CHUNK).  With
-        rows on, :meth:`render_frame` refuses non-finite vertex data
-        (NumPy arrays every frame, tensors on the first frame only), as
-        the JAX package does; ``force_rows=False`` renders it on the
-        gather branch.  ``refine`` (default True) lets bounce and shadow
-        batches take the per-ray cull."""
+        chunk height ``tri_chunk`` (None: DYNAMIC_TRI_CHUNK).  With the
+        chunk table's rows on, :meth:`render_frame` refuses non-finite
+        vertex data (NumPy arrays every frame, tensors on the first
+        frame only), as the JAX package does; ``force_rows=False``
+        renders it on the gather branch.  The walk takes the emit branch
+        wherever the scene has no negative material (its shading reads
+        each hit's row by pid), unless ``force_rows=False``.
+        ``refine`` (default True) lets the packet kernels' bounce and
+        shadow batches take the per-ray cull."""
+        check_modes(backend, "bounces" if refine else "off")  # refine: the packet kernels' "bounces" policy
         self.scene = scene
         self.device = torch.device(device)
         self.config = config or Config()
@@ -646,26 +733,38 @@ class DynamicRenderer(_ChainDispatch):
             size if size is not None else self.config.resolution.size()
         )
         self.camera = scene.camera
-        base = scene.pack(device=self.device)
-        # The static pack's duplicate-triple collapse: topology is fixed,
-        # so each frame's gathers inherit its self-exclusion semantics.
-        prim_idx = torch.from_numpy(
-            np.asarray(intersect_indices(scene.prim_indices), dtype=np.int64).reshape(-1, 3)
-        ).to(self.device)
-        if refit:
-            order = morton_order(centroid_codes(base.pa[1:], base.pb[1:], base.pc[1:])).long()
-            prim_idx = prim_idx[order]
-            perm = torch.cat([order.new_zeros(1), order + 1])
-            base = dataclasses.replace(base, prim_mat=base.prim_mat[perm])
         # One chunk height for the rows gate and every build.
         tc = DYNAMIC_TRI_CHUNK if tri_chunk is None else tri_chunk
-        finite_rest = bool(torch.isfinite(base.shade_table).all())
-        self._use_rows = bool(
-            (True if force_rows is None else force_rows)
-            and base.no_negative_materials
-            and finite_rest
-            and pt.rows_budget_ok(base.pa.shape[0] - 1, tc)
-        )
+        self._walk = dynamic_walks(backend, refit, scene.num_prims, tc)
+        self._tree: wide.WalkTree | None = None  # the packed records (on a card)
+        self._refit_map: wide.RefitMap | None = None
+        self._binary: wide.BinaryRefit | None = None  # the CPU twin's topology
+        with tracing.setup("rt.build", "build_s"):
+            base = scene.pack(device=self.device)
+            # The static pack's duplicate-triple collapse: topology is fixed,
+            # so each frame's gathers inherit its self-exclusion semantics.
+            prim_idx = torch.from_numpy(
+                np.asarray(intersect_indices(scene.prim_indices), dtype=np.int64).reshape(-1, 3)
+            ).to(self.device)
+            if self._walk:
+                base, prim_idx = self._build_tree(scene, base, prim_idx)
+            elif refit:
+                order = morton_order(centroid_codes(base.pa[1:], base.pb[1:], base.pc[1:])).long()
+                prim_idx = prim_idx[order]
+                perm = torch.cat([order.new_zeros(1), order + 1])
+                base = dataclasses.replace(base, prim_mat=base.prim_mat[perm])
+        if self._walk:
+            self._use_rows = bool((True if force_rows is None else force_rows) and base.no_negative_materials)
+        else:
+            finite_rest = bool(torch.isfinite(base.shade_table).all())
+            self._use_rows = bool(
+                (True if force_rows is None else force_rows)
+                and base.no_negative_materials
+                and finite_rest
+                and pt.rows_budget_ok(base.pa.shape[0] - 1, tc)
+            )
+        # The chunk table's rows table refuses non-finite vertex data.
+        self._refuse_nonfinite = self._use_rows and not self._walk
         self._inputs_checked = False
         self._base = base
         self._prim_idx = prim_idx
@@ -681,6 +780,35 @@ class DynamicRenderer(_ChainDispatch):
         self._chain_io: dict[int, _DynamicIO] = {}
         self._graph_pool = None
 
+    def _build_tree(self, scene: Scene, base, prim_idx):
+        """The walk's set-up, once: the ``bvh`` handler's tree of the rest
+        pose with its defaults, its leaf order baked into the scene
+        tensors and the corner gathers, and then, on a card, the tree
+        packed for kernel G with the map its refit reads (the binary
+        tree is not kept there); on the CPU the binary tree's topology
+        for :func:`~rt_rs_tpu_torch.ops.wide_refit.binary_refit` ->
+        (leaf-ordered base, prim_idx)."""
+        h = BvhIntrs()
+        data = build_bvh(scene, eps=h.eps, target_item_count=h.target_item_count)
+        base = reorder_scene_arrays(base, data.indices)
+        prim_idx = prim_idx[torch.from_numpy(np.asarray(data.indices, dtype=np.int64)).to(self.device)]
+        nodes = accel_from_bvh_data(data, scene, torch.device("cpu"))
+        links = (nodes.hit_link, nodes.miss_link, nodes.leaf_count, nodes.leaf_start)
+        self._footprint = nodes.footprint
+        if self.device.type == "cuda":
+            host = wide.pack_walk(
+                nodes.node_min, nodes.node_max, *links, *(x.cpu() for x in (base.pa, base.pb, base.pc)),
+                payload=False,
+            )
+            self._tree = wide.WalkTree(
+                binary=(), payload=False, nodes=host.nodes.to(self.device),
+                prims=host.prims.to(self.device), stack=host.stack,
+            )
+            self._refit_map = wide.refit_map(self._tree, rows=base.pa.shape[0])
+        else:
+            self._links = links
+            self._binary = wide.binary_refit_topology(*links, scene.num_prims)
+        return base, prim_idx
     def _frame_arrays(self, vert_pos, vert_norm):
         """The scene tensors of one frame's geometry [V, 3]: the prims'
         corners gathered (with the sentinel row 0) and the shade table
@@ -697,9 +825,19 @@ class DynamicRenderer(_ChainDispatch):
         ).rebuild_shade_table()
 
     def _build(self, arrays):
-        """One frame's table -> (accel, arrays to shade): the rebuild
-        (sort, permute, chunk) or, with ``refit``, the chunk table over
-        the rest pose's order."""
+        """One frame's structure -> (accel, arrays to shade): the walk's
+        tree refit (a :class:`~rt_rs_tpu_torch.bvh.wide.RefitWalk`: on a
+        card the packed records rewritten in place with the map they were
+        rewritten by, on the CPU the binary tree with new bounds), or the
+        chunk table: the rebuild (sort, permute, chunk) or, with
+        ``refit``, the table over the rest pose's order."""
+        if self._walk:
+            if self._tree is not None:
+                wide_refit.wide_refit(arrays.pa, arrays.pb, arrays.pc, self._tree, self._refit_map)
+                return wide.RefitWalk(self._tree, self._refit_map), arrays
+            node_min, node_max = wide_refit.binary_refit(arrays.pa, arrays.pb, arrays.pc, self._binary)
+            binary = (node_min, node_max, *self._links, arrays.pa, arrays.pb, arrays.pc)
+            return wide.RefitWalk(wide.WalkTree(binary=binary, payload=False), None), arrays
         tc = self._tri_chunk
         if self._refit:
             accel = device_chunks(
@@ -714,6 +852,8 @@ class DynamicRenderer(_ChainDispatch):
         from the f32 camera tensors ``pos`` / ``at`` [3] -> [H, W, 3]."""
         accel, arrays = self._build(self._frame_arrays(vert_pos, vert_norm))
         cfg = self.config.compute
+        if self._walk:
+            return self._walk_frame(accel.tree, arrays, pos, at)
         win = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
         if not arrays.no_negative_materials:
             # A real negative-material prim: the flat path, whose shadow
@@ -735,10 +875,36 @@ class DynamicRenderer(_ChainDispatch):
             intersect_rows_fn=rows_fn, intersect_anyhit_fn=anyhit_fn,
         )
 
+    def _walk_frame(self, tree: wide.WalkTree, arrays, pos, at) -> torch.Tensor:
+        """One frame through kernel G's entries on ``tree``, as the
+        ``bvh`` handler's Renderer renders it: the emit branch (closest
+        hits, any-hit shadows), the gather branch with ``force_rows=False``,
+        or the flat path's closest hits for a negative-material scene."""
+        cfg = self.config.compute
+        closest = walk_tiled_fn(tree, cfg, "closest")
+        if not arrays.no_negative_materials:
+            return shade.render(
+                arrays, tiled_as_flat(closest, TreeIntrs.block_lanes), cfg, pos, at,
+                self.width, self.height, block=self._block,
+            )
+        rows_fn = anyhit_fn = None
+        if self._use_rows:
+            rows_fn = walk_tiled_fn(tree, cfg, "rows", arrays.shade_table)
+            anyhit_fn = walk_tiled_fn(tree, cfg, "anyhit")
+        return shade.render_tiled(
+            arrays, closest, cfg, pos, at, self.width, self.height,
+            ray_tile=TreeIntrs.block_lanes, block=self._block,
+            intersect_rows_fn=rows_fn, intersect_anyhit_fn=anyhit_fn,
+        )
+
     @property
     def stats(self) -> IntrsStats:
-        """The chunk table's device bytes (its shapes do not change from
-        frame to frame), named ``LBVH-rebuild`` or ``LBVH-refit``."""
+        """The structure's size: for the walk, the ``bvh`` handler's
+        48-byte-a-node footprint, named ``BVH-refit``; for the chunk
+        table, its device bytes (its shapes do not change from frame to
+        frame), named ``LBVH-rebuild`` or ``LBVH-refit``."""
+        if self._walk:
+            return IntrsStats(name="BVH-refit", size=self._footprint)
         if self._stats is None:
             base = self._base
             accel = device_chunks(
@@ -762,7 +928,7 @@ class DynamicRenderer(_ChainDispatch):
         return _host_f32(x, self.device).to(self.device, non_blocking=True)
 
     def _check_inputs(self, vert_pos, vert_norm, norm_defaulted: bool) -> None:
-        """With rows on, refuse non-finite vertex data: a NaN in the
+        """With the chunk table's rows on, refuse non-finite vertex data: a NaN in the
         per-frame rows table would reach every ray that hits its prim's
         chunk in the JAX package's rows matmul, so both packages refuse
         it.  NumPy arrays are checked every frame; tensors (and the
@@ -797,7 +963,7 @@ class DynamicRenderer(_ChainDispatch):
         norm_defaulted = vert_norm is None
         if norm_defaulted:
             vert_norm = self._rest_norm
-        if self._use_rows:
+        if self._refuse_nonfinite:
             self._check_inputs(vert_pos, vert_norm, norm_defaulted)
         tracing.begin(self.device, 1)
         out = self._step(
@@ -831,8 +997,9 @@ class DynamicRenderer(_ChainDispatch):
         the table is rebuilt every frame all the same).
 
         ``chain`` (K > 1) renders K frames per dispatch, the contract of
-        :meth:`Renderer.animate`: the K frames' vertex arrays are stacked
-        to [K, V, 3] and copied into the chains' fixed buffers, and the
+        :meth:`Renderer.animate`: the K frames' vertex arrays are copied
+        into the chains' fixed buffers [K, V, 3] (on a card through
+        pinned host buffers, one upload a dispatch), and the
         K steps, rebuild included, run with the orbit advanced in f32
         between them; a last dispatch repeats the last frame's geometry
         and keeps the frames it needs (``vertex_fn`` is never called
@@ -854,14 +1021,20 @@ class DynamicRenderer(_ChainDispatch):
         if io is None:
             f32 = dict(dtype=torch.float32, device=self.device)
             v = np.asarray(self.scene.vert_pos).shape[0]
+            staging = None
+            if self.device.type == "cuda":
+                staging = [
+                    (torch.zeros((2, k, v, 3), dtype=torch.float32).pin_memory(), torch.cuda.Event())
+                    for _ in range(2)
+                ]
             io = _DynamicIO(
                 pos=torch.zeros(3, **f32),
                 at=torch.zeros(3, **f32),
                 mult=torch.zeros((), **f32),
                 frames=torch.zeros((k, self.height, self.width, 3), **f32),
                 poses=torch.zeros((k, 3), **f32),
-                vert_pos=torch.zeros((k, v, 3), **f32),
-                vert_norm=torch.zeros((k, v, 3), **f32),
+                verts=torch.zeros((2, k, v, 3), **f32),
+                staging=staging,
             )
             self._chain_io[k] = io
         return io
@@ -876,16 +1049,16 @@ class DynamicRenderer(_ChainDispatch):
             pos = orbit_f32(pos, io.at, io.mult)
 
     def _run_chain(self, k: int, orbit_mult: float, vert_pos, vert_norm):
-        """One dispatch of K frames of the stacked geometry [K, V, 3]
-        from the host camera (which it does not move) -> (frames [K, H,
+        """One dispatch of K frames of the geometry ``vert_pos`` /
+        ``vert_norm`` (stacked [K, V, 3], or K arrays [V, 3] each) from
+        the host camera (which it does not move) -> (frames [K, H,
         W, 3], their f32 camera positions [K, 3]): the chains' fixed
         buffers, which the next dispatch of this K overwrites."""
         tracing.begin(self.device, k)
         with tracing.span("rt.dispatch"):
             with tracing.span("rt.prepare"):
                 io = self._io(k)
-                io.vert_pos.copy_(_host_f32(vert_pos, self.device), non_blocking=True)
-                io.vert_norm.copy_(_host_f32(vert_norm, self.device), non_blocking=True)
+                io.upload(vert_pos, vert_norm)
                 self._fill_camera(io, orbit_mult)
             self._replay(
                 k,
@@ -912,9 +1085,9 @@ class DynamicRenderer(_ChainDispatch):
 
         def dispatch(done: int) -> torch.Tensor:
             pairs = [frame_verts(min(done + i, frames - 1)) for i in range(k)]
-            vp = np.stack([p[0] for p in pairs])
-            vn = np.stack([p[1] for p in pairs])
-            if self._use_rows and not (np.isfinite(vp).all() and np.isfinite(vn).all()):
+            vp = [p[0] for p in pairs]
+            vn = [p[1] for p in pairs]
+            if self._refuse_nonfinite and not all(np.isfinite(a).all() for a in vp + vn):
                 raise ValueError(
                     "non-finite vertex positions/normals with kernel-emitted rows "
                     "enabled; pass force_rows=False"

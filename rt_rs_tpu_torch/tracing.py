@@ -10,8 +10,8 @@ check it once (:func:`begin`).
 **Device counters.**  One int64 buffer per device (:func:`buffer`),
 kept here so that it outlives every ``Renderer`` (and is not reachable
 from its accel).  Word 0 is the enable flag; then :data:`SUB` words for
-each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F, G and the records walk
-take the buffer's address and a counter's index as launch arguments,
+each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F, G, the records walk
+and the wide refit take the buffer's address and a counter's index as launch arguments,
 which a CUDA graph captures as they are, so one graph serves tracing on
 and off.  Each block reads the flag once; when it is 0 the block does
 nothing more, and when it is 1 the block adds its counts with one
@@ -37,7 +37,10 @@ between continues its counts.
 * ``rf_rays``, ``rf_records``, ``rf_prims``: the RF records walk's
   (``csrc/bvh_walk_rf.cu``) valid rays, the node records whose box it
   tests and the slots it tests (empty and excluded slots skipped), in
-  every mode (``ops/bvh_walk_rf.py``'s ``RfWork``).
+  every mode (``ops/bvh_walk_rf.py``'s ``RfWork``);
+* ``refit_prims``, ``refit_nodes``: the packed prim records and the
+  wide nodes' child slots that ``DynamicRenderer``'s per-frame refit of
+  kernel G's tree rewrites (``csrc/wide_refit.cu``).
 
 Other kernels (``mt_stream``, ``refine_cull``, ``shade_pre``, the
 probes) count nothing.
@@ -73,6 +76,7 @@ COUNTERS = (
     *(f"cull_entries.{mode}.{cull}" for mode in MODES for cull in CULLS),
     "walk_rays", "walk_nodes", "walk_prims", "walk_anyhit", "walk_blocked",
     "rf_rays", "rf_records", "rf_prims",
+    "refit_prims", "refit_nodes",
 )
 INDEX = {name: i for i, name in enumerate(COUNTERS)}
 WORDS = 1 + SUB * len(COUNTERS)
@@ -227,7 +231,7 @@ def snapshot() -> dict:
         "walk_prims": c["walk_prims"],
         "walk_anyhit": c["walk_anyhit"],
         "walk_blocked": c["walk_blocked"],
-        **{k: c[k] for k in ("rf_rays", "rf_records", "rf_prims")},
+        **{k: c[k] for k in ("rf_rays", "rf_records", "rf_prims", "refit_prims", "refit_nodes")},
         "frames": st.frames,
         **st.totals,
         "launches": dict(cuda.LAUNCHES),

@@ -243,6 +243,58 @@ def test_build_seconds_are_counted_always():
     assert tracing.snapshot()["build_s"] > before
 
 
+def test_refit_counters_follow_each_other():
+    """The wide refit adds ``refit_nodes`` right after ``refit_prims``."""
+    assert tracing.INDEX["refit_nodes"] == tracing.INDEX["refit_prims"] + 1
+
+
+def refit_case(device="cpu"):
+    """A packed torus tree, its refit map and leaf-ordered corners."""
+    from rt_rs_tpu_torch.bvh import build_bvh
+    from rt_rs_tpu_torch.handlers.bvh import accel_from_bvh_data, reorder_scene_arrays
+
+    scene = torus_scene()
+    data = build_bvh(scene, eps=0.02, target_item_count=2)
+    n = accel_from_bvh_data(data, scene, torch.device(device))
+    a = reorder_scene_arrays(scene.pack(device=device), data.indices)
+    tree = wide.pack_walk(
+        n.node_min, n.node_max, n.hit_link, n.miss_link, n.leaf_count, n.leaf_start, a.pa, a.pb, a.pc,
+        payload=False,
+    )
+    return tree, wide.refit_map(tree, rows=a.pa.shape[0]), a
+
+
+def test_wide_refit_counts_what_it_writes():
+    """Within a session, each call adds every packed prim to
+    ``refit_prims`` and every used child slot to ``refit_nodes``;
+    outside one, nothing."""
+    from rt_rs_tpu_torch.ops import wide_refit
+
+    tree, refit, a = refit_case()
+    wide_refit.wide_refit(a.pa, a.pb, a.pc, tree, refit)
+    with profile(activities=CPU_ACTS):
+        tracing.begin("cpu", 1)
+        for _ in range(3):
+            wide_refit.wide_refit(a.pa, a.pb, a.pc, tree, refit)
+    snap = tracing.snapshot()
+    used = int((tree.nodes[:, 6 * wide.WIDTH : 7 * wide.WIDTH] != 0).sum())
+    assert snap["refit_prims"] == 3 * tree.prims.shape[0] == 3 * torus_scene().num_prims
+    assert snap["refit_nodes"] == 3 * used > 0
+
+
+@pytest.mark.parametrize("backend", ["packet", "threaded"])
+def test_dynamic_renderer_times_its_build(backend):
+    """``DynamicRenderer``'s set-up (the pack and the rest pose's order
+    or tree) is one ``rt.build`` span, its seconds in ``build_s``."""
+    from rt_rs_tpu_torch import DynamicRenderer
+
+    before = tracing.snapshot()["build_s"]
+    with profile(activities=CPU_ACTS) as prof:
+        DynamicRenderer(torus_scene(), size=SIZE, refit=True, backend=backend, device="cpu")
+    assert [n for n, _, _ in spans(prof)] == ["rt.build"]
+    assert tracing.snapshot()["build_s"] > before
+
+
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -280,6 +332,28 @@ def test_card_kernels_count_as_their_twins(handler, monkeypatch):
                 got, want = _by_device(dev), _by_device("cpu")
                 assert got == want, (name, got, want)
     tracing.begin(dev, 0)  # outside the session: disarmed
+    tracing.begin("cpu", 0)
+
+
+@pytest.mark.card
+def test_card_wide_refit_counts_as_its_twin():
+    """The kernel's counts of one call equal the twin's on the CPU."""
+    from rt_rs_tpu_torch.ops import wide_refit
+
+    dev = card()
+    tree, refit, a = refit_case(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        tracing.begin(dev, 0)
+        tracing.begin("cpu", 0)
+        wide_refit.wide_refit(a.pa, a.pb, a.pc, tree, refit)
+        cpu_map = wide.RefitMap(
+            refit.prim_meta.cpu(), refit.slot_word.cpu(), refit.slot_range.cpu(), refit.rows, refit.block_slots
+        )
+        cpu_tree = wide.WalkTree(binary=(), payload=False, nodes=tree.nodes.cpu(), prims=tree.prims.cpu())
+        wide_refit.wide_refit(a.pa.cpu(), a.pb.cpu(), a.pc.cpu(), cpu_tree, cpu_map)
+        got, want = _by_device(dev), _by_device("cpu")
+        assert got == want == {"refit_prims": tree.prims.shape[0], "refit_nodes": refit.slot_word.shape[0]}
+    tracing.begin(dev, 0)
     tracing.begin("cpu", 0)
 
 
