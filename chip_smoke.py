@@ -47,10 +47,11 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
 * ``dynamic``: ``DynamicRenderer`` on ``torus_scene`` moved by
   :func:`wave` (a periodic rise of the vertices along y, in f64 and then
   f32, which changes the Morton order from frame to frame), rebuild and
-  ``refit=True``: per frame the corner gathers, the shade table and the
-  chunk table on the card, then the packet kernels; with the on-device
-  builds (ops/lbvh, ``build_bvh_device``, ``build_accel_device``,
-  ``device_chunks``) held to the same code on the CPU; and the walked
+  ``refit=True`` with ``backend="packet"``: per frame the corner
+  gathers, the shade table and the chunk table on the card, then the
+  packet kernels; with the on-device builds (ops/lbvh,
+  ``build_bvh_device``, ``build_accel_device``, ``device_chunks``) held
+  to the same code on the CPU; and the walked
   refit (``backend="threaded"``) on ``torus_row(3)`` (18,962 triangles,
   past the chunk table's cap): per frame ``wide_refit``
   (``csrc/wide_refit.cu``) rewrites kernel G's packed tree, then kernel
@@ -866,10 +867,12 @@ def wave(scene, i: int):
 
 def dynamic(width: int, height: int, scene=None, device: str | None = None, **kw):
     """A DynamicRenderer of ``scene`` (default ``torus_scene()``) on
-    ``device`` (default DEVICE)."""
+    ``device`` (default DEVICE), on the chunk table unless ``kw`` names
+    another backend (``"auto"`` walks with ``refit=True``)."""
     from rt_rs_tpu_torch import Config, DynamicRenderer, Resolution
     from rt_rs_tpu_torch.scene.presets import torus_scene
 
+    kw.setdefault("backend", "packet")
     return DynamicRenderer(
         torus_scene() if scene is None else scene,
         config=Config(resolution=Resolution.sized(width, height)),

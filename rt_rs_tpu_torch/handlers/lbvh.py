@@ -83,8 +83,8 @@ def device_chunks(
             f"{p} triangles -> {nc} chunks x {tri_chunk} exceed the on-device LBVH "
             f"table's bound of {TABLE_CAP} triangles (the JAX package's resident cap); "
             "scenes beyond it render through the static 'bvh' or 'pbvh' handlers, "
-            "or animated through DynamicRenderer(refit=True), whose walk refits a "
-            "tree every frame at any size"
+            "or animated through DynamicRenderer(refit=True) on its default backend, "
+            "whose walk refits a tree every frame at any size"
         )
     pad = nc * tri_chunk - p
 

@@ -1,9 +1,10 @@
 """The per-frame refit of the walk's trees: new boxes and prims from new
 corners, the topology fixed.
 
-``DynamicRenderer``'s walked path (``backend="threaded"``) builds the
-``bvh`` handler's binary tree once, at the rest pose, and packs it once
-into kernel G's wide records (:func:`rt_rs_tpu_torch.bvh.wide.pack_walk`).
+``DynamicRenderer``'s walked path (``refit=True`` under the default
+backend or ``"threaded"``) builds the ``bvh`` handler's binary tree once,
+at the rest pose, and packs it once into kernel G's wide records
+(:func:`rt_rs_tpu_torch.bvh.wide.pack_walk`).
 Each frame then gathers the prims' corners from the frame's vertices and
 rewrites, in place:
 

@@ -91,9 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--refit", action="store_true",
-        help="like --dynamic but refit-only: the order frozen at the rest "
-        "pose (the chunk table's Morton order, or past 12,288 triangles the "
-        "walk's tree), per-frame bounds recompute (implies --dynamic)",
+        help="like --dynamic but refit-only: the walk's tree built at the rest "
+        "pose, per-frame bounds recompute (implies --dynamic)",
     )
     p.add_argument(
         "--seg-order", choices=("auto", "scene"), default="auto",

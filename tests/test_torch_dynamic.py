@@ -2,7 +2,9 @@
 
 Each frame gathers the prims' corners from new vertex positions,
 rebuilds the chunk table on the device (a Morton sort, or with
-``refit=True`` new bounds over the rest pose's order) and traces it.
+``refit=True`` new bounds over the rest pose's order) and traces it
+(``backend="packet"``; the walked refit, the default with
+``refit=True``, is tests/test_torch_dynamic_walk.py's).
 The geometry moves by :func:`wave`, the deformation ``chip_smoke.py``
 drives on the card: each vertex rises by ``WAVE_AMP * 4u(1 - u)``, u the
 fractional part of ``WAVE_FREQ * x + WAVE_STEP * frame``, computed in
@@ -78,12 +80,14 @@ def _config(width: int, height: int, bounces: int = 4) -> Config:
 
 
 def port(mode: str = "rebuild", size=SIZE, scene=None, bounces: int = 4, **kw) -> DynamicRenderer:
-    """A DynamicRenderer on the CPU.  Tests of the renderer's mechanics
+    """A DynamicRenderer on the CPU, on the chunk table
+    (``backend="packet"``: ``"auto"`` walks with ``refit=True``,
+    tests/test_torch_dynamic_walk.py).  Tests of the renderer's mechanics
     (chains, caches, checks) take one bounce: a CPU frame's cost is its
     bounces' packet traces, whatever the image size below 8,192 rays."""
     return DynamicRenderer(
         torus_scene() if scene is None else scene, config=_config(*size, bounces),
-        refit=mode == "refit", device="cpu", **kw,
+        refit=mode == "refit", device="cpu", backend="packet", **kw,
     )
 
 

@@ -39,7 +39,7 @@ from rt_rs_tpu_torch.handlers.bvh import BvhIntrs, accel_from_bvh_data, reorder_
 from rt_rs_tpu_torch.handlers.lbvh import TABLE_CAP
 from rt_rs_tpu_torch.ops import bvh_walk, cuda, wide_refit
 from rt_rs_tpu_torch.renderer import dynamic_walks
-from rt_rs_tpu_torch.scene.presets import torus_ghost, torus_row, torus_scene
+from rt_rs_tpu_torch.scene.presets import random_soup, torus_ghost, torus_row, torus_scene
 
 torch.set_num_threads(
     max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
@@ -204,13 +204,14 @@ def test_refit_map_reads_and_checks_the_records():
 
 def test_backend_rule():
     """``"packet"`` past the cap raises at the first frame; ``"threaded"``
-    with a rebuild raises at once; ``"auto"`` keeps the chunk table below
-    the cap (tests/test_torch_dynamic.py's frames) and walks past it
-    with ``refit=True``; a rebuild past it raises, naming ``refit=True``."""
+    with a rebuild raises at once; ``"auto"`` walks with ``refit=True``
+    at every scene size and keeps the chunk table for a rebuild, which
+    past the cap raises at its first frame, naming ``refit=True``."""
     small, big = torus_scene(), torus_row(3)
-    assert not walker(small, backend="auto")._walk
-    assert walker(small, backend="auto").stats.name == "LBVH-refit"
-    assert walker(small)._walk and walker(small).stats.name == "BVH-refit"
+    auto, packet = walker(small, backend="auto"), walker(small, backend="packet")
+    assert auto._walk and auto.stats.name == "BVH-refit"
+    assert not packet._walk and packet.stats.name == "LBVH-refit"
+    assert walker(random_soup(3, 10), backend="auto")._walk
     with pytest.raises(ValueError, match="refit=True"):
         DynamicRenderer(small, config=config(*SIZE), backend="threaded", device="cpu")
     with pytest.raises(ValueError, match="12288"):
@@ -220,12 +221,27 @@ def test_backend_rule():
     with pytest.raises(ValueError, match="unknown backend"):
         walker(small, backend="wide")
     cases = [
-        ("auto", True, TABLE_CAP, False), ("auto", True, TABLE_CAP + 1, True), ("auto", False, TABLE_CAP + 1, False),
-        ("packet", True, TABLE_CAP + 1, False), ("threaded", True, 10, True),
+        ("auto", True, True), ("auto", False, False), ("packet", True, False), ("packet", False, False),
+        ("threaded", True, True),
     ]
-    for backend, refit, n, walks in cases:
-        assert dynamic_walks(backend, refit, n, 64) == walks, (backend, refit, n)
-    assert not dynamic_walks("auto", True, TABLE_CAP, 48)  # the padded table's bound decides
+    for backend, refit, walks in cases:
+        assert dynamic_walks(backend, refit) == walks, (backend, refit)
+
+
+@pytest.mark.parametrize("i", (3, 12))
+def test_default_refit_walks(i):
+    """A ``DynamicRenderer`` with ``refit=True`` and the default backend
+    walks kernel G's tree: its frames equal the referee's."""
+    scene = torus_scene()
+    r = DynamicRenderer(scene, config=config(*SIZE), refit=True, device="cpu")
+    assert r.stats.name == "BVH-refit"
+    assert torch.equal(r.render_frame(*breathe(scene, i)), referee(scene, i, rest_data(scene)))
+
+
+def test_default_rebuild_takes_the_chunk_table():
+    """A rebuild under the default backend keeps the chunk table."""
+    r = DynamicRenderer(torus_scene(), config=config(*SIZE), device="cpu")
+    assert not r._walk and r.stats.name == "LBVH-rebuild"
 
 
 def test_negative_material_scene():
