@@ -55,7 +55,13 @@ device="cuda")`` and ``DynamicRenderer(..., device="cuda")``:
   refit (``backend="threaded"``) on ``torus_row(3)`` (18,962 triangles,
   past the chunk table's cap): per frame ``wide_refit``
   (``csrc/wide_refit.cu``) rewrites kernel G's packed tree, then kernel
-  G walks it, each frame held to the CPU's walked frame;
+  G walks it, each frame held to the CPU's walked frame; and the walked
+  rebuild (``backend="threaded"``, refit off) on ``torus_row(3)``: per
+  frame ``wide_build`` (``csrc/wide_build.cu``) builds kernel G's tree
+  from the frame's corners, its records held bit for bit to the twin's
+  (:func:`check_wide_builds`: ``torus_row(3)`` at the rest pose and two
+  waved poses, the canyon, the deep chain, one prim), every build call
+  of a frame replayed, and timed in phase 6;
 * ``dual``: pbvh with ``tri_chunk_fine=16`` (the refined batches sweep
   a second, tc = 16 table), resident torus and segmented canyon;
 * ``tools``: the user-facing layer, in a temporary directory
@@ -425,6 +431,10 @@ KERNELS = {
     # DynamicRenderer's per-frame refit of kernel G's tree: no TPU kernel
     # (the JAX package refits a chunk table in XLA ops)
     "wide_refit": ("rt_rs_tpu_torch/csrc/wide_refit.cu", "none: the walked dynamic path is the port's"),
+    # DynamicRenderer's per-frame build of kernel G's tree (a rebuild past
+    # the chunk table's cap): no TPU kernel (the JAX package rebuilds a
+    # chunk table in XLA ops)
+    "wide_build": ("rt_rs_tpu_torch/csrc/wide_build.cu", "none: the walked dynamic rebuild is the port's"),
     # hand-written for XLA code (a lax.while_loop), no pallas_call: kernel
     # G's modes (the frame path's closest, rows and any-hit; the flat path
     # takes closest)
@@ -459,10 +469,10 @@ PATHS = {
     # Renderer(handler="lbvh"): the chunk table built on the card
     "lbvh": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
     # DynamicRenderer: the table rebuilt (or refit) on the card each frame,
-    # and the walk's tree refit each frame
+    # and the walk's tree refit, or built, each frame
     "dynamic": (
         "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post", "wide_refit",
-        "bvh_walk[bvh,closest]", "bvh_walk[bvh,anyhit]",
+        "bvh_walk[bvh,closest]", "bvh_walk[bvh,anyhit]", "wide_build",
     ),
     # pbvh with tri_chunk_fine: refined batches on the tc = 16 table
     "dual": ("refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "shade_pre", "shade_post"),
@@ -482,6 +492,7 @@ PATHS = {
     "chain": (
         "refine_cull", "mt_trace[closest]", "mt_trace[anyhit]", "mt_trace[closest,early_exit]",
         "mt_stream", "shade_pre", "shade_post", "shade_bounce", "bvh_walk[bvh,closest]", "wide_refit",
+        "wide_build",
     ),
 }
 # The rows modes, which no path launches: the shading kernels read each
@@ -538,6 +549,8 @@ CHAIN = {
     "dynamic refit torus 1920x1080": (lambda: Wavy(dynamic(1920, 1080, refit=True), 0), 16, 16),
     "dynamic walk teapots3 384x288": (lambda: Wavy(walked(384, 288), 0), 16, 32),
     "dynamic walk teapots3 1920x1080": (lambda: Wavy(walked(1920, 1080), 0), 16, 16),
+    "dynamic rebuilt walk teapots3 384x288": (lambda: Wavy(rebuilt(384, 288), 0), 16, 32),
+    "dynamic rebuilt walk teapots3 1920x1080": (lambda: Wavy(rebuilt(1920, 1080), 0), 16, 16),
 }
 # cases also captured and checked at chain=4, whose graphs' device bytes are read
 CHAIN4 = ("torus 1920x1080", "canyon segmented 1920x1080")
@@ -705,7 +718,9 @@ class Recorder:
 
     def __init__(self):
         from rt_rs_tpu_torch.experiments import mxu_mt, tpose_table
-        from rt_rs_tpu_torch.ops import bvh_walk, bvh_walk_rf, packet_stream, packet_trace, shade_tile, wide_refit
+        from rt_rs_tpu_torch.ops import (
+            bvh_walk, bvh_walk_rf, packet_stream, packet_trace, shade_tile, wide_build, wide_refit,
+        )
 
         self.targets = [
             (packet_trace, "refine_cull"),
@@ -722,6 +737,7 @@ class Recorder:
             (bvh_walk, "bvh_walk_tiled"),
             (bvh_walk_rf, "bvh_walk_rf_tiled"),
             (wide_refit, "wide_refit"),
+            (wide_build, "wide_build"),
         ]
         self.calls: dict[str, list] = {name: [] for _, name in self.targets}
 
@@ -889,6 +905,52 @@ def walked(width: int, height: int, device: str | None = None):
     return dynamic(width, height, torus_row(3), device=device, refit=True, backend="threaded")
 
 
+def rebuilt(width: int, height: int, device: str | None = None):
+    """A DynamicRenderer of ``torus_row(3)`` on the walked rebuild: kernel
+    G's tree built on the card every frame (``csrc/wide_build.cu``)."""
+    from rt_rs_tpu_torch.scene.presets import torus_row
+
+    return dynamic(width, height, torus_row(3), device=device, backend="threaded")
+
+
+def check_build(what: str, a, errs: dict) -> None:
+    """A recorded wide_build call: the kernels into a fresh workspace
+    equal the twin's records and wide node count, bit for bit, and a
+    second build leaves the same bits."""
+    from rt_rs_tpu_torch.ops import wide_build as wb
+
+    pa, pb, pc, build = a
+    twin = wb.wide_build_reference(pa.cpu(), pb.cpu(), pc.cpu())
+    fresh = wb.workspace(build.p, pa.device)
+    tree = wb.wide_build(pa, pb, pc, fresh)
+    kern = (tree.nodes.clone(), tree.prims.clone())
+    errs["wide_build"] = max(errs["wide_build"], check_equal(what, [x.cpu() for x in kern], [twin.nodes, twin.prims]))
+    count = int(fresh.work["count"][0])
+    if count != twin.count:
+        raise AssertionError(f"{what}: {count} wide nodes, the twin's {twin.count}")
+    wb.wide_build(pa, pb, pc, fresh)
+    check_equal(f"{what} run twice", (tree.nodes, tree.prims), kern)
+
+
+def attach_twin_tree(calls) -> None:
+    """A walked-rebuild frame's recorded kernel G calls given the binary
+    tree their twin steps through (the card's records have none): the
+    twin build's of the recorded build's corners, payload leaves."""
+    import dataclasses
+
+    from rt_rs_tpu_torch.ops import wide_build as wb
+
+    if not calls["wide_build"]:
+        return
+    (pa, pb, pc, _), _, _ = calls["wide_build"][-1]
+    twin = wb.wide_build_reference(pa.cpu(), pb.cpu(), pc.cpu())
+    binary = tuple(x.to(pa.device) for x in twin.binary)
+    calls["bvh_walk_tiled"] = [
+        ((p, v, dataclasses.replace(tree, binary=binary, payload=True)), kw, out)
+        for (p, v, tree), kw, out in calls["bvh_walk_tiled"]
+    ]
+
+
 def check_refit(what: str, a, errs: dict) -> None:
     """A recorded wide_refit call: the kernel on a copy of the tree's
     records equals the twin on another, bit for bit, and a second run
@@ -1018,6 +1080,8 @@ def replay(label: str, calls, errs: dict, ulps: dict) -> None:
         check_rf_walk(f"{label} {rw.walk_name(kw['mode'])}#{i}", a, kw, errs)
     for i, (a, _, _) in enumerate(calls["wide_refit"]):
         check_refit(f"{label} wide_refit#{i}", a, errs)
+    for i, (a, _, _) in enumerate(calls["wide_build"]):
+        check_build(f"{label} wide_build#{i}", a, errs)
     for i, (a, kw, _) in enumerate(calls["mt_tpose"]):
         check_tpose(f"{label} mt_tpose#{i}", a, kw, errs)
     for i, (a, kw, _) in enumerate(calls["mt_mxu"]):
@@ -1097,7 +1161,9 @@ def check_walk_tiled(what: str, a, kw, errs: dict) -> None:
 
     name = bw.walk_name(a[2].payload, kw["mode"])
     kern = bw.bvh_walk_tiled(*a, **kw)
-    errs[name] = max(errs[name], check_equal(what, kern, bw.bvh_walk_tiled_reference(*a, **kw)))
+    # a walked rebuild's records with the twin's payload tree attached
+    # (attach_twin_tree) launch as kernel G's [rf] leaves
+    errs[name] = max(errs.get(name, 0.0), check_equal(what, kern, bw.bvh_walk_tiled_reference(*a, **kw)))
     check_equal(f"{what} vs the wide mirror", kern, bw.bvh_walk_tiled_wide_reference(*a, **kw))
     check_equal(f"{what} run twice", bw.bvh_walk_tiled(*a, **kw), kern)
 
@@ -1596,6 +1662,7 @@ def phase_compare():
         "bvh canyon": lambda: renderer(*CANYON_REPLAY, torus_canyon(), handler="bvh", **THREADED),
         "dynamic rebuild torus": lambda: Wavy(dynamic(*TORUS_REPLAY), DYNAMIC_FRAME),
         "dynamic walk teapots3": lambda: Wavy(walked(*TORUS_REPLAY), DYNAMIC_FRAME),
+        "dynamic rebuilt walk teapots3": lambda: Wavy(rebuilt(*TORUS_REPLAY), DYNAMIC_FRAME),
         "dual torus": lambda: renderer(*TORUS_REPLAY, tri_chunk_fine=FINE_TC),
         "dual canyon segmented": lambda: canyon(*CANYON_REPLAY, "segmented", tri_chunk_fine=FINE_TC),
     }
@@ -1606,6 +1673,7 @@ def phase_compare():
         calls = rec.calls
         if isinstance(r, Wavy):
             attach_binary(r.r, calls)
+            attach_twin_tree(calls)
         t0 = time.perf_counter()
         replay(label, calls, errs, ulps)
         if calls["mt_tpose"]:
@@ -2273,6 +2341,31 @@ def walk_referee_frames() -> None:
         same_frame(f"dynamic walk teapots3 96x72 frame {frame} vs the static bvh referee", w.render_frame(), ref.render_frame())
 
 
+def check_wide_builds() -> None:
+    """The walked rebuild's kernels against their twin, bit for bit and
+    twice alike, with the twin's wide node count: ``torus_row(3)`` at
+    the rest pose and frames 3 and DYNAMIC_FRAME of the wave, the canyon
+    (50,562 triangles), the deep chain and a one-prim soup."""
+    from rt_rs_tpu_torch.ops import wide_build as wb
+    from rt_rs_tpu_torch.scene.presets import deep_chain, random_soup, torus_canyon, torus_row
+
+    errs = {"wide_build": 0.0}
+    row3 = torus_row(3)
+    cases = {f"teapots3 wave {i}": (row3, i) for i in (None, 3, DYNAMIC_FRAME)}
+    cases.update({"canyon": (torus_canyon(), None), "deep chain": (deep_chain(), None), "one prim": (random_soup(3, 1), None)})
+    for label, (scene, frame) in cases.items():
+        posed = scene
+        if frame is not None:
+            import copy
+
+            posed = copy.deepcopy(scene)
+            posed.vert_pos = wave(scene, frame)[0]
+        a = posed.pack(device=DEVICE)
+        build = wb.workspace(posed.num_prims, DEVICE)
+        check_build(f"wide_build {label}", (a.pa, a.pb, a.pc, build), errs)
+    say(f"[build] wide_build on {list(cases)}: records bit-equal to the twin, twice alike")
+
+
 def drive_dynamic(card: str) -> tuple[dict, dict]:
     """The dynamic path: the on-device builds against the CPU
     (:func:`check_builds`); DynamicRenderer at 96x72, rebuild and refit,
@@ -2297,11 +2390,15 @@ def drive_dynamic(card: str) -> tuple[dict, dict]:
                 f"max abs {err:.3g} (atol {REF_ATOL})"
             )
     walk_referee_frames()
+    check_wide_builds()
     kept = {}
-    for mode in ("rebuild", "refit", "walk"):
+    for mode in ("rebuild", "refit", "walk", "rebuilt walk"):
         for w, h in (TORUS_REPLAY, PROBE_SIZE):
-            r = Wavy(walked(w, h) if mode == "walk" else dynamic(w, h, refit=mode == "refit"), 0)
-            scene = "teapots3" if mode == "walk" else "torus"
+            if mode.endswith("walk"):
+                r = Wavy(walked(w, h) if mode == "walk" else rebuilt(w, h), 0)
+            else:
+                r = Wavy(dynamic(w, h, refit=mode == "refit"), 0)
+            scene = "teapots3" if mode.endswith("walk") else "torus"
             check_frame(f"dynamic {mode} {scene} {w}x{h} frame 0", r.render_frame(), w, h)
             kept[f"{mode} {w}x{h}"] = r
     kept["build_bvh_device_s"] = secs
@@ -3301,6 +3398,15 @@ def work(name: str, a, kw) -> tuple[int, int]:
         q, u = refit.prim_meta.shape[0], refit.slot_word.shape[0]
         spans = int((refit.slot_range[:, 1] - refit.slot_range[:, 0]).sum())
         return 9 * q + 12 * spans + 15 * u, q * (36 + 8 + 48) + u * (12 + 24)
+    if name == "wide_build":
+        # the build: each prim's corners read once (36 B) and its record
+        # written (48 B), each wide node's record written (128 B); the
+        # keys, the tree, its boxes and the collapse stay in L2 (a few MB);
+        # operations: a prim's box and code (about 60) and edges (9), an
+        # internal node's union (6) and area (5), a slot's wobble (15)
+        pa, _, _, build = a
+        p, k = build.p, int(build.work["count"][0])
+        return 69 * p + 11 * (p - 1) + 15 * 4 * k, p * (36 + 48) + k * 128
     if name.startswith("fma_peak"):
         from rt_rs_tpu_torch.experiments import roofline
 
@@ -3668,6 +3774,7 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
     from rt_rs_tpu_torch.ops import packet_stream as ps
     from rt_rs_tpu_torch.ops import packet_trace as pt
     from rt_rs_tpu_torch.ops import shade_tile as st
+    from rt_rs_tpu_torch.ops import wide_build as wb
     from rt_rs_tpu_torch.ops import wide_refit as wr
 
     torus, seg, dma, knobs, seg_ee = (
@@ -3727,6 +3834,11 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
         picks[name] = (kern, twin, (a, kw, None), 1)
     # the walked refit of teapots3 (one call a frame)
     picks["wide_refit"] = (wr.wide_refit, wr.wide_refit_reference, recorded["dynamic walk teapots3"]["wide_refit"][0], 5)
+    # the walked rebuild of teapots3 (one build a frame), the twin on the host's copy
+    picks["wide_build"] = (
+        wb.wide_build, lambda pa, pb, pc, _build: wb.wide_build_reference(pa.cpu(), pb.cpu(), pc.cpu()),
+        recorded["dynamic rebuilt walk teapots3"]["wide_build"][0], 2,
+    )
     times = {}
     for name, (kern, twin, (a, kw, _), twin_reps) in picks.items():
         ev_ms = time_ms(lambda: kern(*a, **kw), 50)
@@ -3750,6 +3862,8 @@ def phase_kernel_times(recorded, torus_1080_ee, kept, sep_rate: float, card: str
             extra += f", {n} entries, {k_ms * 1e3 / n:.4f} us/entry"
         if name.startswith("mt_trace"):
             extra += f" ({list_stats(a[3])})"
+        if name == "wide_build":
+            extra += f", {a[3].p} prims, {int(a[3].work['count'][0])} wide nodes written"
         if name == "wide_refit":
             refit = a[4]
             spans = refit.slot_range[:, 1] - refit.slot_range[:, 0]

@@ -51,7 +51,9 @@ null row that no ray hits (``handlers.bvh.reorder_scene_arrays``).
 The stack a walk needs grows with the tree's depth (about one entry a
 binary level on a chain).  ``stack`` records it; kernel G keeps up to
 ``LOCAL_STACK`` entries a thread in local memory and takes a deeper
-stack in a scratch buffer the wrapper allocates.
+stack in a scratch buffer the wrapper allocates.  A tree built on the
+device every frame (``ops/wide_build.py``) records the bound its
+collapse keeps, ``LOCAL_STACK``, known before the tree is built.
 """
 
 from __future__ import annotations

@@ -6,10 +6,12 @@ torch ops on the scene's device, so the "build" is a few device ops
 that a frame can repeat:
 
 * a static scene builds once in :meth:`LbvhIntrs.build`;
-* a dynamic scene calls :func:`build_accel_device` (or
-  :func:`device_chunks` over a frozen order) inside each frame step
+* a dynamic scene on the packet kernels calls :func:`build_accel_device`
+  (or :func:`device_chunks` over a frozen order) inside each frame step
   (:class:`rt_rs_tpu_torch.renderer.DynamicRenderer`), which on a card
-  a CUDA graph can capture: no step reads the host.
+  a CUDA graph can capture: no step reads the host.  Its other per-frame
+  rebuild, kernel G's wide tree built from an LBVH on the device
+  (``ops/wide_build.py``), takes scenes past this table's bound.
 
 Morton-adjacent prims are spatially local, so 64-triangle chunks in
 that order are local too, if looser than chunks of a BVH's leaf order
@@ -19,7 +21,8 @@ emit-rows and any-hit modes).  ``interpret`` is not taken, as in pbvh.
 
 The table is bounded by the JAX package's resident cap,
 ``MAX_VMEM_CHUNKS * TRI_CHUNK`` = 12,288 triangles: a larger scene
-raises ``ValueError``, as it does there.  The rows table needs
+raises ``ValueError``, as it does there (``DynamicRenderer`` walks such
+a scene instead, unless told ``backend="packet"``).  The rows table needs
 :func:`~rt_rs_tpu_torch.ops.packet_trace.rows_budget_ok` at the actual
 chunk height (8,192 triangles at tc = 64).
 """
@@ -83,8 +86,9 @@ def device_chunks(
             f"{p} triangles -> {nc} chunks x {tri_chunk} exceed the on-device LBVH "
             f"table's bound of {TABLE_CAP} triangles (the JAX package's resident cap); "
             "scenes beyond it render through the static 'bvh' or 'pbvh' handlers, "
-            "or animated through DynamicRenderer(refit=True) on its default backend, "
-            "whose walk refits a tree every frame at any size"
+            "or animated through DynamicRenderer on its default backend, which walks "
+            "kernel G's tree at any size: built on the device every frame, or with "
+            "refit=True built once and refit every frame"
         )
     pad = nc * tri_chunk - p
 

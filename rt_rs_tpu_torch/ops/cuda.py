@@ -65,6 +65,7 @@ SIGNATURES = {
     "rt_bvh_walk_tiled": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
     "rt_bvh_walk_rf_tiled": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P] * 4 + [_P, _I, _P],
     "rt_wide_refit": [_P] * 4 + [_I] + [_P] * 2 + [_I, _I] + [_P] * 2 + [_P, _I, _P],
+    "rt_wide_build": [_P] * 3 + [_I] + [_P] * 21 + [_I] + [_P, _I, _P],
 }
 
 

@@ -101,22 +101,16 @@ def _clz32(v: torch.Tensor) -> torch.Tensor:
     return 32 - v
 
 
-def karras_hierarchy(codes_sorted: torch.Tensor):
-    """Parallel radix-tree emit (Karras 2012) over sorted codes.
-
-    Returns ``(left, right, left_leaf, right_leaf, parent_leaf,
-    parent_internal)``: ``left`` / ``right`` [P-1] int32 child indices,
-    ``left_leaf`` / ``right_leaf`` [P-1] bool (the child is a leaf),
-    and parent pointers ([P] and [P-1] int32).  Duplicate codes are
-    told apart by index."""
+def karras_splits(codes_sorted: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Karras' (2012) parallel radix-tree emit over sorted codes, every
+    internal node at once -> ``(i, j, gamma)`` int64 [P-1]: internal
+    node ``i`` covers the sorted keys from ``min(i, j)`` to ``max(i,
+    j)`` and splits after key ``gamma`` (its children are ``gamma`` and
+    ``gamma + 1``, each a leaf where its range is that one key).  Equal
+    codes continue into the index bits (the ``code << 32 | i`` key), so
+    the keys are distinct and the tree is unique.  P >= 2."""
     n = codes_sorted.shape[0]
     dev = codes_sorted.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    if n < 2:
-        z = torch.zeros((0,), **i32)
-        f = torch.zeros((0,), dtype=torch.bool, device=dev)
-        return z, z, f, f, torch.zeros((n,), **i32), torch.zeros((0,), **i32)
-
     codes = codes_sorted.to(torch.int64)
     i = torch.arange(n - 1, dtype=torch.int64, device=dev)
     ci = codes[: n - 1]
@@ -159,8 +153,27 @@ def karras_hierarchy(codes_sorted: torch.Tensor):
         probe = delta(i + (s + t) * d) > delta_node
         s = torch.where(probe & (t >= 1), s + t, s)
         div = torch.clamp_max(div * 2, 1 << 30)
+    return i, j, i + s * d + torch.clamp_max(d, 0)
 
-    gamma = i + s * d + torch.clamp_max(d, 0)
+
+def karras_hierarchy(codes_sorted: torch.Tensor):
+    """Parallel radix-tree emit (Karras 2012) over sorted codes
+    (:func:`karras_splits`).
+
+    Returns ``(left, right, left_leaf, right_leaf, parent_leaf,
+    parent_internal)``: ``left`` / ``right`` [P-1] int32 child indices,
+    ``left_leaf`` / ``right_leaf`` [P-1] bool (the child is a leaf),
+    and parent pointers ([P] and [P-1] int32).  Duplicate codes are
+    told apart by index."""
+    n = codes_sorted.shape[0]
+    dev = codes_sorted.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    if n < 2:
+        z = torch.zeros((0,), **i32)
+        f = torch.zeros((0,), dtype=torch.bool, device=dev)
+        return z, z, f, f, torch.zeros((n,), **i32), torch.zeros((0,), **i32)
+
+    i, j, gamma = karras_splits(codes_sorted)
     left = gamma
     right = gamma + 1
     left_leaf = torch.minimum(i, j) == gamma

@@ -46,8 +46,8 @@ from rt_rs_tpu_torch.handlers.base import IntrsHandler, IntrsStats, tiled_as_fla
 from rt_rs_tpu_torch.handlers.bvh import (
     BvhIntrs, TreeIntrs, accel_from_bvh_data, check_modes, reorder_scene_arrays, walk_tiled_fn,
 )
-from rt_rs_tpu_torch.handlers.lbvh import build_accel_device, chunk_footprint, device_chunks
-from rt_rs_tpu_torch.ops import cuda, shade, wide_refit
+from rt_rs_tpu_torch.handlers.lbvh import build_accel_device, chunk_footprint, chunk_table_fits, device_chunks
+from rt_rs_tpu_torch.ops import cuda, shade, wide_build, wide_refit
 from rt_rs_tpu_torch.ops import packet_trace as pt
 from rt_rs_tpu_torch.ops.lbvh import centroid_codes, morton_order
 from rt_rs_tpu_torch.scene import Scene
@@ -630,31 +630,27 @@ class Renderer(_ChainDispatch):
         return io.frames, io.poses, h
 
 
-def dynamic_walks(backend: str, refit: bool) -> bool:
+def dynamic_walks(backend: str, refit: bool, prims: int, tri_chunk: int = DYNAMIC_TRI_CHUNK) -> bool:
     """``DynamicRenderer``'s backend rule -> whether it walks kernel G's
-    tree refit every frame (else the chunk table and the packet
-    kernels):
+    tree (else the chunk table and the packet kernels), for a scene of
+    ``prims`` triangles:
 
     * ``"packet"``: the chunk table, bounded by the JAX package's
       12,288 triangles (a larger scene raises at its first frame);
-    * ``"threaded"``: the walk, at every scene size; it needs
-      ``refit=True``, since the tree is built on the host once, at the
-      rest pose;
+    * ``"threaded"``: the walk, at every scene size: with ``refit=True``
+      over the tree built on the host once, at the rest pose, and refit
+      every frame; with a rebuild over a tree built on the device every
+      frame (:func:`~rt_rs_tpu_torch.ops.wide_build.wide_build`);
     * ``"auto"``: the walk with ``refit=True``, at every scene size, as
       the ``bvh`` handler's ``"auto"`` walks (the JAX package's cap is its
       TPU's VMEM byte model; on an H100 a 1080p frame of the breathing
       6,322-triangle teatime scene takes 2.76 ms walked against 15.39 ms
       on the chunk table's packet kernels); a rebuild keeps the chunk
-      table, which the walk's tree, fixed at the rest pose, cannot
-      follow, and past the cap raises at its first frame, naming
-      ``refit=True``."""
-    if backend == "threaded" and not refit:
-        raise ValueError(
-            "backend='threaded' needs refit=True: the walk's tree is built on the host "
-            "once, at the rest pose, and refit on the device every frame; a per-frame "
-            "rebuild runs on the device for the chunk table only (backend='packet')"
-        )
-    return backend == "threaded" or (backend == "auto" and refit)
+      table wherever it fits (``tri_chunk`` high chunks within 12,288
+      triangles), and past it walks the tree built every frame."""
+    if backend == "threaded":
+        return True
+    return backend == "auto" and (refit or not chunk_table_fits(prims, tri_chunk))
 
 
 class DynamicRenderer(_ChainDispatch):
@@ -668,19 +664,24 @@ class DynamicRenderer(_ChainDispatch):
     prim.  Two structures (``backend``, :func:`dynamic_walks`):
 
     * the chunk table of the packet kernels, the default for a rebuild
+      of at most 12,288 triangles, the JAX package's bound
       (:func:`~rt_rs_tpu_torch.handlers.lbvh.build_accel_device`, or
       with ``refit=True`` and ``backend="packet"``
       :func:`~rt_rs_tpu_torch.handlers.lbvh.device_chunks` over the rest
-      pose's Morton order), with its rows table, bounded by the JAX
-      package's 12,288 triangles;
-    * kernel G's wide tree, the default with ``refit=True``: the ``bvh``
+      pose's Morton order), with its rows table;
+    * kernel G's wide tree, walked in the closest and any-hit modes at
+      every scene size: the default with ``refit=True``, the ``bvh``
       handler's tree built once on the host at the rest pose and packed
       once, then each frame its boxes and prims rewritten from the
-      corners by :func:`~rt_rs_tpu_torch.ops.wide_refit.wide_refit` and
-      walked in the closest and any-hit modes, at every scene size.  On the CPU,
-      where nothing is packed, the twin walks the binary tree, its
-      covering bounds refit in torch ops
-      (:func:`~rt_rs_tpu_torch.ops.wide_refit.binary_refit`).
+      corners by :func:`~rt_rs_tpu_torch.ops.wide_refit.wide_refit`; and
+      the default for a rebuild past the chunk table's bound, an LBVH
+      built from each frame's corners on the device and packed there
+      (:func:`~rt_rs_tpu_torch.ops.wide_build.wide_build`), its prims
+      carrying their scene rows so that the scene tensors keep their
+      order.  On the CPU, where nothing is packed for the refit, the
+      twin walks the binary tree, its covering bounds refit in torch ops
+      (:func:`~rt_rs_tpu_torch.ops.wide_refit.binary_refit`); a rebuild
+      walks the binary tree the build's twin makes.
 
     Every host decision (the rows gate, the path) is taken at
     construction, so a step reads nothing back from the device and a
@@ -707,10 +708,12 @@ class DynamicRenderer(_ChainDispatch):
         the walk builds its tree once and bakes its leaf order in.  A
         stale order loosens the bounds but never changes a result:
         re-create the renderer when the geometry drifts far from the
-        rest pose.  ``backend`` (``"auto"``, ``"threaded"`` or
-        ``"packet"``, the ``bvh`` handler's values) picks the structure
-        by :func:`dynamic_walks`: ``"auto"`` walks with ``refit=True``
-        and keeps the chunk table for a rebuild.
+        rest pose.  A rebuild (the default) builds the structure anew
+        from each frame's corners.  ``backend`` (``"auto"``,
+        ``"threaded"`` or ``"packet"``, the ``bvh`` handler's values)
+        picks the structure by :func:`dynamic_walks`: ``"auto"`` walks
+        with ``refit=True``, and for a rebuild keeps the chunk table up
+        to its 12,288 triangles and walks past them.
 
         ``force_rows`` overrides the kernel-emitted-rows default (on):
         the chunk table's rows need a scene without negative materials,
@@ -735,10 +738,11 @@ class DynamicRenderer(_ChainDispatch):
         self.camera = scene.camera
         # One chunk height for the rows gate and every build.
         tc = DYNAMIC_TRI_CHUNK if tri_chunk is None else tri_chunk
-        self._walk = dynamic_walks(backend, refit)
+        self._walk = dynamic_walks(backend, refit, scene.num_prims, tc)
         self._tree: wide.WalkTree | None = None  # the packed records (on a card)
         self._refit_map: wide.RefitMap | None = None
         self._binary: wide.BinaryRefit | None = None  # the CPU twin's topology
+        self._rebuild: wide_build.WideBuild | None = None  # a walked rebuild's buffers (on a card)
         with tracing.setup("rt.build", "build_s"):
             base = scene.pack(device=self.device)
             # The static pack's duplicate-triple collapse: topology is fixed,
@@ -746,8 +750,12 @@ class DynamicRenderer(_ChainDispatch):
             prim_idx = torch.from_numpy(
                 np.asarray(intersect_indices(scene.prim_indices), dtype=np.int64).reshape(-1, 3)
             ).to(self.device)
-            if self._walk:
+            if self._walk and refit:
                 base, prim_idx = self._build_tree(scene, base, prim_idx)
+            elif self._walk and self.device.type == "cuda":
+                self._rebuild = wide_build.workspace(scene.num_prims, self.device)
+            elif self._walk and scene.num_prims < 1:
+                raise ValueError("a walked rebuild needs at least one prim")
             elif refit:
                 order = morton_order(centroid_codes(base.pa[1:], base.pb[1:], base.pc[1:])).long()
                 prim_idx = prim_idx[order]
@@ -826,11 +834,20 @@ class DynamicRenderer(_ChainDispatch):
 
     def _build(self, arrays):
         """One frame's structure -> (accel, arrays to shade): the walk's
-        tree refit (a :class:`~rt_rs_tpu_torch.bvh.wide.RefitWalk`: on a
-        card the packed records rewritten in place with the map they were
-        rewritten by, on the CPU the binary tree with new bounds), or the
-        chunk table: the rebuild (sort, permute, chunk) or, with
-        ``refit``, the table over the rest pose's order."""
+        tree rebuilt (a :class:`~rt_rs_tpu_torch.ops.wide_build.WideBuild`:
+        on a card its buffers, the packed records rewritten in place; on
+        the CPU the twin's tree) or refit (a
+        :class:`~rt_rs_tpu_torch.bvh.wide.RefitWalk`: on a card the packed
+        records rewritten in place with the map they were rewritten by, on
+        the CPU the binary tree with new bounds), or the chunk table: the
+        rebuild (sort, permute, chunk) or, with ``refit``, the table over
+        the rest pose's order."""
+        if self._walk and not self._refit:
+            if self._rebuild is not None:
+                wide_build.wide_build(arrays.pa, arrays.pb, arrays.pc, self._rebuild)
+                return self._rebuild, arrays
+            tree = wide_build.wide_build(arrays.pa, arrays.pb, arrays.pc)
+            return wide_build.WideBuild(p=arrays.pa.shape[0] - 1, tree=tree, work={}), arrays
         if self._walk:
             if self._tree is not None:
                 wide_refit.wide_refit(arrays.pa, arrays.pb, arrays.pc, self._tree, self._refit_map)
@@ -899,10 +916,18 @@ class DynamicRenderer(_ChainDispatch):
 
     @property
     def stats(self) -> IntrsStats:
-        """The structure's size: for the walk, the ``bvh`` handler's
-        48-byte-a-node footprint, named ``BVH-refit``; for the chunk
-        table, its device bytes (its shapes do not change from frame to
-        frame), named ``LBVH-rebuild`` or ``LBVH-refit``."""
+        """The structure's size: for the walked refit, the ``bvh``
+        handler's 48-byte-a-node footprint, named ``BVH-refit``; for the
+        walked rebuild, the bytes of its packed records (room for
+        ``max(P - 1, 1)`` nodes of 128 bytes and P prims of 48), named
+        ``BVH-rebuild``; for the chunk table, its device bytes (its
+        shapes do not change from frame to frame), named
+        ``LBVH-rebuild`` or ``LBVH-refit``."""
+        if self._walk and not self._refit:
+            p = self.scene.num_prims
+            return IntrsStats(
+                name="BVH-rebuild", size=max(p - 1, 1) * 4 * wide.NODE_WORDS + p * 4 * wide.PRIM_WORDS,
+            )
         if self._walk:
             return IntrsStats(name="BVH-refit", size=self._footprint)
         if self._stats is None:

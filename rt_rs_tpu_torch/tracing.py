@@ -10,8 +10,8 @@ check it once (:func:`begin`).
 **Device counters.**  One int64 buffer per device (:func:`buffer`),
 kept here so that it outlives every ``Renderer`` (and is not reachable
 from its accel).  Word 0 is the enable flag; then :data:`SUB` words for
-each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F, G, the records walk
-and the wide refit take the buffer's address and a counter's index as launch arguments,
+each counter of :data:`COUNTERS`.  Kernels B (its prologue), D, F, G, the records walk,
+the wide refit and the wide build take the buffer's address and a counter's index as launch arguments,
 which a CUDA graph captures as they are, so one graph serves tracing on
 and off.  Each block reads the flag once; when it is 0 the block does
 nothing more, and when it is 1 the block adds its counts with one
@@ -40,7 +40,10 @@ between continues its counts.
   every mode (``ops/bvh_walk_rf.py``'s ``RfWork``);
 * ``refit_prims``, ``refit_nodes``: the packed prim records and the
   wide nodes' child slots that ``DynamicRenderer``'s per-frame refit of
-  kernel G's tree rewrites (``csrc/wide_refit.cu``).
+  kernel G's tree rewrites (``csrc/wide_refit.cu``);
+* ``rebuild_prims``, ``rebuild_nodes``: the packed prim records and the
+  wide nodes that ``DynamicRenderer``'s per-frame build of kernel G's
+  tree writes (``csrc/wide_build.cu``).
 
 Other kernels (``mt_stream``, ``refine_cull``, ``shade_pre``, the
 probes) count nothing.
@@ -77,6 +80,7 @@ COUNTERS = (
     "walk_rays", "walk_nodes", "walk_prims", "walk_anyhit", "walk_blocked",
     "rf_rays", "rf_records", "rf_prims",
     "refit_prims", "refit_nodes",
+    "rebuild_prims", "rebuild_nodes",
 )
 INDEX = {name: i for i, name in enumerate(COUNTERS)}
 WORDS = 1 + SUB * len(COUNTERS)
@@ -231,7 +235,10 @@ def snapshot() -> dict:
         "walk_prims": c["walk_prims"],
         "walk_anyhit": c["walk_anyhit"],
         "walk_blocked": c["walk_blocked"],
-        **{k: c[k] for k in ("rf_rays", "rf_records", "rf_prims", "refit_prims", "refit_nodes")},
+        **{
+            k: c[k]
+            for k in ("rf_rays", "rf_records", "rf_prims", "refit_prims", "refit_nodes", "rebuild_prims", "rebuild_nodes")
+        },
         "frames": st.frames,
         **st.totals,
         "launches": dict(cuda.LAUNCHES),

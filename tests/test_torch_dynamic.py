@@ -308,12 +308,36 @@ def test_stats_and_negative_materials():
     assert np.nan_to_num(frame).mean() > 0.05
 
 
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_walked_rebuild_matches_jax_below_the_cap(seed):
+    """The port's walked rebuild (``backend="threaded"``: kernel G's tree
+    built from each frame's corners, ``ops/wide_build.py``) of a seeded
+    300-triangle soup at 64x48, at its rest pose and moved, against the
+    JAX package's rebuild (a chunk table) at atol 2e-5, the repo's frame
+    rule: the closest hits are the same triangles whatever the
+    structure."""
+    scene = random_soup(seed, 300)
+    cfg = _config(64, 48)
+    r = DynamicRenderer(scene, config=cfg, device="cpu", backend="threaded")
+    assert r._walk and r.stats.name == "BVH-rebuild"
+    jr = JaxDynamicRenderer(
+        rt_rs_tpu.Scene.from_json(scene.to_json()),
+        config=rt_rs_tpu.Config(resolution=rt_rs_tpu.Resolution.sized(64, 48)),
+    )
+    moved = (np.asarray(scene.vert_pos, np.float64) * 1.01).astype(np.float32)
+    for verts in (None, moved):
+        got = r.render_frame(verts).numpy()
+        want = np.asarray(jr.render_frame(verts))
+        np.testing.assert_allclose(got, want, rtol=0, atol=FRAME_ATOL)
+    assert got.mean() > 0.05
+
+
 def test_table_bound_raises_like_jax():
     """Beyond 12,288 triangles the table raises at the first frame, in
-    both packages."""
+    both packages (the port's default backend walks such a scene)."""
     big = random_soup(3, 12_289)
     with pytest.raises(ValueError, match="12288"):
-        DynamicRenderer(big, config=_config(16, 16), device="cpu").render_frame()
+        DynamicRenderer(big, config=_config(16, 16), device="cpu", backend="packet").render_frame()
     jr = JaxDynamicRenderer(
         rt_rs_tpu.Scene.from_json(big.to_json()),
         config=rt_rs_tpu.Config(resolution=rt_rs_tpu.Resolution.sized(16, 16)),

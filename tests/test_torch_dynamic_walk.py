@@ -1,5 +1,6 @@
-"""``DynamicRenderer``'s walked path: kernel G over the ``bvh`` handler's
-tree, built once at the rest pose and refit every frame.
+"""``DynamicRenderer``'s walked refit: kernel G over the ``bvh`` handler's
+tree, built once at the rest pose and refit every frame (the walked
+rebuild is tests/test_torch_wide_build.py's).
 
 The referee of a pose's frame is the static ``bvh`` Renderer of a scene
 holding that pose's vertices, with the rest pose's tree
@@ -204,28 +205,33 @@ def test_refit_map_reads_and_checks_the_records():
 
 def test_backend_rule():
     """``"packet"`` past the cap raises at the first frame; ``"threaded"``
-    with a rebuild raises at once; ``"auto"`` walks with ``refit=True``
-    at every scene size and keeps the chunk table for a rebuild, which
-    past the cap raises at its first frame, naming ``refit=True``."""
+    walks with or without a refit; ``"auto"`` walks with ``refit=True``
+    at every scene size, and for a rebuild keeps the chunk table up to
+    its cap and walks the tree built every frame past it."""
     small, big = torus_scene(), torus_row(3)
     auto, packet = walker(small, backend="auto"), walker(small, backend="packet")
     assert auto._walk and auto.stats.name == "BVH-refit"
     assert not packet._walk and packet.stats.name == "LBVH-refit"
     assert walker(random_soup(3, 10), backend="auto")._walk
-    with pytest.raises(ValueError, match="refit=True"):
-        DynamicRenderer(small, config=config(*SIZE), backend="threaded", device="cpu")
+    threaded = DynamicRenderer(small, config=config(*SIZE), backend="threaded", device="cpu")
+    assert threaded._walk and threaded.stats.name == "BVH-rebuild"
     with pytest.raises(ValueError, match="12288"):
         walker(big, size=(8, 8), backend="packet").render_frame()
-    with pytest.raises(ValueError, match=r"12288.*refit=True"):
-        DynamicRenderer(big, config=config(8, 8), device="cpu").render_frame()
+    with pytest.raises(ValueError, match="12288"):
+        DynamicRenderer(big, config=config(8, 8), backend="packet", device="cpu").render_frame()
+    past = DynamicRenderer(big, config=config(8, 8), device="cpu")
+    assert past._walk and past.stats.name == "BVH-rebuild"
     with pytest.raises(ValueError, match="unknown backend"):
         walker(small, backend="wide")
     cases = [
-        ("auto", True, True), ("auto", False, False), ("packet", True, False), ("packet", False, False),
-        ("threaded", True, True),
+        ("auto", True, 10, True), ("auto", False, 10, False), ("auto", False, TABLE_CAP, False),
+        ("auto", False, TABLE_CAP + 1, True), ("auto", True, TABLE_CAP + 1, True),
+        ("packet", True, 10, False), ("packet", False, TABLE_CAP + 1, False),
+        ("threaded", True, 10, True), ("threaded", False, 10, True), ("threaded", False, TABLE_CAP + 1, True),
     ]
-    for backend, refit, walks in cases:
-        assert dynamic_walks(backend, refit) == walks, (backend, refit)
+    for backend, refit, prims, walks in cases:
+        assert dynamic_walks(backend, refit, prims) == walks, (backend, refit, prims)
+    assert not dynamic_walks("auto", False, 12_000, tri_chunk=64) and dynamic_walks("auto", False, 12_000, tri_chunk=5000)
 
 
 @pytest.mark.parametrize("i", (3, 12))
@@ -239,7 +245,8 @@ def test_default_refit_walks(i):
 
 
 def test_default_rebuild_takes_the_chunk_table():
-    """A rebuild under the default backend keeps the chunk table."""
+    """A rebuild under the default backend keeps the chunk table up to its
+    cap (past it, tests/test_torch_wide_build.py walks)."""
     r = DynamicRenderer(torus_scene(), config=config(*SIZE), device="cpu")
     assert not r._walk and r.stats.name == "LBVH-rebuild"
 

@@ -282,6 +282,34 @@ def test_wide_refit_counts_what_it_writes():
     assert snap["refit_nodes"] == 3 * used > 0
 
 
+def test_rebuild_counters_follow_each_other():
+    """The wide build adds ``rebuild_nodes`` right after ``rebuild_prims``."""
+    assert tracing.INDEX["rebuild_nodes"] == tracing.INDEX["rebuild_prims"] + 1
+
+
+def test_walked_rebuild_counts_its_build():
+    """A walked-rebuild frame of ``DynamicRenderer`` under a profiler
+    counts every prim record (P a frame) and every wide node the build
+    writes, the twin's node count; outside a session, nothing."""
+    from rt_rs_tpu_torch import DynamicRenderer
+    from rt_rs_tpu_torch.ops import wide_build
+    from rt_rs_tpu_torch.scene.presets import random_soup
+
+    scene = random_soup(21, 150)
+    r = DynamicRenderer(scene, size=SIZE, backend="threaded", device="cpu")
+    r.render_frame()  # a check outside a session: the next one starts from zero
+    with profile(activities=CPU_ACTS):
+        for _ in range(2):
+            r.render_frame()
+    snap = tracing.snapshot()
+    a = scene.pack(device="cpu")
+    assert snap["frames"] == 2
+    assert snap["rebuild_prims"] == 2 * scene.num_prims
+    assert snap["rebuild_nodes"] == 2 * wide_build.wide_build_reference(a.pa, a.pb, a.pc).count > 0
+    assert snap["walk_rays"] > 0
+    tracing.begin("cpu", 0)  # outside the session: disarmed
+
+
 @pytest.mark.parametrize("backend", ["packet", "threaded"])
 def test_dynamic_renderer_times_its_build(backend):
     """``DynamicRenderer``'s set-up (the pack and the rest pose's order
@@ -369,6 +397,30 @@ def _by_device(device) -> dict:
     buf = tracing.buffer(device).cpu()
     words = buf[1:].reshape(len(tracing.COUNTERS), tracing.SUB).sum(dim=1).tolist()
     return {n: v for n, v in zip(tracing.COUNTERS, words) if v}
+
+
+@pytest.mark.card
+def test_card_wide_build_counts_as_its_twin():
+    """The build's kernels add P to ``rebuild_prims`` and the wide node
+    count to ``rebuild_nodes``, as the twin counts, and nothing outside a
+    session."""
+    from rt_rs_tpu_torch.ops import wide_build
+
+    dev = card()
+    a = torus_scene().pack(device="cpu")
+    p = a.pa.shape[0] - 1
+    build = wide_build.workspace(p, dev)
+    corners = [x.to(dev) for x in (a.pa, a.pb, a.pc)]
+    got, want = {}, {}
+    for d, args, out in (("cpu", (a.pa, a.pb, a.pc), want), (dev, (*corners, build), got)):
+        wide_build.wide_build(*args)
+        with profile(activities=CPU_ACTS):
+            tracing.begin(d, 1)
+            wide_build.wide_build(*args)
+        snap = tracing.snapshot()
+        out.update({k: snap[k] for k in ("rebuild_prims", "rebuild_nodes")})
+        tracing.begin(d, 0)  # outside the session: disarmed
+    assert got == want == {"rebuild_prims": p, "rebuild_nodes": int(build.work["count"][0])}
 
 
 @pytest.mark.card
